@@ -1,0 +1,146 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+//
+// State layout everywhere: a trimmed 3D grid [x, y, z] of N^3 values,
+// C-order with z contiguous (the global last plane per axis is dropped and
+// constrained entries are zero).  1D operators are stored as bands:
+// band[(o + p) * N + i] = W[i, i + o] for o in [-p, p], zero where i + o
+// leaves [0, N) — the Dirichlet mask is folded into the matrices, so a
+// contraction never needs a separate mask.
+//
+// The stage helpers below contract one axis of a shared-memory block.  The
+// band coefficients of an output row depend only on its index along the
+// contracted axis, so each thread keeps the 2(2p+1) coefficients of its row
+// in registers (the degree p is a template parameter) and walks the other
+// in-block axis with them; threads next to each other own neighbouring z
+// entries, so shared and global accesses are contiguous across a warp.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pmg {
+
+constexpr int kThreads = 256;
+
+// The 2P+1 coefficients of row g of the K and M bands (zeros for a row
+// outside [0, N), which makes its outputs zero).
+template <typename T, int P>
+__device__ __forceinline__ void load_bands(const T* __restrict__ kb,
+                                           const T* __restrict__ mb, int64_t N,
+                                           int64_t g, T (&k)[2 * P + 1],
+                                           T (&m)[2 * P + 1]) {
+  const bool in = g >= 0 && g < N;
+#pragma unroll
+  for (int o = 0; o <= 2 * P; ++o) {
+    k[o] = in ? kb[o * N + g] : T(0);
+    m[o] = in ? mb[o * N + g] : T(0);
+  }
+}
+
+// z contraction: for rows r < R of an input with row length inZ,
+//   outK[r][c] = sum_o Kz[gz0 + c][o] in[r][c + o],  outM likewise,
+// c < C.  Output c's stencil centre sits at input index c + P.
+template <typename T, int P>
+__device__ __forceinline__ void stage_z(const T* in, int inZ, T* outK, T* outM,
+                                        int R, int C, int64_t gz0,
+                                        const T* __restrict__ kb,
+                                        const T* __restrict__ mb, int64_t N) {
+  const int rows = blockDim.x / C;
+  const int c = threadIdx.x % C, r0 = threadIdx.x / C;
+  if (r0 >= rows) return;
+  T k[2 * P + 1], m[2 * P + 1];
+  load_bands<T, P>(kb, mb, N, gz0 + c, k, m);
+  for (int r = r0; r < R; r += rows) {
+    const T* src = in + (int64_t)r * inZ + c;
+    T ak = T(0), am = T(0);
+#pragma unroll
+    for (int o = 0; o <= 2 * P; ++o) {
+      const T v = src[o];
+      ak += k[o] * v;
+      am += m[o] * v;
+    }
+    outK[(int64_t)r * C + c] = ak;
+    outM[(int64_t)r * C + c] = am;
+  }
+}
+
+// y contraction of the z-stage pair (a = Kz u, b = Mz u), input [A][Bin][C]:
+//   MB[x][y][c] = sum_o My[gy0 + y][o] b[x][y + o][c]
+//   S [x][y][c] = sum_o Ky[..][o] b[x][y + o][c] + My[..][o] a[x][y + o][c]
+// for x < A, y < B.
+template <typename T, int P>
+__device__ __forceinline__ void stage_y(const T* a, const T* b, int Bin,
+                                        T* MB, T* S, int A, int B, int C,
+                                        int64_t gy0, const T* __restrict__ kb,
+                                        const T* __restrict__ mb, int64_t N) {
+  for (int yc = threadIdx.x; yc < B * C; yc += blockDim.x) {
+    const int y = yc / C, c = yc % C;
+    T k[2 * P + 1], m[2 * P + 1];
+    load_bands<T, P>(kb, mb, N, gy0 + y, k, m);
+    for (int x = 0; x < A; ++x) {
+      const int64_t base = ((int64_t)x * Bin + y) * C + c;
+      T vm = T(0), vs = T(0);
+#pragma unroll
+      for (int o = 0; o <= 2 * P; ++o) {
+        const T bv = b[base + (int64_t)o * C];
+        vm += m[o] * bv;
+        vs += k[o] * bv + m[o] * a[base + (int64_t)o * C];
+      }
+      const int64_t out = ((int64_t)x * B + y) * C + c;
+      MB[out] = vm;
+      S[out] = vs;
+    }
+  }
+}
+
+// x contraction of the y-stage pair, input [Ain][B][C]:
+//   raw[x][y][c] = sum_o Kx[gx0 + x][o] MB[x + o][y][c] + Mx[..][o] S[x + o][y][c]
+// for x < A, handed to epi(x, y, c, raw).
+template <typename T, int P, typename Epi>
+__device__ __forceinline__ void stage_x(const T* MB, const T* S, int A, int B,
+                                        int C, int64_t gx0,
+                                        const T* __restrict__ kb,
+                                        const T* __restrict__ mb, int64_t N,
+                                        Epi epi) {
+  const int64_t plane = (int64_t)B * C;
+  for (int xc = threadIdx.x; xc < A * C; xc += blockDim.x) {
+    const int x = xc / C, c = xc % C;
+    T k[2 * P + 1], m[2 * P + 1];
+    load_bands<T, P>(kb, mb, N, gx0 + x, k, m);
+    for (int y = 0; y < B; ++y) {
+      const int64_t base = (int64_t)x * plane + (int64_t)y * C + c;
+      T raw = T(0);
+#pragma unroll
+      for (int o = 0; o <= 2 * P; ++o) {
+        raw += k[o] * MB[base + o * plane] + m[o] * S[base + o * plane];
+      }
+      epi(x, y, c, raw);
+    }
+  }
+}
+
+// Separable diagonal of A = Kx My Mz + Mx Ky Mz + Mx My Kz from its 1D
+// diagonal factors (raw, unmasked values on constrained entries).
+template <typename T>
+__device__ __forceinline__ T diag_at(const T* __restrict__ dk,
+                                     const T* __restrict__ dm, int64_t gx,
+                                     int64_t gy, int64_t gz) {
+  return dk[gx] * dm[gy] * dm[gz] + dm[gx] * (dk[gy] * dm[gz] + dm[gy] * dk[gz]);
+}
+
+__device__ __forceinline__ bool inside(int64_t gx, int64_t gy, int64_t gz,
+                                       int64_t N) {
+  return gx >= 0 && gx < N && gy >= 0 && gy < N && gz >= 0 && gz < N;
+}
+
+// Dynamic shared memory above 48 KB must be opted into per kernel.
+inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+}  // namespace pmg

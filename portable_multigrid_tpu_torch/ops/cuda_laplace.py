@@ -1,0 +1,278 @@
+"""B.1: the fused banded Laplace operator (``csrc/laplace.cu``) and its twin.
+
+Counterpart of ``portable_multigrid_tpu/ops/pallas_laplace.py``
+(``PallasLaplaceOperator``, ``make_pallas_laplace``).  The operator works on
+TRIMMED state — the global last plane per axis dropped, shape (n p)^3, C
+order with z contiguous — and computes M A M u with
+
+    A = Kx (x) My (x) Mz + Mx (x) Ky (x) Mz + Mx (x) My (x) Kz
+
+from the GLOBAL mask-folded 1D matrices, plus the single-step Chebyshev
+epilogues of the TPU kernel (modes in :data:`MODES`).  On a CUDA tensor
+:meth:`CudaLaplaceOperator.run` launches the hand-written kernel; on a CPU
+tensor it runs :func:`laplace_twin`, the plain torch Kronecker form of the
+same modes and outputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..fem.space import FESpace
+from .laplace import (
+    assembled_1d_matrices,
+    diagonal_1d_factors,
+    separable_inv_diag,
+    separable_mask,
+)
+from .structured import contract
+
+MODES = ("apply", "residual1t", "residual3t", "cheb", "chebl", "chebd",
+         "chebdl")
+_N_OUT = {"apply": 1, "residual1t": 1, "residual3t": 3, "cheb": 3,
+          "chebl": 1, "chebd": 3, "chebdl": 1}
+# inputs besides u (the stencil input): rhs / r, then x
+_N_IN = {"apply": 0, "residual1t": 1, "residual3t": 1, "cheb": 2, "chebl": 2,
+         "chebd": 1, "chebdl": 1}
+# kernel launches per mode, counted where the wrapper launches the kernel
+LAUNCHES = dict.fromkeys(MODES, 0)
+
+SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
+_TILES = ((8, 8, 32), (8, 8, 16), (4, 4, 16))
+
+
+def laplace_smem_elems(p: int, tx: int, ty: int, tz: int) -> int:
+    """Shared-memory elements of one block (mirrors smem_elems in laplace.cu)."""
+    wx, wy, wz = tx + 2 * p, ty + 2 * p, tz + 2 * p
+    return max(wx * wy * wz, 2 * wx * ty * tz) + 2 * wx * wy * tz
+
+
+def laplace_tile(p: int, itemsize: int) -> tuple[int, int, int]:
+    """Largest candidate tile whose window and stage buffers fit."""
+    for tile in _TILES:
+        if laplace_smem_elems(p, *tile) * itemsize <= SMEM_LIMIT:
+            return tile
+    raise ValueError(f"no laplace tile fits shared memory at p={p}")
+
+
+def to_bands(W: np.ndarray, p: int) -> np.ndarray:
+    """[L, L] banded matrix -> bands [2p+1, L]: bands[p+o, i] = W[i, i+o]
+    (zero where i+o is out of range)."""
+    L = W.shape[0]
+    bands = np.zeros((2 * p + 1, L))
+    for o in range(-p, p + 1):
+        for i in range(max(0, -o), min(L, L - o)):
+            bands[p + o, i] = W[i, i + o]
+    return bands
+
+
+def apply_trimmed(Kt: torch.Tensor, Mt: torch.Tensor,
+                  u: torch.Tensor) -> torch.Tensor:
+    """M A M u on trimmed state, with mask-folded trimmed 1D matrices."""
+    b = contract(u, Mt, 2)
+    a = contract(u, Kt, 2)
+    mb = contract(b, Mt, 1)
+    kb = contract(b, Kt, 1)
+    ma = contract(a, Mt, 1)
+    return contract(mb, Kt, 0) + contract(kb + ma, Mt, 0)
+
+
+def diag_trimmed(dKt: torch.Tensor, dMt: torch.Tensor) -> torch.Tensor:
+    """Separable diagonal on the trimmed grid (raw values on constrained
+    entries, as the kernels rebuild it)."""
+    x = lambda v: v.reshape(-1, 1, 1)
+    y = lambda v: v.reshape(1, -1, 1)
+    z = lambda v: v.reshape(1, 1, -1)
+    return (x(dKt) * y(dMt) * z(dMt)
+            + x(dMt) * (y(dKt) * z(dMt) + y(dMt) * z(dKt)))
+
+
+@dataclasses.dataclass
+class CudaLaplaceOperator:
+    """3D Q_p Laplace operator for the kernel path, on one device."""
+
+    degree: int
+    n: int  # cells per axis
+    mask1: torch.Tensor  # [N] free-DoF mask factor (same on every axis)
+    dK1: torch.Tensor  # [N] assembled stiffness diagonal (h-folded)
+    dM1: torch.Tensor  # [N] assembled mass diagonal
+    kband: torch.Tensor  # [2p+1, N-1] bands of the trimmed mask-folded K
+    mband: torch.Tensor  # [2p+1, N-1] bands of the trimmed mask-folded M
+    Kt: torch.Tensor  # [N-1, N-1] trimmed mask-folded K (the twin's form)
+    Mt: torch.Tensor  # [N-1, N-1] trimmed mask-folded M
+    tile: tuple  # (TX, TY, TZ) of the kernel launch
+    dim: int = 3
+
+    @property
+    def grid_shape(self) -> tuple[int, int, int]:
+        return (self.n * self.degree + 1,) * 3
+
+    @property
+    def trimmed_shape(self) -> tuple[int, int, int]:
+        return (self.n * self.degree,) * 3
+
+    @property
+    def n_dofs(self) -> int:
+        return int(np.prod(self.grid_shape))
+
+    @property
+    def dtype(self):
+        return self.mask1.dtype
+
+    @property
+    def device(self):
+        return self.mask1.device
+
+    @property
+    def dKt(self) -> torch.Tensor:
+        return self.dK1[:-1]
+
+    @property
+    def dMt(self) -> torch.Tensor:
+        return self.dM1[:-1]
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return separable_mask((self.mask1,) * 3)
+
+    @property
+    def inv_diag(self) -> torch.Tensor:
+        return separable_inv_diag((self.mask1,) * 3, (self.dK1,) * 3,
+                                  (self.dM1,) * 3)
+
+    def diag_trimmed(self) -> torch.Tensor:
+        return diag_trimmed(self.dKt, self.dMt)
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        """Full vmult A_eff = M A M + (I - M): trim, run the kernel, pad,
+        combine (the wrapper side of pallas_laplace.py:195-210)."""
+        u = u.reshape(self.grid_shape)
+        (au,) = self.run("apply", u[:-1, :-1, :-1].contiguous())
+        au = torch.nn.functional.pad(au, (0, 1, 0, 1, 0, 1))
+        m = self.mask
+        return m * au + (1.0 - m) * u
+
+    def run(self, mode: str, u: torch.Tensor, ins=(), scal=()):
+        """One pass of ``mode`` on trimmed state; returns the output tuple.
+
+        ``ins``: (rhs,) for residual1t/residual3t, (r, x) for cheb/chebl,
+        (r,) for chebd/chebdl.  ``scal``: (theta,) for residual3t, (c0, c1)
+        for the cheb family."""
+        if mode not in MODES:
+            raise ValueError(f"unknown laplace mode {mode!r}")
+        if len(ins) != _N_IN[mode]:
+            raise ValueError(f"mode {mode!r} takes {_N_IN[mode]} inputs")
+        if u.device.type == "cpu":
+            return laplace_twin(self, mode, u, ins, scal)
+        if not u.is_cuda:
+            raise ValueError(f"unsupported device {u.device}")
+        return _launch(self, mode, u, ins, scal)
+
+
+def laplace_twin(op: CudaLaplaceOperator, mode: str, u: torch.Tensor,
+                 ins=(), scal=()):
+    """Plain torch version of every kernel mode (same inputs and outputs)."""
+    raw = apply_trimmed(op.Kt, op.Mt, u)
+    if mode == "apply":
+        return (raw,)
+    if mode == "residual1t":
+        return (ins[0] - raw,)
+    diag = op.diag_trimmed()
+    if mode == "residual3t":
+        r0 = ins[0] - raw
+        d0 = r0 / (scal[0] * diag)
+        return r0, d0, u + d0
+    c0, c1 = scal
+    r = ins[0]
+    x = u if mode in ("chebd", "chebdl") else ins[1]
+    rn = r - raw
+    dn = c0 * u + (c1 / diag) * rn
+    if mode in ("chebl", "chebdl"):
+        return (x + dn,)
+    return rn, dn, x + dn
+
+
+def _check(op: CudaLaplaceOperator, t: torch.Tensor, what: str) -> None:
+    if t.device != op.device:
+        raise ValueError(f"{what} on {t.device}, operator on {op.device}")
+    if t.dtype != op.dtype:
+        raise ValueError(f"{what} has dtype {t.dtype}, operator {op.dtype}")
+    if tuple(t.shape) != op.trimmed_shape:
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, "
+                         f"expected trimmed {op.trimmed_shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _suffix(dtype) -> str:
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise ValueError(f"kernels take float32 or float64, not {dtype}")
+
+
+def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal):
+    _check(op, u, "u")
+    for k, t in enumerate(ins):
+        _check(op, t, f"input {k}")
+    fn = _build.build().fn("pmg_laplace", _suffix(u.dtype))
+    outs = [torch.empty_like(u) for _ in range(_N_OUT[mode])]
+    ptrs = [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
+    optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
+    c0, c1 = (list(map(float, scal)) + [0.0, 0.0])[:2]
+    N = op.n * op.degree
+    err = fn(u.data_ptr(), *ptrs, *optrs, op.kband.data_ptr(),
+             op.mband.data_ptr(), op.dK1.data_ptr(), op.dM1.data_ptr(), c0, c1,
+             N, op.degree, MODES.index(mode), *op.tile,
+             _build.stream_handle(u.device))
+    if err:
+        raise RuntimeError(f"laplace kernel ({mode}) launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES[mode] += 1
+    return tuple(outs)
+
+
+def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
+                              dtype=torch.float32,
+                              device="cpu") -> CudaLaplaceOperator:
+    """Pack the operator from its 1D factors (NumPy, float64): the free-DoF
+    mask ``m1``, the assembled 1D matrices ``K1``/``M1`` and the diagonal
+    factors ``gK`` (h-folded) / ``gM``, all of length n*degree + 1."""
+    m1, K1, M1 = (np.asarray(a, np.float64) for a in (m1, K1, M1))
+    Kt = (m1[:, None] * K1 * m1[None, :])[:-1, :-1]
+    Mt = (m1[:, None] * M1 * m1[None, :])[:-1, :-1]
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
+                               device=device)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return CudaLaplaceOperator(
+        degree=degree,
+        n=n,
+        mask1=t(m1),
+        dK1=t(gK),
+        dM1=t(gM),
+        kband=t(to_bands(Kt, degree)),
+        mband=t(to_bands(Mt, degree)),
+        Kt=t(Kt),
+        Mt=t(Mt),
+        tile=laplace_tile(degree, itemsize),
+    )
+
+
+def make_cuda_laplace(space: FESpace, dtype=torch.float32,
+                      device="cpu") -> CudaLaplaceOperator:
+    """Host packing (NumPy, f64) of the 1D factors, shipped once to ``device``."""
+    if space.dim != 3:
+        raise ValueError("the kernel operator is 3D only (2D is ROADMAP A.8)")
+    K1, M1 = assembled_1d_matrices(space)
+    gK, gM = diagonal_1d_factors(space)
+    return cuda_laplace_from_factors(space.degree, space.mesh.cells_per_axis,
+                                     space.free_mask_1d(), K1, M1, gK, gM,
+                                     dtype, device)

@@ -1,0 +1,64 @@
+"""Geometric-multigrid driver of the port (the reference's first program).
+
+3D Poisson on the unit cube, f ≡ 1, homogeneous Dirichlet everywhere,
+h-multigrid V(2,2) with Chebyshev(5) smoothing, CG to rtol * ||b||.  Sweeps
+fe_degree = 1..max_degree and refinement cycles, printing DoF counts, CG
+iteration counts and solution L2 norms in the format of the JAX driver
+(programs/geometric_multigrid.py) and the reference (reference:
+source/geometric_multigrid/program.cc:189-199,354-355,395).
+
+Usage:
+  python -m portable_multigrid_tpu_torch.programs.geometric_multigrid
+         [--max-degree 7] [--cycles N] [--variant auto|kron] [--f32]
+         [--rtol R] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--max-degree", type=int, default=7)
+    ap.add_argument("--cycles", type=int, default=None,
+                    help="refinement cycles (default 6, as the reference in 3D)")
+    ap.add_argument("--variant", default="auto", choices=["auto", "kron"],
+                    help="auto: the CUDA kernels (their plain twins on CPU); "
+                         "kron: the plain Kronecker operator")
+    ap.add_argument("--f32", action="store_true",
+                    help="solve in float32 (default float64)")
+    ap.add_argument("--rtol", type=float, default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda when available, else cpu)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from portable_multigrid_tpu_torch.models.poisson import (
+        GeometricMultigridPoisson,
+    )
+
+    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    dtype = torch.float32 if args.f32 else torch.float64
+    rtol = args.rtol if args.rtol is not None else (1e-5 if args.f32 else 1e-12)
+    cycles = args.cycles if args.cycles is not None else 6
+
+    for degree in range(1, args.max_degree + 1):
+        print(f"============== fe_degree = {degree} ============== \n")
+        for cycle in range(cycles):
+            print(f"\nCycle {cycle}")
+            refinements = cycle + 1
+            t0 = time.time()
+            prob = GeometricMultigridPoisson(
+                3, degree, refinements, dtype=dtype,
+                variant=args.variant, device=device,
+            )
+            prob.solve(rtol=rtol, verbose=True)
+            print(f"  (wall: {time.time() - t0:.2f}s)")
+            print()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,85 @@
+"""On-card checks of the port's CUDA kernels (marked ``requires_cuda``).
+
+Each kernel mode against its plain twin on the same CUDA tensors, and the
+Q2 r=2 float64 solve through the kernels against the golden table.  These
+skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
+set of on-card checks.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from portable_multigrid_tpu_torch import GeometricMultigridPoisson
+from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
+from portable_multigrid_tpu_torch.fem.space import FESpace
+from portable_multigrid_tpu_torch.ops import cuda_cheb2, cuda_laplace, cuda_transfer
+
+pytestmark = pytest.mark.requires_cuda
+
+BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _field(n, rng, dtype, device):
+    m = np.ones(n)
+    m[0] = 0.0
+    v = rng.standard_normal((n,) * 3) * m[:, None, None] * m[None, :, None] * m
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
+def _close(got, want, dtype):
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        assert err <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 4, 7])
+def test_kernels_match_twins(cuda, p, dtype):
+    rng = np.random.default_rng(p)
+    sp, sc = FESpace(HyperCubeMesh(3, 2), p), FESpace(HyperCubeMesh(3, 1), p)
+    op = cuda_laplace.make_cuda_laplace(sp, dtype, cuda)
+    u, r, x = (_field(2 * 2 * p, rng, dtype, cuda) for _ in range(3))
+    for mode in cuda_laplace.MODES:
+        ins = {"apply": (), "residual1t": (r,), "residual3t": (r,),
+               "chebd": (r,), "chebdl": (r,)}.get(mode, (r, x))
+        scal = {"apply": (), "residual1t": (), "residual3t": (1.3,)}.get(
+            mode, (0.59, 1.26))
+        _close(op.run(mode, u, ins, scal),
+               cuda_laplace.laplace_twin(op, mode, u, ins, scal), dtype)
+    kern = cuda_cheb2.make_cheb2(op)
+    for mode in cuda_cheb2.MODES:
+        f0 = mode.startswith("cheb2f0")
+        args = (u, None if f0 else r, x if mode in ("cheb2", "cheb2l") else None,
+                (0.59, 1.26, 0.71, 1.52) + ((1.3,) if f0 else ()))
+        _close(kern.steps2(*args, mode), cuda_cheb2.cheb2_twin(op, *args, mode),
+               dtype)
+    tr = cuda_transfer.make_cuda_h_transfer(sc, sp, dtype, cuda)
+    c = _field(2 * p, rng, dtype, cuda)
+    twin = cuda_transfer.transfer_twin
+    _close([tr.restrict(u)], [twin(tr.restrict_.dense, u)], dtype)
+    _close([tr.prolongate_and_add(x, c)], [twin(tr.prolong.dense, c, x)], dtype)
+    torch.cuda.synchronize()
+
+
+def test_golden_row_through_kernels(cuda):
+    path = os.path.join(os.path.dirname(__file__), "golden_convergence.json")
+    with open(path) as fh:
+        want = [r for r in json.load(fh)["geometric_3d"]
+                if (r["degree"], r["refinements"]) == (2, 2)][0]
+    x, st = GeometricMultigridPoisson(3, 2, 2, torch.float64, "auto",
+                                      cuda).solve()
+    assert x.is_cuda and st.iterations == want["iterations"]
+    assert st.solution_l2_norm == pytest.approx(want["l2_norm"], rel=1e-10)
