@@ -5,20 +5,35 @@
 Phases (each raises on failure; nothing is allowed to fall back to the CPU):
 
   1. card and build — the card's name and power limit, then the kernels
-     built from ``portable_multigrid_tpu_torch/csrc`` (build time printed);
-  2. kernel vs twin — every mode of the three kernels against its plain
-     torch twin on the card: p = 1..7 at r = 2 in float32 and float64, and
-     p = 4 at the r = 6 fine-level shape; bound 1e-5 (f32) / 1e-12 (f64) on
-     the max error relative to the twin's max magnitude;
-  3. golden replay — the ``geometric_3d`` rows of
-     tests/golden_convergence.json (p = 1..7, r = 1..3) in float64 through
-     the kernels: CG counts exact, L2 norms to 1e-10;
+     built from ``portable_multigrid_tpu_torch/csrc`` (one nvcc per source,
+     all at once; build time printed);
+  2. kernel vs twin — every mode of every kernel against its plain torch
+     twin on the card, in float32 and float64: the 3D kernels (B.1-B.3) at
+     p = 1..7, r = 2 and at the Q4 r = 6 fine-level shape; the 2D kernel
+     (B.4) at p = 1..7, r = 2 and 3 (partial tiles) and at the Q7 r = 9
+     fine-level shape (3584^2); bound 1e-5 (f32) / 1e-12 (f64) on the max
+     error relative to the twin's max magnitude;
+  3. golden replay — the ``geometric_3d`` rows (p = 1..7, r = 1..3) and the
+     ``polynomial_2d`` rows of tests/golden_convergence.json in float64
+     through the kernels: CG counts exact, L2 norms to 1e-10;
   4. main path — GeometricMultigridPoisson(3, 4, 6, float32, "auto") on the
      card, solved to rtol 1e-5: converged in <= 4 iterations, L2 norm within
-     1e-4 of 0.0249871331, every tensor on the card, and every kernel's
-     launch count raised by that run;
-  5. timing — CUDA events, warm-up then the median of 10 runs: the V-cycle,
-     the whole solve, and each kernel mode against its twin at r = 6.
+     1e-4 of 0.0249871331, every tensor on the card, and the launch count of
+     each of its kernels (B.1, B.2, B.3) raised by that run;
+  5. timing of the main path — CUDA events, warm-up then the median of 10
+     runs: the V-cycle, the whole solve, and each 3D kernel mode against its
+     twin at r = 6;
+  6. second path — the reference's second driver,
+     PolynomialMultigridPoisson(2, 7, 9, 7, "auto") on the card (12.8M
+     DoFs, p = 7..1 on one mesh): in float64 to rtol 1e-12 (<= 6 CG
+     iterations and the count of the plain "kron" path, L2 within 1e-9 of
+     that path's and 1e-7 of the mesh-converged 0.0412614897); in float32
+     to rtol 1e-5 (<= 4 iterations, L2 within 1e-3 of the float64 value);
+     every tensor on the card and the B.4 launch count raised by each
+     kernel run;
+  7. timing of the second path — the V-cycle (ms, DoF/s), its split by
+     level with the p = 1 coarse solve on its own line, the CG solve, and
+     each B.4 mode against its twin at 3584^2.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object.
@@ -39,27 +54,57 @@ import torch
 from portable_multigrid_tpu_torch import _build
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
-from portable_multigrid_tpu_torch.models.poisson import GeometricMultigridPoisson
-from portable_multigrid_tpu_torch.ops import cuda_cheb2, cuda_laplace, cuda_transfer
+from portable_multigrid_tpu_torch.models.poisson import (
+    GeometricMultigridPoisson,
+    PolynomialMultigridPoisson,
+)
+from portable_multigrid_tpu_torch.ops import (
+    cuda_cheb2,
+    cuda_laplace,
+    cuda_laplace2d,
+    cuda_transfer,
+)
 from portable_multigrid_tpu_torch.ops.structured import exact_matmuls
 from portable_multigrid_tpu_torch.solvers.cg import cg
+from portable_multigrid_tpu_torch.solvers.vcycle import VCycle
 
 GOLDEN_L2_Q4_R6 = 0.0249871331
+# the mesh-converged 2D L2 norm, on which the three polynomial_2d golden
+# rows agree to 1e-10
+MESH_L2_2D = 0.0412614897
 BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
+# CG bounds of the 2D Q7 r=9 ladder.  The float64 count rises with the mesh
+# as the JAX package's does (the coarse Chebyshev-as-solver is capped at
+# degree 512): 4 at r=4, 5 at r=5 and r=6, 6 at r=9.  The float32 solve
+# lands within 1e-3 of the float64 L2 norm because B.4 contracts K in
+# difference form (csrc/laplace2d.cu); the direct banded sum of the TPU
+# kernel is 3.4e-2 off at r=9.
+MAX_CG_2D = {torch.float64: 6, torch.float32: 4}
+F32_L2_BOUND_2D = 1e-3
+# Each kernel names the path that launches it and the (p, r) of that path's
+# fine level, where its mode times and errors are reported.
 KERNELS = {
     "laplace": dict(route="cuda",
                     source="portable_multigrid_tpu_torch/csrc/laplace.cu",
                     replaces="portable_multigrid_tpu/ops/pallas_laplace.py:212",
-                    counts=cuda_laplace.LAUNCHES),
+                    counts=cuda_laplace.LAUNCHES, path="3d", shape=(4, 6)),
     "cheb2": dict(route="cuda",
                   source="portable_multigrid_tpu_torch/csrc/cheb2.cu",
                   replaces="portable_multigrid_tpu/ops/pallas_cheb2.py:168",
-                  counts=cuda_cheb2.LAUNCHES),
+                  counts=cuda_cheb2.LAUNCHES, path="3d", shape=(4, 6)),
     "transfer": dict(route="cuda",
                      source="portable_multigrid_tpu_torch/csrc/transfer.cu",
                      replaces="portable_multigrid_tpu/ops/pallas_transfer.py:154",
-                     counts=cuda_transfer.LAUNCHES),
+                     counts=cuda_transfer.LAUNCHES, path="3d", shape=(4, 6)),
+    "laplace2d": dict(route="cuda",
+                      source="portable_multigrid_tpu_torch/csrc/laplace2d.cu",
+                      replaces="portable_multigrid_tpu/ops/pallas_laplace2d.py:137",
+                      counts=cuda_laplace2d.LAUNCHES, path="2d", shape=(7, 9)),
 }
+
+
+def path_kernels(path: str) -> list[str]:
+    return [name for name, k in KERNELS.items() if k["path"] == path]
 
 
 def log(msg: str) -> None:
@@ -72,8 +117,8 @@ def synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def space(p: int, r: int) -> FESpace:
-    return FESpace(HyperCubeMesh(3, r), p)
+def space(p: int, r: int, dim: int = 3) -> FESpace:
+    return FESpace(HyperCubeMesh(dim, r), p)
 
 
 def masked_trimmed(op, rng, dtype, device) -> torch.Tensor:
@@ -81,7 +126,9 @@ def masked_trimmed(op, rng, dtype, device) -> torch.Tensor:
     N = op.n * op.degree
     m = np.ones(N)
     m[0] = 0.0
-    v = rng.standard_normal((N, N, N)) * m[:, None, None] * m[None, :, None] * m
+    v = rng.standard_normal((N,) * op.dim)
+    for ax in range(op.dim):
+        v = v * m.reshape([N if a == ax else 1 for a in range(op.dim)])
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 
@@ -99,7 +146,8 @@ SCAL_PAIR_F0 = SCAL_PAIR + (1.3,)
 
 
 def laplace_cases(op, rng, dtype, device):
-    """(mode, kernel call, twin call) for every B.1 mode on random state."""
+    """(mode, kernel call, twin call) for every B.1 / B.4 mode on random
+    state."""
     u, r, x = (masked_trimmed(op, rng, dtype, device) for _ in range(3))
     args = {"apply": ((), ()), "residual1t": ((r,), ()),
             "residual3t": ((r,), SCAL_RES3), "cheb": ((r, x), SCAL_CHEB),
@@ -107,8 +155,7 @@ def laplace_cases(op, rng, dtype, device):
             "chebdl": ((r,), SCAL_CHEB)}
     for mode, (ins, scal) in args.items():
         yield (mode, lambda m=mode, i=ins, s=scal: op.run(m, u, i, s),
-               lambda m=mode, i=ins, s=scal: cuda_laplace.laplace_twin(
-                   op, m, u, i, s))
+               lambda m=mode, i=ins, s=scal: op.twin(m, u, i, s))
 
 
 def cheb2_cases(kern, rng, dtype, device):
@@ -139,9 +186,14 @@ def transfer_cases(tr, p, r, rng, dtype, device):
            lambda: twin(tr.prolong.dense, c, dst))
 
 
-def level_cases(p, r, dtype, device, seed=0):
+def level_cases(dim, p, r, dtype, device, seed=0):
     """Every kernel mode at one level shape: (kernel, mode, run, twin)."""
     rng = np.random.default_rng(seed)
+    if dim == 2:
+        op = cuda_laplace2d.make_cuda_laplace2d(space(p, r, 2), dtype, device)
+        for case in laplace_cases(op, rng, dtype, device):
+            yield ("laplace2d",) + case
+        return
     op = cuda_laplace.make_cuda_laplace(space(p, r), dtype, device)
     kern = cuda_cheb2.make_cheb2(op)
     tr = cuda_transfer.make_cuda_h_transfer(space(p, r - 1), space(p, r),
@@ -154,8 +206,8 @@ def level_cases(p, r, dtype, device, seed=0):
         yield ("transfer",) + case
 
 
-def compare(p, r, dtype, device, results) -> None:
-    for name, mode, run, twin in level_cases(p, r, dtype, device):
+def compare(dim, p, r, dtype, device, results) -> None:
+    for name, mode, run, twin in level_cases(dim, p, r, dtype, device):
         got, want = run(), twin()
         synchronize(device)
         worst = 0.0
@@ -213,6 +265,21 @@ def reset_counts() -> None:
             k["counts"][mode] = 0
 
 
+def check_on_card(prob, x, device, per_mode, what: str) -> None:
+    """Every tensor of the solve on the card, each kernel of the path
+    launched, the solution finite and of the fine grid's shape."""
+    if not torch.isfinite(x).all() or tuple(x.shape) != prob.spaces[-1].grid_shape:
+        raise RuntimeError(f"{what}: solution not finite or wrong shape")
+    stray = [t for lvl in prob.levels for t in tensors_of(lvl)
+             if t.device != x.device] + ([x] if x.device != device else [])
+    if stray:
+        raise RuntimeError(f"{what}: {len(stray)} tensors of the solve are "
+                           f"off {device}")
+    for name, counts in per_mode.items():
+        if sum(counts.values()) == 0:
+            raise RuntimeError(f"{what} never launched the {name} kernel")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -235,30 +302,34 @@ def phase_build() -> str:
 
 
 def phase_compare(device, shapes) -> dict:
-    """Phase 2: every kernel mode against its twin at (p, r, dtype) shapes;
-    returns the max abs errors by (kernel, mode, p, r, dtype)."""
+    """Phase 2: every kernel mode against its twin at (dim, p, r, dtype)
+    shapes; returns the max abs errors by (kernel, mode, p, r, dtype)."""
     log("phase 2: kernels vs plain twins")
     errs: dict = {}
-    for p, r, dtype in shapes:
-        compare(p, r, dtype, device, errs)
+    for dim, p, r, dtype in shapes:
+        compare(dim, p, r, dtype, device, errs)
     log("phase 2: ok")
     return errs
 
 
-def phase_golden(device, rows) -> None:
+def phase_golden(device, table) -> None:
     """Phase 3: golden CG counts and L2 norms in float64 through the kernels."""
     log("phase 3: golden replay, float64, variant auto")
-    for row in rows:
-        prob = GeometricMultigridPoisson(3, row["degree"], row["refinements"],
-                                         torch.float64, "auto", device)
+    rows = [(r, GeometricMultigridPoisson, (3, r["degree"], r["refinements"]))
+            for r in table["geometric_3d"]]
+    rows += [(r, PolynomialMultigridPoisson,
+              (2, r["degree"], r["refinements"], r["levels"]))
+             for r in table["polynomial_2d"]]
+    for row, model, args in rows:
+        prob = model(*args, dtype=torch.float64, variant="auto", device=device)
         _, st = prob.solve()
         rel = abs(st.solution_l2_norm / row["l2_norm"] - 1.0)
-        log(f"  p={row['degree']} r={row['refinements']}: {st.iterations} "
+        log(f"  {model.__name__} {args}: {st.iterations} "
             f"iterations (golden {row['iterations']}), L2 rel diff {rel:.2e}")
         if (not st.converged or st.iterations != row["iterations"]
                 or rel > 1e-10 or st.n_dofs != row["n_dofs"]):
-            raise RuntimeError(f"golden row p={row['degree']} "
-                               f"r={row['refinements']} does not match")
+            raise RuntimeError(f"golden row {model.__name__} {args} does "
+                               f"not match")
     log("phase 3: ok")
 
 
@@ -273,7 +344,8 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
     t_setup = time.perf_counter() - t0
     x, st = prob.solve(rtol=1e-5, verbose=True)
     synchronize(device)
-    per_mode = {name: dict(k["counts"]) for name, k in KERNELS.items()}
+    per_mode = {name: dict(KERNELS[name]["counts"])
+                for name in path_kernels("3d")}
     log(f"  setup {t_setup:.2f} s; launches per mode: {per_mode}")
     l2_rel = abs(st.solution_l2_norm / l2_ref - 1.0)
     log(f"  CG iterations {st.iterations}, residual {st.residual_norm:.3e}, "
@@ -283,15 +355,7 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
                            f"{st.iterations} iterations")
     if l2_rel > 1e-4:
         raise RuntimeError(f"main path L2 norm off by {l2_rel:.2e}")
-    if not torch.isfinite(x).all() or tuple(x.shape) != prob.spaces[-1].grid_shape:
-        raise RuntimeError("main path solution not finite or wrong shape")
-    stray = [t for lvl in prob.levels for t in tensors_of(lvl)
-             if t.device != x.device] + ([x] if x.device != device else [])
-    if stray:
-        raise RuntimeError(f"{len(stray)} tensors of the solve are off {device}")
-    for name, counts in per_mode.items():
-        if sum(counts.values()) == 0:
-            raise RuntimeError(f"main path never launched the {name} kernel")
+    check_on_card(prob, x, device, per_mode, "main path")
     log("phase 4: ok")
     return prob, st, per_mode
 
@@ -310,12 +374,157 @@ def phase_timing(card: str, prob, st, device) -> dict:
                       warmup=1)
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
         f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
+    times = time_modes(3, *KERNELS["laplace"]["shape"], device)
+    log("phase 5: ok")
+    return times
+
+
+def time_modes(dim, p, r, device) -> dict:
+    """Each kernel mode against its twin at one level shape, in float32."""
     times = {}
-    for name, mode, run, twin in level_cases(4, 6, torch.float32, device):
+    for name, mode, run, twin in level_cases(dim, p, r, torch.float32, device):
         t_k, t_t = cuda_ms(run), cuda_ms(twin)
         times[(name, mode)] = (t_k, t_t)
         log(f"  {name:9s} {mode:19s} kernel {t_k:8.3f} ms   twin {t_t:8.3f} ms")
-    log("phase 5: ok")
+    return times
+
+
+def phase_second(device, r: int):
+    """Phase 6: the 2D Q7 p-ladder in float64 on the plain path, then
+    through the kernels in float64 and in float32."""
+    log(f"phase 6: second path PolynomialMultigridPoisson(2, 7, {r}, 7)")
+    # the plain path (Kronecker operator, plain Chebyshev and transfers on
+    # full grids) gives the CG count the kernel path must reproduce
+    prob = PolynomialMultigridPoisson(2, 7, r, 7, torch.float64, "kron", device)
+    _, plain = prob.solve(rtol=1e-12)
+    log(f"  float64, plain path (kron): CG iterations {plain.iterations}, "
+        f"L2 {plain.solution_l2_norm!r}")
+    del prob
+    torch.cuda.empty_cache()
+    runs = {}
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        name = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        prob = PolynomialMultigridPoisson(2, 7, r, 7, dtype, "auto", device)
+        synchronize(device)
+        t_setup = time.perf_counter() - t0
+        reset_counts()
+        x, st = prob.solve(rtol=rtol, verbose=True)
+        synchronize(device)
+        per_mode = {name: dict(KERNELS[name]["counts"])
+                    for name in path_kernels("2d")}
+        rel = abs(st.solution_l2_norm / MESH_L2_2D - 1.0)
+        log(f"  {name}: setup {t_setup:.2f} s, CG iterations {st.iterations}, "
+            f"residual {st.residual_norm:.3e}, L2 {st.solution_l2_norm!r} "
+            f"(rel diff {rel:.2e} from {MESH_L2_2D}); launches {per_mode}")
+        check_on_card(prob, x, device, per_mode, f"second path {name}")
+        runs[dtype] = prob, st, per_mode
+    (p64, s64, _), (p32, s32, per_mode) = runs[torch.float64], runs[torch.float32]
+    if not (s64.converged and s64.iterations == plain.iterations
+            and s64.iterations <= MAX_CG_2D[torch.float64]):
+        raise RuntimeError(f"second path float64: {s64.iterations} iterations, "
+                           f"plain path {plain.iterations}")
+    # the plain path sums K directly, which at r=9 leaves even float64
+    # about 4e-10 of roundoff in the L2 norm (B.4 sums in difference form)
+    if (abs(s64.solution_l2_norm / plain.solution_l2_norm - 1) > 1e-9
+            or abs(s64.solution_l2_norm / MESH_L2_2D - 1) > 1e-7):
+        raise RuntimeError("second path float64: L2 norm off")
+    if not (s32.converged and s32.iterations <= MAX_CG_2D[torch.float32]):
+        raise RuntimeError(f"second path float32: converged={s32.converged} "
+                           f"in {s32.iterations} iterations")
+    rel32 = abs(s32.solution_l2_norm / s64.solution_l2_norm - 1)
+    log(f"  float32 L2 rel diff from float64: {rel32:.2e}")
+    if rel32 > F32_L2_BOUND_2D:
+        raise RuntimeError(f"second path float32: L2 norm off by {rel32:.2e}")
+    del runs, p64
+    torch.cuda.empty_cache()
+    log("phase 6: ok")
+    return p32, s32, per_mode
+
+
+@dataclasses.dataclass
+class TimedVCycle(VCycle):
+    """The V-cycle with CUDA events around each level's recursion."""
+
+    spans: list = dataclasses.field(default_factory=list)
+
+    def _cycle(self, level: int, src: torch.Tensor) -> torch.Tensor:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = super()._cycle(level, src)
+        end.record()
+        self.spans.append((level, start, end))
+        return out
+
+
+def level_times(prob, rhs, reps: int = 10, warmup: int = 3) -> list:
+    """Median ms of each level's own work in a V-cycle: its span minus the
+    span of the level below, taken within one run."""
+    tv = TimedVCycle(levels=prob.levels, fine_trimmed=prob.fine_trimmed)
+    own = [[] for _ in prob.levels]
+    for rep in range(warmup + reps):
+        tv.spans = []
+        tv.apply(rhs)
+        torch.cuda.synchronize()
+        if rep < warmup:
+            continue
+        incl = {k: s.elapsed_time(e) for k, s, e in tv.spans}
+        for k in incl:
+            own[k].append(incl[k] - incl.get(k - 1, 0.0))
+    return [statistics.median(t) for t in own]
+
+
+def device_busy(mg, rhs, reps: int = 3) -> None:
+    """torch.profiler over a few V-cycles: device kernel time against wall
+    time, and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mg.apply(rhs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mg.apply(rhs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        if dev > 0:
+            rows.append((dev / 1e3 / reps, ev.count // reps, ev.key))
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        log("  profiler: no device time recorded; busy share not measured")
+        return
+    log(f"  profiler: {wall:.3f} ms wall per V-cycle, {busy:.3f} ms device "
+        f"kernel time: busy {100 * busy / wall:.1f}%")
+    for ms, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {ms:9.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def phase_second_timing(card: str, prob, st, device) -> dict:
+    """Phase 7: 2D V-cycle, its split by level, CG solve and B.4 modes."""
+    log(f"phase 7: timing on {card} (CUDA events, median of 10)")
+    mg = prob.preconditioner()
+    rhs = prob.rhs()
+    n_dofs = prob.spaces[-1].n_dofs
+    t_vc = cuda_ms(lambda: mg.apply(rhs))
+    log(f"  V-cycle: {t_vc:.3f} ms = {n_dofs / (t_vc * 1e-3):.4e} DoF/s "
+        f"({n_dofs} DoFs)")
+    own = level_times(prob, rhs)
+    for k, sp in enumerate(prob.spaces):
+        what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
+        log(f"  level p={sp.degree} ({sp.n_dofs} DoFs, {what}): "
+            f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
+    device_busy(mg, rhs)
+    fine_op = prob.levels[-1].op
+    t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
+                      warmup=1)
+    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
+        f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
+    times = time_modes(2, *KERNELS["laplace2d"]["shape"], device)
+    log("phase 7: ok")
     return times
 
 
@@ -326,24 +535,32 @@ def main() -> int:
     exact_matmuls()
     t_start = time.perf_counter()
     card = phase_build()
-    shapes = [(p, 2, dt) for dt in (torch.float32, torch.float64)
-              for p in range(1, 8)]
-    shapes += [(4, 6, torch.float32), (4, 6, torch.float64)]
+    dtypes = (torch.float32, torch.float64)
+    shapes = [(3, p, 2, dt) for dt in dtypes for p in range(1, 8)]
+    shapes += [(3, 4, 6, dt) for dt in dtypes]
+    shapes += [(2, p, r, dt) for dt in dtypes for r in (2, 3)
+               for p in range(1, 8)]
+    shapes += [(2, 7, 9, dt) for dt in dtypes]
     errs = phase_compare(device, shapes)
     with open("tests/golden_convergence.json") as fh:
-        phase_golden(device, json.load(fh)["geometric_3d"])
+        phase_golden(device, json.load(fh))
     prob, st, per_mode = phase_main(device, 6, GOLDEN_L2_Q4_R6, 4)
     times = phase_timing(card, prob, st, device)
+    del prob
+    torch.cuda.empty_cache()
+    prob2, st2, per_mode2 = phase_second(device, 9)
+    times.update(phase_second_timing(card, prob2, st2, device))
+    per_mode.update(per_mode2)
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
 
     kernels = []
     for name, k in KERNELS.items():
         counts = per_mode[name]
-        mode = max(counts, key=counts.get)  # the main path's busiest mode
+        mode = max(counts, key=counts.get)  # its path's busiest mode
         t_k, t_t = times[(name, mode)]
         err = max(v for key, v in errs.items()
-                  if key[0] == name and key[2:] == (4, 6, "float32"))
+                  if key[0] == name and key[2:] == (*k["shape"], "float32"))
         kernels.append(dict(name=name, mode=mode, route=k["route"],
                             source=k["source"], replaces=k["replaces"],
                             launches=sum(counts.values()), max_abs_err=err,

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with :mod:`ctypes` — no PyTorch headers, so a build takes
-seconds.  The library goes to ``build/kernels/`` at the repository root,
-named by a hash of the sources and flags: a changed source builds anew, an
+Each source compiles with its own ``nvcc``, all started together, and the
+objects link into one shared library with a plain C interface, loaded with
+:mod:`ctypes` — no PyTorch headers, so a build takes seconds.  The library
+goes to ``build/kernels/`` at the repository root, named by a hash of the
+sources and flags: a changed source builds anew, an
 unchanged one is reused.  Only the repository's own sources are compiled.
 Building happens at first use, never at import (the CPU tests import every
 module of the port on machines without ``nvcc``).
@@ -22,8 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas=-v", "-c")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +35,7 @@ _D = ctypes.c_double
 # so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
     "pmg_laplace": [_P] * 10 + [_D, _D] + [_I] * 6 + [_P],
+    "pmg_laplace2d": [_P] * 11 + [_D, _D] + [_I] * 5 + [_P],
     "pmg_cheb2": [_P] * 10 + [_D] * 5 + [_I] * 6 + [_P, _P],
     "pmg_transfer": [_P] * 5 + [_I] * 8 + [_P],
 }
@@ -56,7 +60,7 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -84,6 +88,42 @@ class KernelLibrary:
 _LIBRARY: KernelLibrary | None = None
 
 
+def _run_logged(cmds: list[list[str]], logdir: Path) -> tuple[list[int], str]:
+    """Run the commands side by side; return their exit codes and output."""
+    logs = [logdir / f"{k}.log" for k in range(len(cmds))]
+    procs = []
+    for cmd, path in zip(cmds, logs):
+        with open(path, "w") as fh:
+            procs.append(subprocess.Popen(cmd, stdout=fh,
+                                          stderr=subprocess.STDOUT))
+    codes = [proc.wait() for proc in procs]
+    return codes, "".join(path.read_text() for path in logs)
+
+
+def _compile_and_link(target: Path) -> str:
+    """One nvcc per source, all at once, then one link; returns the log."""
+    work = target.with_suffix(f".{os.getpid()}.d")
+    work.mkdir(exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        objs = [work / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        tmp = work / target.name
+        cmds_link = [[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]]
+        log = ""
+        for batch in (cmds, cmds_link):
+            codes, out = _run_logged(batch, work)
+            log += out
+            bad = [" ".join(c) for c, code in zip(batch, codes) if code]
+            if bad:
+                raise BuildError(f"nvcc failed: {'; '.join(bad)}\n{log}")
+        os.replace(tmp, target)
+        return log
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def build(force: bool = False) -> KernelLibrary:
     """Compile (when needed) and load the kernel library."""
     global _LIBRARY
@@ -94,15 +134,7 @@ def build(force: bool = False) -> KernelLibrary:
     t0 = time.perf_counter()
     log = ""
     if force or not target.exists():
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise BuildError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, target)
+        log = _compile_and_link(target)
     _LIBRARY = KernelLibrary(target, time.perf_counter() - t0, log)
     return _LIBRARY
 

@@ -18,6 +18,7 @@ import torch
 
 from .ops.cuda_cheb2 import make_cheb2
 from .ops.cuda_laplace import CudaLaplaceOperator, cuda_laplace_from_factors
+from .ops.cuda_laplace2d import CudaLaplace2D
 from .ops.cuda_transfer import (
     CudaTransfer,
     _axis_matrix_1d,
@@ -43,10 +44,12 @@ def kron_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, K1, M1,
 
 
 def kernel_operator(*, degree: int, n: int, mask1, dK1, dM1, K1, M1,
-                    dtype=torch.float64, device="cpu") -> CudaLaplaceOperator:
-    """The B.1 kernel operator (3D) from 1D state."""
+                    dim: int = 3, dtype=torch.float64,
+                    device="cpu") -> CudaLaplaceOperator:
+    """The kernel operator from 1D state: B.1 in 3D, B.4 in 2D."""
+    cls = {2: CudaLaplace2D, 3: CudaLaplaceOperator}[dim]
     return cuda_laplace_from_factors(degree, n, mask1, K1, M1, dK1, dM1,
-                                     dtype, device)
+                                     dtype, device, cls=cls)
 
 
 def plain_transfer(*, dim: int, n_coarse: int, stride_c: int, stride_f: int,
@@ -68,13 +71,13 @@ def kernel_transfer(*, n_coarse: int, stride_c: int, stride_f: int, M1,
     return cuda_transfer_from_matrix(P, dtype, device, coarse_trimmed)
 
 
-def smoother(op, *, degree: int, theta, delta, fused: bool = False,
-             pair_kernel: bool = True):
+def smoother(op, *, degree: int, theta, delta, fused: bool = False):
     """A Chebyshev smoother with the given bounds: plain on the full grid,
-    or fused on trimmed state (with the B.2 pair kernel by default)."""
+    or fused on trimmed state (with the B.2 pair kernel on a 3D operator;
+    there is none in 2D)."""
     theta, delta = float(np.asarray(theta)), float(np.asarray(delta))
     if fused:
         return FusedChebyshev(degree=int(degree), op=op, theta=theta,
                               delta=delta,
-                              op_cheb2=make_cheb2(op) if pair_kernel else None)
+                              op_cheb2=make_cheb2(op) if op.dim == 3 else None)
     return Chebyshev(degree=int(degree), op=op, theta=theta, delta=delta)

@@ -1,8 +1,9 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
 // State layout everywhere: a trimmed 3D grid [x, y, z] of N^3 values,
-// C-order with z contiguous (the global last plane per axis is dropped and
-// constrained entries are zero).  1D operators are stored as bands:
+// C-order with z contiguous, or a trimmed 2D grid [x, y] with y contiguous
+// (the global last plane per axis is dropped and constrained entries are
+// zero).  A 2D kernel contracts its contiguous axis with stage_z.  1D operators are stored as bands:
 // band[(o + p) * N + i] = W[i, i + o] for o in [-p, p], zero where i + o
 // leaves [0, N) — the Dirichlet mask is folded into the matrices, so a
 // contraction never needs a separate mask.
@@ -126,6 +127,55 @@ __device__ __forceinline__ T diag_at(const T* __restrict__ dk,
                                      const T* __restrict__ dm, int64_t gx,
                                      int64_t gy, int64_t gz) {
   return dk[gx] * dm[gy] * dm[gz] + dm[gx] * (dk[gy] * dm[gz] + dm[gy] * dk[gz]);
+}
+
+// Modes of the fused Laplace kernels (laplace.cu, laplace2d.cu), in the
+// order of MODES in ops/cuda_laplace.py.
+enum LaplaceMode { kApply = 0, kRes1 = 1, kRes3 = 2, kCheb = 3, kChebL = 4,
+                   kChebD = 5, kChebDL = 6 };
+
+// The mode's elementwise epilogue at flat index g, given raw = (M A M u)[g]
+// (pallas_laplace.py:631-682):
+//     apply       out = A u
+//     residual1t  out = rhs - A u
+//     residual3t  r0 = rhs - A u, d0 = r0 / (theta diag), x0 = u + d0
+//     cheb        r' = r - A d, d' = c0 d + (c1 / diag) r', x' = x + d'
+//     chebl       x' only;  chebd / chebdl: x == d on entry.
+// diag() rebuilds the diagonal from its 1D factors; only the modes that
+// need it call it.
+template <typename T, typename Diag>
+__device__ __forceinline__ void laplace_epilogue(
+    int mode, int64_t g, T raw, const T* __restrict__ u,
+    const T* __restrict__ in1, const T* __restrict__ in2, T* __restrict__ out0,
+    T* __restrict__ out1, T* __restrict__ out2, T c0, T c1, Diag diag) {
+  if (mode == kApply) {
+    out0[g] = raw;
+    return;
+  }
+  if (mode == kRes1) {
+    out0[g] = in1[g] - raw;
+    return;
+  }
+  const T dg = diag();
+  if (mode == kRes3) {
+    const T r0 = in1[g] - raw;
+    const T d0 = r0 / (c0 * dg);
+    out0[g] = r0;
+    out1[g] = d0;
+    out2[g] = u[g] + d0;
+    return;
+  }
+  const T d = u[g];
+  const T x = (mode == kChebD || mode == kChebDL) ? d : in2[g];
+  const T rn = in1[g] - raw;
+  const T dn = c0 * d + (c1 / dg) * rn;
+  if (mode == kChebL || mode == kChebDL) {
+    out0[g] = x + dn;
+  } else {
+    out0[g] = rn;
+    out1[g] = dn;
+    out2[g] = x + dn;
+  }
 }
 
 __device__ __forceinline__ bool inside(int64_t gx, int64_t gy, int64_t gz,

@@ -6,13 +6,8 @@
 // state with
 //     A = Kx (x) My (x) Mz + Mx (x) Ky (x) Mz + Mx (x) My (x) Kz,
 // each 1D factor (2p+1)-banded with the Dirichlet mask folded in, followed by
-// the mode's elementwise epilogue (pallas_laplace.py:631-682):
-//     apply       out = A u
-//     residual1t  out = rhs - A u
-//     residual3t  r0 = rhs - A u, d0 = r0 / (theta diag), x0 = u + d0
-//     cheb        r' = r - A d, d' = c0 d + (c1 / diag) r', x' = x + d'
-//     chebl       x' only;  chebd / chebdl: x == d on entry.
-// The diagonal is rebuilt from its 1D factors instead of being streamed.
+// the mode's elementwise epilogue (laplace_epilogue in common.cuh).  The
+// diagonal is rebuilt from its 1D factors instead of being streamed.
 //
 // What bounds it on the H100: HBM traffic.  apply reads u and writes one
 // field (8 B/DoF in f32), the cheb modes read d, r, x and write three
@@ -36,9 +31,6 @@
 using namespace pmg;
 
 namespace {
-
-enum Mode { kApply = 0, kRes1 = 1, kRes3 = 2, kCheb = 3, kChebL = 4,
-            kChebD = 5, kChebDL = 6 };
 
 // shared-memory elements for a tile; must match laplace_smem_elems() in
 // ops/cuda_laplace.py
@@ -97,33 +89,9 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                 [&](int lx, int ly, int lz, T raw) {
     const int64_t gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
     if (gx >= N || gy >= N || gz >= N) return;
-    const int64_t g = (gx * N + gy) * N + gz;
-    if (mode == kApply) {
-      out0[g] = raw;
-    } else if (mode == kRes1) {
-      out0[g] = in1[g] - raw;
-    } else {
-      const T diag = diag_at(dk, dm, gx, gy, gz);
-      if (mode == kRes3) {
-        const T r0 = in1[g] - raw;
-        const T d0 = r0 / (c0 * diag);
-        out0[g] = r0;
-        out1[g] = d0;
-        out2[g] = u[g] + d0;
-      } else {
-        const T d = u[g];
-        const T x = (mode == kChebD || mode == kChebDL) ? d : in2[g];
-        const T rn = in1[g] - raw;
-        const T dn = c0 * d + (c1 / diag) * rn;
-        if (mode == kChebL || mode == kChebDL) {
-          out0[g] = x + dn;
-        } else {
-          out0[g] = rn;
-          out1[g] = dn;
-          out2[g] = x + dn;
-        }
-      }
-    }
+    laplace_epilogue(mode, (gx * N + gy) * N + gz, raw, u, in1, in2, out0,
+                     out1, out2, c0, c1,
+                     [&] { return diag_at(dk, dm, gx, gy, gz); });
   });
 }
 

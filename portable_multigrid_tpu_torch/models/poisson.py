@@ -1,21 +1,26 @@
-"""Geometric-multigrid Poisson solve (torch port of the reference's first
-driver).
+"""Poisson model problems: the reference's two drivers (torch port).
 
 Counterpart of ``portable_multigrid_tpu/models/poisson.py``
-(``GeometricMultigridPoisson``, ``SolveStats``, ``_build_level``,
-``_assemble_levels``): dim-D Poisson on the unit hyper-cube, f ≡ 1,
-homogeneous Dirichlet on the whole boundary, h-multigrid over the geometric
-coarsening sequence, Chebyshev(5) smoothing, V(2,2), CG to rtol * ||b||
-(reference: source/geometric_multigrid/program.cc).
+(``SolveStats``, ``_build_level``, ``_MultigridPoissonBase``,
+``GeometricMultigridPoisson``, ``PolynomialMultigridPoisson``): dim-D
+Poisson on the unit hyper-cube, f ≡ 1, homogeneous Dirichlet on the whole
+boundary, Chebyshev(5) smoothing, V(2,2), CG to rtol * ||b||, over
+
+  * the geometric coarsening sequence, equal degree (h-multigrid;
+    reference: source/geometric_multigrid/program.cc), or
+  * one mesh with the polynomial ladder p_l = p - (L-1-l) (p-multigrid;
+    reference: source/polynomial_multigrid/program.cc:149-159).
 
 Variants:
 
-  * ``"auto"`` (3D only) — the kernel path: every level above the 1-cell
-    coarsest runs the B.1 operator with a fused Chebyshev smoother and the
-    B.2 pair kernel on trimmed state; the coarsest level runs plain
-    Chebyshev-as-solver on the B.1 operator's full-grid apply; every h-pair
-    runs the B.3 transfer kernel.  One exact operator serves every role.
-    On CPU tensors each kernel wrapper runs its plain twin.
+  * ``"auto"`` — the kernel path: every level above the coarsest runs the
+    kernel operator (B.1 in 3D, B.4 in 2D) with a fused Chebyshev smoother
+    on trimmed state, plus the B.2 pair kernel in 3D (the JAX package has
+    none in 2D); the coarsest level runs plain Chebyshev-as-solver on the
+    kernel operator's full-grid apply; 3D h-pairs run the B.3 transfer
+    kernel, every other pair the plain ``Transfer``.  One exact operator
+    serves every role of a level.  On CPU tensors each kernel wrapper runs
+    its plain twin.
   * ``"kron"`` — the plain path: the Kronecker operator, plain Chebyshev and
     the windowed ``Transfer`` on full grids.
 """
@@ -32,9 +37,10 @@ from ..fem.mesh import HyperCubeMesh, geometric_coarsening_sequence
 from ..fem.space import FESpace
 from ..ops.cuda_cheb2 import make_cheb2
 from ..ops.cuda_laplace import make_cuda_laplace
+from ..ops.cuda_laplace2d import make_cuda_laplace2d
 from ..ops.cuda_transfer import make_cuda_h_transfer
 from ..ops.laplace import make_laplace, reject_variant
-from ..ops.transfer import make_h_transfer
+from ..ops.transfer import make_h_transfer, make_p_transfer
 from ..solvers.cg import cg
 from ..solvers.chebyshev import make_chebyshev
 from ..solvers.vcycle import MGLevel, VCycle, wire_trimmed
@@ -53,10 +59,10 @@ class SolveStats:
 def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
                  device) -> tuple:
     if variant == "auto":
-        if space.dim != 3:
-            raise ValueError("variant 'auto' is 3D only; the 2D kernels are "
-                             "ROADMAP A.8 / B.4")
-        op = make_cuda_laplace(space, dtype, device)
+        make_op = {2: make_cuda_laplace2d, 3: make_cuda_laplace}.get(space.dim)
+        if make_op is None:
+            raise ValueError("variant 'auto' runs 2D and 3D spaces only")
+        op = make_op(space, dtype, device)
     elif variant == "kron":
         op = make_laplace(space, dtype, "kron", device)
     else:
@@ -66,26 +72,24 @@ def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
                                   eig_cg_n_iterations=space.n_dofs)
     else:
         fused = variant == "auto"
+        # the B.2 pair kernel is 3D only, as in the JAX package
+        pair = make_cheb2(op) if fused and space.dim == 3 else None
         smoother = make_chebyshev(
             op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
-            fused=fused, cheb2=make_cheb2(op) if fused else None)
+            fused=fused, cheb2=pair)
     return op, smoother
 
 
-class GeometricMultigridPoisson:
-    """h-multigrid Poisson solve; ``refinements`` is the finest level and the
-    hierarchy is the full coarsening sequence down to the 1-cell mesh."""
+class _MultigridPoissonBase:
+    """Common machinery: build levels, solve, report."""
 
-    def __init__(self, dim: int, degree: int, refinements: int,
-                 dtype=torch.float64, variant: str = "auto", device="cpu"):
+    def __init__(self, dtype=torch.float64, variant: str = "auto",
+                 device="cpu"):
         self.dtype = dtype
         self.variant = variant
         self.device = torch.device(device)
-        mesh = HyperCubeMesh(dim, refinements)
-        spaces = [FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)]
-        self._assemble_levels(spaces)
 
-    def _assemble_levels(self, spaces):
+    def _assemble_levels(self, spaces, make_transfer):
         levels = []
         for i, sp in enumerate(spaces):
             op, smoother = _build_level(sp, self.dtype, coarse=(i == 0),
@@ -93,14 +97,16 @@ class GeometricMultigridPoisson:
                                         device=self.device)
             transfer = None
             if i > 0:
-                if self.variant == "auto":
+                if (self.variant == "auto" and sp.dim == 3
+                        and make_transfer is make_h_transfer):
                     # the coarsest level keeps the full grid
                     transfer = make_cuda_h_transfer(
                         spaces[i - 1], sp, self.dtype, self.device,
                         coarse_trimmed=i - 1 > 0)
                 else:
-                    transfer = make_h_transfer(spaces[i - 1], sp, self.dtype,
-                                               self.device)
+                    # wire_trimmed adapts it to trimmed levels
+                    transfer = make_transfer(spaces[i - 1], sp, self.dtype,
+                                             self.device)
             levels.append(MGLevel(op=op, smoother=smoother, transfer=transfer))
         levels, self.fine_trimmed = wire_trimmed(levels)
         self.spaces = list(spaces)
@@ -141,3 +147,34 @@ class GeometricMultigridPoisson:
             print(f"  Solver converged in {stats.iterations} iterations.")
             print(f"  solution norm: {stats.solution_l2_norm:.6g}")
         return result.x, stats
+
+
+class GeometricMultigridPoisson(_MultigridPoissonBase):
+    """h-multigrid Poisson solve; ``refinements`` is the finest level and the
+    hierarchy is the full coarsening sequence down to the 1-cell mesh."""
+
+    def __init__(self, dim: int, degree: int, refinements: int,
+                 dtype=torch.float64, variant: str = "auto", device="cpu"):
+        super().__init__(dtype, variant, device)
+        mesh = HyperCubeMesh(dim, refinements)
+        spaces = [FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)]
+        self._assemble_levels(spaces, make_h_transfer)
+
+
+class PolynomialMultigridPoisson(_MultigridPoissonBase):
+    """p-multigrid Poisson solve on one mesh; degrees
+    p_l = degree - (n_levels-1-l) (reference:
+    source/polynomial_multigrid/program.cc:149-159)."""
+
+    def __init__(self, dim: int, degree: int, refinements: int,
+                 n_levels: int | None = None, dtype=torch.float64,
+                 variant: str = "auto", device="cpu"):
+        super().__init__(dtype, variant, device)
+        if n_levels is None:
+            n_levels = degree
+        if n_levels > degree:
+            raise ValueError("n_levels must be <= degree")
+        mesh = HyperCubeMesh(dim, refinements)
+        degrees = [degree - (n_levels - 1 - l) for l in range(n_levels)]
+        self._assemble_levels([FESpace(mesh, p) for p in degrees],
+                              make_p_transfer)

@@ -134,6 +134,9 @@ def cheb2_twin(op: CudaLaplaceOperator, d, r, x, scal, mode: str):
 
 
 def make_cheb2(op: CudaLaplaceOperator) -> Cheb2Kernel:
+    if op.dim != 3:
+        # as in the JAX package (pallas_cheb2.py:59-69)
+        raise ValueError("the pair kernel B.2 is 3D only")
     itemsize = torch.empty((), dtype=op.dtype).element_size()
     tile, in_smem = cheb2_tile(op.degree, itemsize)
     return Cheb2Kernel(op=op, tile=tile, in_smem=in_smem)

@@ -17,6 +17,7 @@ same modes and outputs.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -93,7 +94,12 @@ def diag_trimmed(dKt: torch.Tensor, dMt: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class CudaLaplaceOperator:
-    """3D Q_p Laplace operator for the kernel path, on one device."""
+    """3D Q_p Laplace operator for the kernel path, on one device.
+
+    The state, the shapes and :meth:`apply` / :meth:`run` are written for
+    any ``dim``; a subclass names its kernel, its launch counts, its twin,
+    the state they take and its diagonal
+    (``ops.cuda_laplace2d.CudaLaplace2D`` for 2D)."""
 
     degree: int
     n: int  # cells per axis
@@ -102,18 +108,20 @@ class CudaLaplaceOperator:
     dM1: torch.Tensor  # [N] assembled mass diagonal
     kband: torch.Tensor  # [2p+1, N-1] bands of the trimmed mask-folded K
     mband: torch.Tensor  # [2p+1, N-1] bands of the trimmed mask-folded M
-    Kt: torch.Tensor  # [N-1, N-1] trimmed mask-folded K (the twin's form)
-    Mt: torch.Tensor  # [N-1, N-1] trimmed mask-folded M
     tile: tuple  # (TX, TY, TZ) of the kernel launch
     dim: int = 3
+    Kt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded K (3D twin)
+    Mt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded M (3D twin)
+    kernel: ClassVar[str] = "pmg_laplace"  # C entry point (without dtype)
+    launches: ClassVar[dict] = LAUNCHES
 
     @property
-    def grid_shape(self) -> tuple[int, int, int]:
-        return (self.n * self.degree + 1,) * 3
+    def grid_shape(self) -> tuple[int, ...]:
+        return (self.n * self.degree + 1,) * self.dim
 
     @property
-    def trimmed_shape(self) -> tuple[int, int, int]:
-        return (self.n * self.degree,) * 3
+    def trimmed_shape(self) -> tuple[int, ...]:
+        return (self.n * self.degree,) * self.dim
 
     @property
     def n_dofs(self) -> int:
@@ -137,12 +145,13 @@ class CudaLaplaceOperator:
 
     @property
     def mask(self) -> torch.Tensor:
-        return separable_mask((self.mask1,) * 3)
+        return separable_mask((self.mask1,) * self.dim)
 
     @property
     def inv_diag(self) -> torch.Tensor:
-        return separable_inv_diag((self.mask1,) * 3, (self.dK1,) * 3,
-                                  (self.dM1,) * 3)
+        return separable_inv_diag((self.mask1,) * self.dim,
+                                  (self.dK1,) * self.dim,
+                                  (self.dM1,) * self.dim)
 
     def diag_trimmed(self) -> torch.Tensor:
         return diag_trimmed(self.dKt, self.dMt)
@@ -151,8 +160,8 @@ class CudaLaplaceOperator:
         """Full vmult A_eff = M A M + (I - M): trim, run the kernel, pad,
         combine (the wrapper side of pallas_laplace.py:195-210)."""
         u = u.reshape(self.grid_shape)
-        (au,) = self.run("apply", u[:-1, :-1, :-1].contiguous())
-        au = torch.nn.functional.pad(au, (0, 1, 0, 1, 0, 1))
+        (au,) = self.run("apply", u[(slice(0, -1),) * self.dim].contiguous())
+        au = torch.nn.functional.pad(au, (0, 1) * self.dim)
         m = self.mask
         return m * au + (1.0 - m) * u
 
@@ -163,20 +172,48 @@ class CudaLaplaceOperator:
         (r,) for chebd/chebdl.  ``scal``: (theta,) for residual3t, (c0, c1)
         for the cheb family."""
         if mode not in MODES:
-            raise ValueError(f"unknown laplace mode {mode!r}")
+            raise ValueError(f"unknown laplace mode {mode!r}: the kernels "
+                             f"take trimmed state, in modes {MODES}")
         if len(ins) != _N_IN[mode]:
             raise ValueError(f"mode {mode!r} takes {_N_IN[mode]} inputs")
+        _check(self, u, "u")
+        for k, t in enumerate(ins):
+            _check(self, t, f"input {k}")
         if u.device.type == "cpu":
-            return laplace_twin(self, mode, u, ins, scal)
+            return self.twin(mode, u, ins, scal)
         if not u.is_cuda:
             raise ValueError(f"unsupported device {u.device}")
         return _launch(self, mode, u, ins, scal)
+
+    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
+        return laplace_twin(self, mode, u, ins, scal)
+
+    @staticmethod
+    def pick_tile(p: int, itemsize: int) -> tuple:
+        return laplace_tile(p, itemsize)
+
+    @staticmethod
+    def twin_state(t, m1, K1, Kt, Mt) -> dict:
+        """The fields the twin needs beyond the bands: the dense trimmed
+        mask-folded 1D matrices."""
+        return dict(Kt=t(Kt), Mt=t(Mt))
+
+    def kernel_state(self) -> tuple:
+        """Operator arrays handed to the kernel, in its argument order."""
+        return self.kband, self.mband, self.dK1, self.dM1
 
 
 def laplace_twin(op: CudaLaplaceOperator, mode: str, u: torch.Tensor,
                  ins=(), scal=()):
     """Plain torch version of every kernel mode (same inputs and outputs)."""
-    raw = apply_trimmed(op.Kt, op.Mt, u)
+    return twin_epilogue(op, mode, apply_trimmed(op.Kt, op.Mt, u), u, ins,
+                         scal)
+
+
+def twin_epilogue(op, mode: str, raw: torch.Tensor, u: torch.Tensor, ins=(),
+                  scal=()):
+    """The mode's elementwise epilogue on raw = M A M u (the twins' half of
+    laplace_epilogue in csrc/common.cuh)."""
     if mode == "apply":
         return (raw,)
     if mode == "residual1t":
@@ -217,32 +254,31 @@ def _suffix(dtype) -> str:
 
 
 def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal):
-    _check(op, u, "u")
-    for k, t in enumerate(ins):
-        _check(op, t, f"input {k}")
-    fn = _build.build().fn("pmg_laplace", _suffix(u.dtype))
+    fn = _build.build().fn(op.kernel, _suffix(u.dtype))
     outs = [torch.empty_like(u) for _ in range(_N_OUT[mode])]
     ptrs = [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
     optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
     c0, c1 = (list(map(float, scal)) + [0.0, 0.0])[:2]
     N = op.n * op.degree
-    err = fn(u.data_ptr(), *ptrs, *optrs, op.kband.data_ptr(),
-             op.mband.data_ptr(), op.dK1.data_ptr(), op.dM1.data_ptr(), c0, c1,
+    err = fn(u.data_ptr(), *ptrs, *optrs,
+             *(t.data_ptr() for t in op.kernel_state()), c0, c1,
              N, op.degree, MODES.index(mode), *op.tile,
              _build.stream_handle(u.device))
     if err:
-        raise RuntimeError(f"laplace kernel ({mode}) launch failed: "
+        raise RuntimeError(f"{op.kernel} kernel ({mode}) launch failed: "
                            f"CUDA error {err}")
-    LAUNCHES[mode] += 1
+    op.launches[mode] += 1
     return tuple(outs)
 
 
 def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
-                              dtype=torch.float32,
-                              device="cpu") -> CudaLaplaceOperator:
+                              dtype=torch.float32, device="cpu",
+                              cls=CudaLaplaceOperator) -> CudaLaplaceOperator:
     """Pack the operator from its 1D factors (NumPy, float64): the free-DoF
     mask ``m1``, the assembled 1D matrices ``K1``/``M1`` and the diagonal
-    factors ``gK`` (h-folded) / ``gM``, all of length n*degree + 1."""
+    factors ``gK`` (h-folded) / ``gM``, all of length n*degree + 1.
+    ``cls`` is the operator class; its ``pick_tile`` chooses the launch
+    tile and its ``twin_state`` the state the twin keeps."""
     m1, K1, M1 = (np.asarray(a, np.float64) for a in (m1, K1, M1))
     Kt = (m1[:, None] * K1 * m1[None, :])[:-1, :-1]
     Mt = (m1[:, None] * M1 * m1[None, :])[:-1, :-1]
@@ -252,7 +288,7 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
                                device=device)
 
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return CudaLaplaceOperator(
+    return cls(
         degree=degree,
         n=n,
         mask1=t(m1),
@@ -260,9 +296,8 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
         dM1=t(gM),
         kband=t(to_bands(Kt, degree)),
         mband=t(to_bands(Mt, degree)),
-        Kt=t(Kt),
-        Mt=t(Mt),
-        tile=laplace_tile(degree, itemsize),
+        tile=cls.pick_tile(degree, itemsize),
+        **cls.twin_state(t, m1, K1, Kt, Mt),
     )
 
 
@@ -270,7 +305,8 @@ def make_cuda_laplace(space: FESpace, dtype=torch.float32,
                       device="cpu") -> CudaLaplaceOperator:
     """Host packing (NumPy, f64) of the 1D factors, shipped once to ``device``."""
     if space.dim != 3:
-        raise ValueError("the kernel operator is 3D only (2D is ROADMAP A.8)")
+        raise ValueError("B.1 is the 3D operator; make_cuda_laplace2d "
+                         "builds the 2D one")
     K1, M1 = assembled_1d_matrices(space)
     gK, gM = diagonal_1d_factors(space)
     return cuda_laplace_from_factors(space.degree, space.mesh.cells_per_axis,

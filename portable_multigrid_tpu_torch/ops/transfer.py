@@ -1,7 +1,9 @@
-"""Geometric (h) grid transfers on structured grids (plain torch).
+"""Geometric (h) and polynomial (p) grid transfers on structured grids
+(plain torch).
 
 Counterpart of ``portable_multigrid_tpu/ops/transfer.py``
-(``Transfer``, ``TrimmedTransfer``, ``make_h_transfer``, ``_weights_1d``):
+(``Transfer``, ``TrimmedTransfer``, ``make_h_transfer``,
+``make_p_transfer``, ``_weights_1d``):
 the reference's ``Portable::GeometricTransfer`` (reference:
 include/multigrid/portable_geometric_transfer.h:687-1487) reduces on a
 tensor-product grid to one separable per-axis schedule:
@@ -22,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..fem.basis import h_prolongation_matrix_1d
+from ..fem.basis import h_prolongation_matrix_1d, p_prolongation_matrix_1d
 from ..fem.space import FESpace
 from .laplace import bcast
 from .structured import contract, overlap_add, split_windows
@@ -75,7 +77,8 @@ def pad_last_planes(t: torch.Tensor) -> torch.Tensor:
 
 
 def trim_last_planes(t: torch.Tensor) -> torch.Tensor:
-    """Full grid -> trimmed state: drop the global last plane per axis."""
+    """Full grid -> trimmed state: drop the global last plane per axis (a
+    view; the kernels take it after ``.contiguous()``)."""
     return t[tuple(slice(0, s - 1) for s in t.shape)]
 
 
@@ -97,7 +100,8 @@ class TrimmedTransfer:
         if self.fine_trimmed:
             f = pad_last_planes(f)
         c = self.base.restrict(f)
-        return trim_last_planes(c) if self.coarse_trimmed else c
+        # the coarse level's kernels take contiguous trimmed state
+        return trim_last_planes(c).contiguous() if self.coarse_trimmed else c
 
     def prolongate(self, c: torch.Tensor) -> torch.Tensor:
         if self.coarse_trimmed:
@@ -119,6 +123,28 @@ def _weights_1d(n_coarse: int, stride_f: int) -> np.ndarray:
     return w
 
 
+def _transfer(coarse: FESpace, fine: FESpace, stride_f: int, M1: np.ndarray,
+              dtype, device) -> Transfer:
+    """The separable transfer with 1D matrix M1 [stride_f+1, p_c+1], fine
+    weights 1/valence times the fine mask, coarse mask last."""
+    n_c = coarse.mesh.cells_per_axis
+    dim = coarse.dim
+    w = _weights_1d(n_c, stride_f) * fine.free_mask_1d()
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return Transfer(
+        dim=dim,
+        n_coarse=(n_c,) * dim,
+        stride_c=coarse.degree,
+        stride_f=stride_f,
+        M1=t(M1),
+        wmask_f=(t(w),) * dim,
+        mask_c1=(t(coarse.free_mask_1d()),) * dim,
+    )
+
+
 def make_h_transfer(coarse: FESpace, fine: FESpace, dtype=torch.float64,
                     device="cpu") -> Transfer:
     """Geometric transfer between two uniformly refined levels, equal degree."""
@@ -127,19 +153,18 @@ def make_h_transfer(coarse: FESpace, fine: FESpace, dtype=torch.float64,
     if fine.mesh.cells_per_axis != 2 * coarse.mesh.cells_per_axis:
         raise ValueError("fine mesh must be one refinement of the coarse mesh")
     p = coarse.degree
-    n_c = coarse.mesh.cells_per_axis
-    dim = coarse.dim
-    w = _weights_1d(n_c, 2 * p) * fine.free_mask_1d()
+    return _transfer(coarse, fine, 2 * p, h_prolongation_matrix_1d(p), dtype,
+                     device)
 
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
 
-    return Transfer(
-        dim=dim,
-        n_coarse=(n_c,) * dim,
-        stride_c=p,
-        stride_f=2 * p,
-        M1=t(h_prolongation_matrix_1d(p)),
-        wmask_f=(t(w),) * dim,
-        mask_c1=(t(coarse.free_mask_1d()),) * dim,
-    )
+def make_p_transfer(coarse: FESpace, fine: FESpace, dtype=torch.float64,
+                    device="cpu") -> Transfer:
+    """Polynomial transfer on one mesh between degrees p_coarse < p_fine.
+
+    Plain torch on every device: the JAX package has no kernel for it and
+    leaves it to XLA."""
+    if coarse.mesh.cells_per_axis != fine.mesh.cells_per_axis:
+        raise ValueError("p-transfer requires the same mesh")
+    return _transfer(coarse, fine, fine.degree,
+                     p_prolongation_matrix_1d(coarse.degree, fine.degree),
+                     dtype, device)

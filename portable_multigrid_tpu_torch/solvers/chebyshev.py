@@ -69,13 +69,14 @@ class FusedChebyshev:
     TRIMMED state (global last planes dropped, constrained entries zero).
 
     Mathematically :class:`Chebyshev` on the free DoFs.  Each recurrence step
-    is one pass of the B.1 kernel (modes cheb/chebl/chebd/chebdl), or two
-    steps are one pass of the B.2 pair kernel when ``op_cheb2`` is set; the
-    smoothing step's residual seeds the recurrence inside B.1 (residual3t).
-    ``op`` is the one exact operator for every role."""
+    is one pass of the operator kernel (B.1 in 3D, B.4 in 2D; modes
+    cheb/chebl/chebd/chebdl), or two steps are one pass of the B.2 pair
+    kernel when ``op_cheb2`` is set (3D only); the smoothing step's residual
+    seeds the recurrence inside the operator kernel (residual3t).  ``op`` is
+    the one exact operator for every role."""
 
     degree: int
-    op: object  # ops.cuda_laplace.CudaLaplaceOperator
+    op: object  # ops.cuda_laplace.CudaLaplaceOperator (or its 2D subclass)
     theta: float
     delta: float
     op_cheb2: object = None  # ops.cuda_cheb2.Cheb2Kernel

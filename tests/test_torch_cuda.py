@@ -1,7 +1,8 @@
 """On-card checks of the port's CUDA kernels (marked ``requires_cuda``).
 
-Each kernel mode against its plain twin on the same CUDA tensors, and the
-Q2 r=2 float64 solve through the kernels against the golden table.  These
+Each kernel mode against its plain twin on the same CUDA tensors (B.1-B.3
+in 3D, B.4 in 2D with partial tiles), and a 3D and a 2D float64 solve
+through the kernels against the golden table.  These
 skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
@@ -13,10 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from portable_multigrid_tpu_torch import GeometricMultigridPoisson
+from portable_multigrid_tpu_torch import (
+    GeometricMultigridPoisson,
+    PolynomialMultigridPoisson,
+)
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
-from portable_multigrid_tpu_torch.ops import cuda_cheb2, cuda_laplace, cuda_transfer
+from portable_multigrid_tpu_torch.ops import (
+    cuda_cheb2,
+    cuda_laplace,
+    cuda_laplace2d,
+    cuda_transfer,
+)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -32,11 +41,18 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _field(n, rng, dtype, device):
+def _field(n, rng, dtype, device, dim=3):
     m = np.ones(n)
     m[0] = 0.0
-    v = rng.standard_normal((n,) * 3) * m[:, None, None] * m[None, :, None] * m
+    v = rng.standard_normal((n,) * dim)
+    for ax in range(dim):
+        v = v * m.reshape([n if a == ax else 1 for a in range(dim)])
     return torch.as_tensor(v, dtype=dtype, device=device)
+
+
+_INS = {"apply": (), "residual1t": ("r",), "residual3t": ("r",),
+        "chebd": ("r",), "chebdl": ("r",)}
+_SCAL = {"apply": (), "residual1t": (), "residual3t": (1.3,)}
 
 
 def _close(got, want, dtype):
@@ -53,10 +69,8 @@ def test_kernels_match_twins(cuda, p, dtype):
     op = cuda_laplace.make_cuda_laplace(sp, dtype, cuda)
     u, r, x = (_field(2 * 2 * p, rng, dtype, cuda) for _ in range(3))
     for mode in cuda_laplace.MODES:
-        ins = {"apply": (), "residual1t": (r,), "residual3t": (r,),
-               "chebd": (r,), "chebdl": (r,)}.get(mode, (r, x))
-        scal = {"apply": (), "residual1t": (), "residual3t": (1.3,)}.get(
-            mode, (0.59, 1.26))
+        ins = tuple({"r": r, "x": x}[k] for k in _INS.get(mode, ("r", "x")))
+        scal = _SCAL.get(mode, (0.59, 1.26))
         _close(op.run(mode, u, ins, scal),
                cuda_laplace.laplace_twin(op, mode, u, ins, scal), dtype)
     kern = cuda_cheb2.make_cheb2(op)
@@ -72,6 +86,35 @@ def test_kernels_match_twins(cuda, p, dtype):
     _close([tr.restrict(u)], [twin(tr.restrict_.dense, u)], dtype)
     _close([tr.prolongate_and_add(x, c)], [twin(tr.prolong.dense, c, x)], dtype)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p,r", [(1, 2), (2, 3), (5, 2), (7, 3)])
+def test_laplace2d_matches_twin(cuda, p, r, dtype):
+    """Every B.4 mode against its twin; the grids are smaller than one tile
+    or end in partial tiles."""
+    rng = np.random.default_rng(p)
+    op = cuda_laplace2d.make_cuda_laplace2d(FESpace(HyperCubeMesh(2, r), p),
+                                            dtype, cuda)
+    u, r_, x = (_field(op.n * p, rng, dtype, cuda, dim=2) for _ in range(3))
+    before = sum(cuda_laplace2d.LAUNCHES.values())
+    for mode in cuda_laplace.MODES:
+        ins = tuple({"r": r_, "x": x}[k] for k in _INS.get(mode, ("r", "x")))
+        scal = _SCAL.get(mode, (0.59, 1.26))
+        _close(op.run(mode, u, ins, scal), op.twin(mode, u, ins, scal), dtype)
+    torch.cuda.synchronize()
+    assert sum(cuda_laplace2d.LAUNCHES.values()) == before + 7
+
+
+def test_polynomial_golden_row_through_kernels(cuda):
+    path = os.path.join(os.path.dirname(__file__), "golden_convergence.json")
+    with open(path) as fh:
+        want = [r for r in json.load(fh)["polynomial_2d"]
+                if r["refinements"] == 2][0]
+    x, st = PolynomialMultigridPoisson(2, want["degree"], 2, want["levels"],
+                                       torch.float64, "auto", cuda).solve()
+    assert x.is_cuda and st.iterations == want["iterations"]
+    assert st.solution_l2_norm == pytest.approx(want["l2_norm"], rel=1e-10)
 
 
 def test_golden_row_through_kernels(cuda):

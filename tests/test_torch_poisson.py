@@ -71,8 +71,8 @@ def test_float32_solve_converges():
 
 
 def test_variant_errors():
-    with pytest.raises(ValueError, match="3D only"):
-        GeometricMultigridPoisson(2, 2, 1, torch.float64, "auto")
+    with pytest.raises(ValueError, match="2D and 3D"):
+        GeometricMultigridPoisson(1, 2, 1, torch.float64, "auto")
     with pytest.raises(ValueError, match="not ported yet"):
         GeometricMultigridPoisson(3, 2, 1, torch.float64, "dense")
 
@@ -84,6 +84,7 @@ def test_port_never_imports_jax():
         "import portable_multigrid_tpu_torch.convert\n"
         "import portable_multigrid_tpu_torch._build\n"
         "import portable_multigrid_tpu_torch.programs.geometric_multigrid\n"
+        "import portable_multigrid_tpu_torch.programs.polynomial_multigrid\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('portable_multigrid_tpu.')\n"
         "       or m == 'portable_multigrid_tpu']\n"
