@@ -6,7 +6,8 @@ caller does ``np.asarray`` on the JAX side, so this module never sees JAX),
 they rebuild the port's objects exactly, so a test can run both packages on
 identical state and identical Chebyshev bounds:
 
-  * operator: ``mask1``, ``dK1``, ``dM1`` and the assembled 1D ``K1``/``M1``;
+  * operator: ``mask1``, ``dK1``, ``dM1`` and the assembled 1D ``K1``/``M1``
+    (and ``G1``, ``mu``, ``lam`` for elasticity);
   * transfer: ``M1``, ``wmask_f`` and ``mask_c1`` of a ``Transfer``;
   * smoother: ``degree``, ``theta`` and ``delta``.
 """
@@ -18,12 +19,14 @@ import torch
 
 from .ops.cuda_cheb2 import make_cheb2
 from .ops.cuda_laplace import CudaLaplaceOperator, cuda_laplace_from_factors
+from .ops.cuda_elasticity import cuda_elasticity_from_factors
 from .ops.cuda_laplace2d import CudaLaplace2D
 from .ops.cuda_transfer import (
     CudaTransfer,
     _axis_matrix_1d,
     cuda_transfer_from_matrix,
 )
+from .ops.elasticity import elasticity_from_factors
 from .ops.laplace import LaplaceOperator
 from .ops.transfer import Transfer
 from .solvers.chebyshev import Chebyshev, FusedChebyshev
@@ -52,6 +55,23 @@ def kernel_operator(*, degree: int, n: int, mask1, dK1, dM1, K1, M1,
                                      dtype, device, cls=cls)
 
 
+def elasticity_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, K1,
+                        M1, G1, mu, lam, kernel: bool = False,
+                        dtype=torch.float64, device="cpu"):
+    """The elasticity operator from 1D state: the plain Kronecker one, or
+    B.5 (3D) with ``kernel``."""
+    if kernel:
+        if dim != 3:
+            raise ValueError("B.5 is a 3D operator")
+        return cuda_elasticity_from_factors(degree, n, mask1, K1, M1, G1, dK1,
+                                            dM1, float(mu), float(lam), dtype,
+                                            device)
+    return elasticity_from_factors(dim=dim, degree=degree, n=n, mu=float(mu),
+                                   lam=float(lam), m1=mask1, gK=dK1, gM=dM1,
+                                   K1=K1, M1=M1, G1=G1, dtype=dtype,
+                                   device=device)
+
+
 def plain_transfer(*, dim: int, n_coarse: int, stride_c: int, stride_f: int,
                    M1, wmask_f, mask_c1, dtype=torch.float64,
                    device="cpu") -> Transfer:
@@ -73,11 +93,12 @@ def kernel_transfer(*, n_coarse: int, stride_c: int, stride_f: int, M1,
 
 def smoother(op, *, degree: int, theta, delta, fused: bool = False):
     """A Chebyshev smoother with the given bounds: plain on the full grid,
-    or fused on trimmed state (with the B.2 pair kernel on a 3D operator;
-    there is none in 2D)."""
+    or fused on trimmed state (with the B.2 pair kernel where the operator
+    has one)."""
     theta, delta = float(np.asarray(theta)), float(np.asarray(delta))
     if fused:
         return FusedChebyshev(degree=int(degree), op=op, theta=theta,
                               delta=delta,
-                              op_cheb2=make_cheb2(op) if op.dim == 3 else None)
+                              op_cheb2=make_cheb2(op) if op.pair_kernel
+                              else None)
     return Chebyshev(degree=int(degree), op=op, theta=theta, delta=delta)

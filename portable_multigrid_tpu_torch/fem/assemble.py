@@ -55,6 +55,19 @@ def element_stiffness_cartesian(degree: int, dim: int, h: float) -> np.ndarray:
     return h ** (dim - 2) * sum(mats)
 
 
+def gradient_matrices(degree: int, dim: int) -> list[np.ndarray]:
+    """Reference-cell gradient matrices G_k[Q, ndof] (lexicographic, axis 0
+    slowest), for dense golden assemblies."""
+    b = make_basis(degree)
+    mats = []
+    for k in range(dim):
+        G = np.array([[1.0]])
+        for m in range(dim):
+            G = np.kron(G, b.D if m == k else b.B)
+        mats.append(G)
+    return mats
+
+
 def dense_operator(space: FESpace) -> np.ndarray:
     """Dense global operator with the reference's constrained-DoF semantics:
     A_eff = M A M + (I - M), M = diag(free mask) (reference:

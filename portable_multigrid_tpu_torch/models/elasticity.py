@@ -1,0 +1,84 @@
+"""Linear elasticity model problem: geometric multigrid, vector Q_p elements
+(torch port).
+
+Counterpart of ``portable_multigrid_tpu/models/elasticity.py``
+(``ElasticityMultigrid``), BASELINE config 4: -div sigma(u) = f on
+the unit hyper-cube with homogeneous Dirichlet everywhere, f = (1, ..., 1),
+solved by CG to rtol * ||b|| with a geometric V(2,2) preconditioner over the
+full coarsening sequence — Chebyshev(5), range 15, 10 eig-CG iterations on
+the smoothing levels, Chebyshev-as-solver on the 1-cell level — the
+skeleton of the Poisson solves on vector-valued fields.
+
+Variants:
+
+  * ``"auto"`` — the kernel path, 3D only: every level above the coarsest
+    runs B.5 (``ops/cuda_elasticity.py``) with the fused smoother on
+    trimmed state; the coarsest runs plain Chebyshev-as-solver on B.5's
+    full-grid apply; the h-pairs run B.3 on each component.  One operator
+    serves every role of a level.  On CPU tensors each wrapper runs its
+    plain twin.
+  * ``"kron"`` — the plain path, 2D and 3D: the Kronecker operator, plain
+    Chebyshev and the windowed ``Transfer`` on full grids.
+
+Not ported: the default variant taken from ``PMG_ELASTICITY_VARIANT`` and
+the bf16 ``mxu`` core that drives the JAX recurrence
+(``_maybe_mxu_recurrence``; ROADMAP, precision modes).  This path runs the
+exact recurrence.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fem.assemble import assemble_rhs
+from ..fem.mesh import HyperCubeMesh, geometric_coarsening_sequence
+from ..fem.space import FESpace
+from ..ops.cuda_elasticity import make_cuda_elasticity
+from ..ops.elasticity import make_elasticity
+from ..ops.transfer import make_h_transfer
+from ..solvers.chebyshev import make_chebyshev
+from .poisson import _MultigridBase
+
+
+class ElasticityMultigrid(_MultigridBase):
+    """h-multigrid elasticity solve on the unit hyper-cube; ``refinements``
+    is the finest level and the hierarchy runs down to the 1-cell mesh."""
+
+    def __init__(self, dim: int, degree: int, refinements: int,
+                 mu: float = 1.0, lam: float = 1.0, dtype=torch.float64,
+                 variant: str = "auto", device="cpu"):
+        if variant == "auto" and dim != 3:
+            raise ValueError("variant 'auto' (the B.5 kernel) is 3D only; "
+                             "use variant 'kron' for 2D elasticity")
+        super().__init__(dtype, variant, device)
+        self.mu, self.lam = float(mu), float(lam)
+        self.components = dim
+        mesh = HyperCubeMesh(dim, refinements)
+        self._assemble_levels(
+            [FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)],
+            make_h_transfer)
+
+    def _build_level(self, space: FESpace, coarse: bool) -> tuple:
+        if self.variant == "auto":
+            op = make_cuda_elasticity(space, self.dtype, self.mu, self.lam,
+                                      self.device)
+        else:
+            op = make_elasticity(space, self.dtype, self.mu, self.lam,
+                                 self.variant, self.device)
+        if coarse:
+            smoother = make_chebyshev(op, smoothing_range=1e-3, degree=None,
+                                      eig_cg_n_iterations=op.n_dofs)
+        else:
+            smoother = make_chebyshev(
+                op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
+                fused=self.variant == "auto")
+        return op, smoother
+
+    def rhs(self, f=None) -> torch.Tensor:
+        """The scalar load vector on every component."""
+        fine = self.spaces[-1]
+        b = assemble_rhs(fine, f=f)
+        return torch.as_tensor(
+            np.broadcast_to(b[None], (fine.dim,) + fine.grid_shape).copy(),
+            dtype=self.dtype, device=self.device)

@@ -1,7 +1,8 @@
 """Poisson model problems: the reference's two drivers (torch port).
 
 Counterpart of ``portable_multigrid_tpu/models/poisson.py``
-(``SolveStats``, ``_build_level``, ``_MultigridPoissonBase``,
+(``SolveStats``, ``_build_level``, ``_MultigridPoissonBase`` as
+``_MultigridBase``,
 ``GeometricMultigridPoisson``, ``PolynomialMultigridPoisson``): dim-D
 Poisson on the unit hyper-cube, f ≡ 1, homogeneous Dirichlet on the whole
 boundary, Chebyshev(5) smoothing, V(2,2), CG to rtol * ||b||, over
@@ -72,16 +73,19 @@ def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
                                   eig_cg_n_iterations=space.n_dofs)
     else:
         fused = variant == "auto"
-        # the B.2 pair kernel is 3D only, as in the JAX package
-        pair = make_cheb2(op) if fused and space.dim == 3 else None
+        pair = make_cheb2(op) if fused and op.pair_kernel else None
         smoother = make_chebyshev(
             op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
             fused=fused, cheb2=pair)
     return op, smoother
 
 
-class _MultigridPoissonBase:
-    """Common machinery: build levels, solve, report."""
+class _MultigridBase:
+    """Common machinery: build levels, solve, report.  A model of a
+    vector-valued field sets ``components`` and supplies its own
+    :meth:`_build_level` and :meth:`rhs` (``models/elasticity.py``)."""
+
+    components = 1  # field components per DoF grid point
 
     def __init__(self, dtype=torch.float64, variant: str = "auto",
                  device="cpu"):
@@ -89,12 +93,14 @@ class _MultigridPoissonBase:
         self.variant = variant
         self.device = torch.device(device)
 
+    def _build_level(self, space: FESpace, coarse: bool) -> tuple:
+        return _build_level(space, self.dtype, coarse, self.variant,
+                            self.device)
+
     def _assemble_levels(self, spaces, make_transfer):
         levels = []
         for i, sp in enumerate(spaces):
-            op, smoother = _build_level(sp, self.dtype, coarse=(i == 0),
-                                        variant=self.variant,
-                                        device=self.device)
+            op, smoother = self._build_level(sp, coarse=(i == 0))
             transfer = None
             if i > 0:
                 if (self.variant == "auto" and sp.dim == 3
@@ -123,10 +129,19 @@ class _MultigridPoissonBase:
         return torch.as_tensor(assemble_rhs(self.spaces[-1], f=f),
                                dtype=self.dtype, device=self.device)
 
+    def solution_l2_norm(self, x: np.ndarray) -> float:
+        """L2 norm of a fine-level solution: sqrt(sum_c ||x_c||^2) for a
+        vector field."""
+        fine = self.spaces[-1]
+        if self.components == 1:
+            return l2_norm(fine, x)
+        return float(np.sqrt(sum(l2_norm(fine, xc) ** 2 for xc in x)))
+
     def solve(self, rtol: float = 1e-12, pre_smoothing_steps: int = 2,
               post_smoothing_steps: int = 2, verbose: bool = False,
               f=None) -> tuple[torch.Tensor, SolveStats]:
-        """Solve -Δu = f (f ≡ 1 when None, like the reference driver)."""
+        """Solve with right-hand side f (f ≡ 1 when None, as in the
+        reference program)."""
         fine = self.spaces[-1]
         mg = self.preconditioner(pre_smoothing_steps, post_smoothing_steps)
         result = cg(self.levels[-1].op.apply, self.rhs(f), mg.apply, rtol=rtol)
@@ -135,9 +150,9 @@ class _MultigridPoissonBase:
             iterations=result.iterations,
             residual_norm=result.residual_norm,
             converged=result.converged,
-            solution_l2_norm=l2_norm(fine, x),
-            n_dofs=fine.n_dofs,
-            dofs_per_level=[sp.n_dofs for sp in self.spaces],
+            solution_l2_norm=self.solution_l2_norm(x),
+            n_dofs=self.components * fine.n_dofs,
+            dofs_per_level=[self.components * sp.n_dofs for sp in self.spaces],
         )
         if verbose:
             print(
@@ -149,7 +164,7 @@ class _MultigridPoissonBase:
         return result.x, stats
 
 
-class GeometricMultigridPoisson(_MultigridPoissonBase):
+class GeometricMultigridPoisson(_MultigridBase):
     """h-multigrid Poisson solve; ``refinements`` is the finest level and the
     hierarchy is the full coarsening sequence down to the 1-cell mesh."""
 
@@ -161,7 +176,7 @@ class GeometricMultigridPoisson(_MultigridPoissonBase):
         self._assemble_levels(spaces, make_h_transfer)
 
 
-class PolynomialMultigridPoisson(_MultigridPoissonBase):
+class PolynomialMultigridPoisson(_MultigridBase):
     """p-multigrid Poisson solve on one mesh; degrees
     p_l = degree - (n_levels-1-l) (reference:
     source/polynomial_multigrid/program.cc:149-159)."""

@@ -31,6 +31,7 @@ from .laplace import (
     separable_mask,
 )
 from .structured import contract
+from .transfer import pad_last_planes, trim_last_planes
 
 MODES = ("apply", "residual1t", "residual3t", "cheb", "chebl", "chebd",
          "chebdl")
@@ -114,10 +115,18 @@ class CudaLaplaceOperator:
     Mt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded M (3D twin)
     kernel: ClassVar[str] = "pmg_laplace"  # C entry point (without dtype)
     launches: ClassVar[dict] = LAUNCHES
+    # B.2 runs two Chebyshev steps of this operator per pass (3D Laplace
+    # only, as in the JAX package)
+    pair_kernel: ClassVar[bool] = True
 
     @property
     def grid_shape(self) -> tuple[int, ...]:
         return (self.n * self.degree + 1,) * self.dim
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """Shape of a full-grid field (one component)."""
+        return self.grid_shape
 
     @property
     def trimmed_shape(self) -> tuple[int, ...]:
@@ -125,7 +134,7 @@ class CudaLaplaceOperator:
 
     @property
     def n_dofs(self) -> int:
-        return int(np.prod(self.grid_shape))
+        return int(np.prod(self.shape))
 
     @property
     def dtype(self):
@@ -159,9 +168,9 @@ class CudaLaplaceOperator:
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """Full vmult A_eff = M A M + (I - M): trim, run the kernel, pad,
         combine (the wrapper side of pallas_laplace.py:195-210)."""
-        u = u.reshape(self.grid_shape)
-        (au,) = self.run("apply", u[(slice(0, -1),) * self.dim].contiguous())
-        au = torch.nn.functional.pad(au, (0, 1) * self.dim)
+        u = u.reshape(self.shape)
+        (au,) = self.run("apply", trim_last_planes(u, self.dim).contiguous())
+        au = pad_last_planes(au, self.dim)
         m = self.mask
         return m * au + (1.0 - m) * u
 
@@ -201,6 +210,10 @@ class CudaLaplaceOperator:
     def kernel_state(self) -> tuple:
         """Operator arrays handed to the kernel, in its argument order."""
         return self.kband, self.mband, self.dK1, self.dM1
+
+    def kernel_scalars(self) -> tuple:
+        """Operator scalars handed to the kernel after its arrays."""
+        return ()
 
 
 def laplace_twin(op: CudaLaplaceOperator, mode: str, u: torch.Tensor,
@@ -261,7 +274,8 @@ def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal):
     c0, c1 = (list(map(float, scal)) + [0.0, 0.0])[:2]
     N = op.n * op.degree
     err = fn(u.data_ptr(), *ptrs, *optrs,
-             *(t.data_ptr() for t in op.kernel_state()), c0, c1,
+             *(t.data_ptr() for t in op.kernel_state()),
+             *op.kernel_scalars(), c0, c1,
              N, op.degree, MODES.index(mode), *op.tile,
              _build.stream_handle(u.device))
     if err:

@@ -10,7 +10,10 @@ trimmed to P_t = P[:-1, :-1]; restriction is the exact transpose.  The kernel
 applies W (x) W (x) W for W = P_t (prolongation) or W = P_t^T (restriction),
 with W in padded-row form; the twin contracts the dense W along each axis.
 ``coarse_trimmed=False`` pads or trims the (small) coarse side in the
-wrapper, for the hand-off to the full-grid coarsest level.
+wrapper, for the hand-off to the full-grid coarsest level.  A field with a
+leading component axis (elasticity) runs the kernel once per component,
+each pass writing its slice of one output; the twin contracts the last
+three axes.
 """
 
 from __future__ import annotations
@@ -131,8 +134,8 @@ def _direction(W: np.ndarray, dtype, device) -> _Direction:
 
 
 def transfer_twin(W: torch.Tensor, src: torch.Tensor, add=None) -> torch.Tensor:
-    """Plain torch (W (x) W (x) W) src (+ add)."""
-    t = contract(contract(contract(src, W, 0), W, 1), W, 2)
+    """Plain torch (W (x) W (x) W) src (+ add) on the last three axes."""
+    t = contract(contract(contract(src, W, -3), W, -2), W, -1)
     return t if add is None else t + add
 
 
@@ -151,33 +154,41 @@ class CudaTransfer:
         if not src.is_cuda:
             raise ValueError(f"unsupported device {src.device}")
         n_in, n_out = W.n_in, W.n_out
+        lead = tuple(src.shape[:-3])  # (3,) for a vector field
         for name, t, n in (("input", src, n_in), ("addend", add, n_out)):
             if t is None:
                 continue
             if t.device != W.dense.device or t.dtype != W.dense.dtype:
                 raise ValueError(f"{name}: {t.dtype} on {t.device}, transfer "
                                  f"{W.dense.dtype} on {W.dense.device}")
-            if tuple(t.shape) != (n,) * 3 or not t.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous {(n,) * 3} "
+            want = lead + (n,) * 3
+            if tuple(t.shape) != want or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous {want} "
                                  f"tensor, got {tuple(t.shape)}")
         fn = _build.build().fn("pmg_transfer", _suffix(src.dtype))
-        out = torch.empty((n_out,) * 3, dtype=src.dtype, device=src.device)
-        err = fn(src.data_ptr(), None if add is None else add.data_ptr(),
-                 out.data_ptr(), W.starts.data_ptr(), W.vals.data_ptr(), W.w,
-                 n_in, n_out, *W.tile, *W.lens,
-                 _build.stream_handle(src.device))
-        if err:
-            raise RuntimeError(f"transfer kernel ({mode}) launch failed: "
-                               f"CUDA error {err}")
-        LAUNCHES[mode] += 1
+        out = torch.empty(lead + (n_out,) * 3, dtype=src.dtype,
+                          device=src.device)
+        # one pass per component, each writing its slice of ``out``
+        count = int(np.prod(lead))
+        adds = (None,) * count if add is None else add.view(count, -1)
+        for s, a, o in zip(src.view(count, -1), adds, out.view(count, -1)):
+            err = fn(s.data_ptr(), None if a is None else a.data_ptr(),
+                     o.data_ptr(), W.starts.data_ptr(), W.vals.data_ptr(),
+                     W.w, n_in, n_out, *W.tile, *W.lens,
+                     _build.stream_handle(src.device))
+            if err:
+                raise RuntimeError(f"transfer kernel ({mode}) launch failed: "
+                                   f"CUDA error {err}")
+            LAUNCHES[mode] += 1
         return out
 
     def restrict(self, f: torch.Tensor) -> torch.Tensor:
         c = self._run("restrict", self.restrict_, f)
-        return c if self.coarse_trimmed else pad_last_planes(c)
+        return c if self.coarse_trimmed else pad_last_planes(c, 3)
 
     def _coarse_in(self, c: torch.Tensor) -> torch.Tensor:
-        return c if self.coarse_trimmed else trim_last_planes(c).contiguous()
+        return (c if self.coarse_trimmed
+                else trim_last_planes(c, 3).contiguous())
 
     def prolongate(self, c: torch.Tensor) -> torch.Tensor:
         return self._run("prolongate", self.prolong, self._coarse_in(c))

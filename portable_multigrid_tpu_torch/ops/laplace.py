@@ -34,11 +34,13 @@ _LATER_VARIANTS = {
 }
 
 
-def reject_variant(variant: str) -> None:
-    if variant in _LATER_VARIANTS:
+def reject_variant(variant: str, later: dict = _LATER_VARIANTS) -> None:
+    """Raise for a variant the port does not carry; ``later`` maps the known
+    ones to the ROADMAP item that brings each."""
+    if variant in later:
         raise ValueError(
             f"operator variant {variant!r} is not ported yet: "
-            f"{_LATER_VARIANTS[variant]}")
+            f"{later[variant]}")
     raise ValueError(f"unknown operator variant: {variant!r}")
 
 
@@ -94,6 +96,11 @@ class LaplaceOperator:
     @property
     def grid_shape(self) -> tuple[int, ...]:
         return tuple(nd * self.degree + 1 for nd in self.n)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """Shape of a field (one component)."""
+        return self.grid_shape
 
     @property
     def n_dofs(self) -> int:

@@ -69,11 +69,17 @@ class FusedChebyshev:
     TRIMMED state (global last planes dropped, constrained entries zero).
 
     Mathematically :class:`Chebyshev` on the free DoFs.  Each recurrence step
-    is one pass of the operator kernel (B.1 in 3D, B.4 in 2D; modes
-    cheb/chebl/chebd/chebdl), or two steps are one pass of the B.2 pair
-    kernel when ``op_cheb2`` is set (3D only); the smoothing step's residual
-    seeds the recurrence inside the operator kernel (residual3t).  ``op`` is
-    the one exact operator for every role."""
+    is one pass of the operator kernel (B.1 in 3D, B.4 in 2D, B.5 for
+    elasticity; modes cheb/chebl/chebd/chebdl), or two steps are one pass
+    of the B.2 pair kernel when ``op_cheb2`` is set (3D Laplace only); the
+    smoothing step's residual seeds the recurrence inside the operator
+    kernel (residual3t).  ``op`` is the one exact operator for every role.
+
+    On B.5 this is the counterpart of the JAX package's
+    ``FusedVectorChebyshev``: the state is a [3, ...] trimmed field and
+    ``op.diag_trimmed()`` the [3, ...] diagonal.  One difference: the JAX
+    smoother's ``smooth`` and ``residual`` take and return the full grid,
+    while here every level keeps trimmed state, as for Poisson."""
 
     degree: int
     op: object  # ops.cuda_laplace.CudaLaplaceOperator (or its 2D subclass)
@@ -281,7 +287,9 @@ def make_chebyshev(
     extremes settle after tens of steps).  ``fused`` builds a
     :class:`FusedChebyshev` on trimmed state, with ``cheb2`` its optional
     pair kernel."""
-    shape = op.grid_shape
+    # one draw over the whole field, components included, times the grid
+    # mask broadcast over them — the JAX package's start vector
+    shape = op.shape
     v0 = _pseudo_random_grid(shape) * _host_free_mask(op)
     v0 = torch.as_tensor(v0, dtype=op.dtype, device=op.device)
     n_iter = max(1, min(int(eig_cg_n_iterations), int(np.prod(shape)),

@@ -78,9 +78,9 @@ class VCycle:
         top = len(self.levels) - 1
         if not self.fine_trimmed:
             return self._cycle(top, src)
-        g = self.levels[-1].op.grid_shape
-        st = trim_last_planes(src.reshape(g)).contiguous()
-        return pad_last_planes(self._cycle(top, st))
+        op = self.levels[-1].op
+        st = trim_last_planes(src.reshape(op.shape), op.dim).contiguous()
+        return pad_last_planes(self._cycle(top, st), op.dim)
 
 
 def wire_trimmed(levels):

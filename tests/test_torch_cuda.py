@@ -1,8 +1,11 @@
 """On-card checks of the port's CUDA kernels (marked ``requires_cuda``).
 
 Each kernel mode against its plain twin on the same CUDA tensors (B.1-B.3
-in 3D, B.4 in 2D with partial tiles), and a 3D and a 2D float64 solve
-through the kernels against the golden table.  These
+in 3D, B.4 in 2D with partial tiles, B.5 at p = 1..7 with mu != lam and
+B.3 on its [3, ...] fields), a 3D
+and a 2D float64 solve through the kernels against the golden table, and a
+float64 elasticity solve through the kernels against the JAX package's
+values pinned in ``chip_smoke.py``.  These
 skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
@@ -14,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from portable_multigrid_tpu_torch import (
+    ElasticityMultigrid,
     GeometricMultigridPoisson,
     PolynomialMultigridPoisson,
 )
@@ -22,6 +27,7 @@ from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
 from portable_multigrid_tpu_torch.ops import (
     cuda_cheb2,
+    cuda_elasticity,
     cuda_laplace,
     cuda_laplace2d,
     cuda_transfer,
@@ -41,10 +47,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _field(n, rng, dtype, device, dim=3):
+def _field(n, rng, dtype, device, dim=3, lead=()):
+    """A random trimmed field (``lead`` axes first), zero on the
+    constrained first plane of every spatial axis."""
     m = np.ones(n)
     m[0] = 0.0
-    v = rng.standard_normal((n,) * dim)
+    v = rng.standard_normal(tuple(lead) + (n,) * dim)
     for ax in range(dim):
         v = v * m.reshape([n if a == ax else 1 for a in range(dim)])
     return torch.as_tensor(v, dtype=dtype, device=device)
@@ -104,6 +112,42 @@ def test_laplace2d_matches_twin(cuda, p, r, dtype):
         _close(op.run(mode, u, ins, scal), op.twin(mode, u, ins, scal), dtype)
     torch.cuda.synchronize()
     assert sum(cuda_laplace2d.LAUNCHES.values()) == before + 7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", range(1, 8))
+def test_elasticity_matches_twin(cuda, p, dtype):
+    """Every B.5 mode against its twin at r = 2 (partial tiles), with
+    mu != lam so that a swap of G and G^T or of mu and lam would show; and
+    B.3 on the path's [3, ...] fields, one pass per component."""
+    rng = np.random.default_rng(p)
+    sp, sc = FESpace(HyperCubeMesh(3, 2), p), FESpace(HyperCubeMesh(3, 1), p)
+    op = cuda_elasticity.make_cuda_elasticity(sp, dtype, *chip_smoke.MU_LAM,
+                                              cuda)
+    u, r, x = (_field(op.n * p, rng, dtype, cuda, lead=(3,)) for _ in range(3))
+    before = sum(cuda_elasticity.LAUNCHES.values())
+    for mode in cuda_laplace.MODES:
+        ins = tuple({"r": r, "x": x}[k] for k in _INS.get(mode, ("r", "x")))
+        scal = _SCAL.get(mode, (0.59, 1.26))
+        _close(op.run(mode, u, ins, scal), op.twin(mode, u, ins, scal), dtype)
+    tr = cuda_transfer.make_cuda_h_transfer(sc, sp, dtype, cuda)
+    c = _field(2 * p, rng, dtype, cuda, lead=(3,))
+    twin = cuda_transfer.transfer_twin
+    moved = sum(cuda_transfer.LAUNCHES.values())
+    _close([tr.restrict(u)], [twin(tr.restrict_.dense, u)], dtype)
+    _close([tr.prolongate(c)], [twin(tr.prolong.dense, c)], dtype)
+    _close([tr.prolongate_and_add(x, c)], [twin(tr.prolong.dense, c, x)], dtype)
+    torch.cuda.synchronize()
+    assert sum(cuda_elasticity.LAUNCHES.values()) == before + 7
+    assert sum(cuda_transfer.LAUNCHES.values()) == moved + 9
+
+
+def test_elasticity_row_through_kernels(cuda):
+    iterations, l2 = chip_smoke.ELASTICITY_F64[(2, 2)]
+    x, st = ElasticityMultigrid(3, 2, 2, dtype=torch.float64, variant="auto",
+                                device=cuda).solve()
+    assert x.is_cuda and st.iterations == iterations
+    assert st.solution_l2_norm == pytest.approx(l2, rel=1e-10)
 
 
 def test_polynomial_golden_row_through_kernels(cuda):
