@@ -6,7 +6,8 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
 
   1. card and build — the card's name and power limit, then the kernels
      built from ``portable_multigrid_tpu_torch/csrc`` (one nvcc per source,
-     all at once; build time printed);
+     all at once; build time printed), and ptxas's registers and spills of
+     every kernel instance;
   2. kernel vs twin — every mode of every kernel against its plain torch
      twin on the card, in float32 and float64: the 3D kernels (B.1-B.3) at
      p = 1..7, r = 2 and at the Q4 r = 6 fine-level shape; the 2D kernel
@@ -22,7 +23,10 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      each of its kernels (B.1, B.2, B.3) raised by that run;
   5. timing of the main path — CUDA events, warm-up then the median of 10
      runs: the V-cycle, the whole solve, and each 3D kernel mode against its
-     twin at r = 6;
+     twin at r = 6, beside its bound (the larger of its bytes over the HBM
+     rate and its FMAs over the FP32 rate) and, for B.3, beside one PyTorch
+     call that computes the same function (``library_ms``: an einsum over
+     the three axes, ``add_`` for ``prolongate_and_add``);
   6. second path — the reference's second driver,
      PolynomialMultigridPoisson(2, 7, 9, 7, "auto") on the card (12.8M
      DoFs, p = 7..1 on one mesh): in float64 to rtol 1e-12 (<= 6 CG
@@ -35,7 +39,7 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      level with the p = 1 coarse solve on its own line, the CG solve, and
      each B.4 mode against its twin at 3584^2;
   8. elasticity kernel vs twin — every mode of B.5, and of B.3 on [3, ...]
-     fields (one pass per component, into the pair's coarser level),
+     fields (one launch, the component a grid axis of the kernel),
      against its twin in float32 and float64, with mu = 0.7, lam = 1.3 (at
      mu = lam a swap of G and G^T or of mu and lam would not show), at
      p = 1..7, r = 2 and 3 (partial tiles) and at every other level shape
@@ -52,7 +56,8 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      1e-9; the float32 L2 norm within 1e-4 of the float64 one;
  11. timing of the third path — the V-cycle (ms, DoF/s), its split by
      level, the device-busy share, the CG solve, and each B.5 and vector
-     B.3 mode against its twin at 3 x 192^3 beside its HBM floor.
+     B.3 mode against its twin at 3 x 192^3 beside its bound (and B.3's
+     beside its ``library_ms``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object.
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -111,12 +117,23 @@ ELASTICITY_F64 = {(2, 2): (4, 0.027343514900882587),
                   (3, 3): (6, 0.027367902132579464)}
 MU_LAM = (0.7, 1.3)  # B.5 against its twin: mu != lam
 F32_L2_BOUND_ELASTICITY = 1e-4
-HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published HBM bandwidth
-# fine-level fields each mode reads and writes: B.5 (u, r, x in; r, d, x
-# out) and B.3 (a coarse field is 1/8 of a fine one)
+# the H100 SXM's published HBM rate and FP32 rate outside the tensor cores
+# (dense, at the full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# fine-level fields each mode reads once and writes once: B.1, B.4, B.5
+# (u, r, x in; r, d, x out), B.2 (d, r, x in; r2, d2, x2 out) and B.3 (a
+# coarse field is 1/8 of a fine one)
 MODE_FIELDS = {"apply": 2, "residual1t": 3, "residual3t": 5, "cheb": 6,
-               "chebl": 4, "chebd": 5, "chebdl": 3, "restrict": 1.125,
-               "prolongate": 1.125, "prolongate_and_add": 2.125}
+               "chebl": 4, "chebd": 5, "chebdl": 3, "cheb2": 6, "cheb2l": 4,
+               "chebd2": 5, "chebd2l": 3, "cheb2f0": 4, "cheb2f0l": 2,
+               "restrict": 1.125, "prolongate": 1.125,
+               "prolongate_and_add": 2.125}
+# banded products of 2p+1 FMAs per grid point of each operator kernel:
+# B.1 M A M u in sum-factorised form (2 along z, 3 along y, 2 along x),
+# B.2 two of them, B.4 its 2D form (2 + 2), B.5 the 21 elasticity chains
+# (12 along z, 21 along y, 12 along x)
+PRODUCTS = {"laplace": 7, "cheb2": 14, "laplace2d": 4, "elasticity": 45}
 # Each kernel names the path that launches it and the (p, r) of that path's
 # fine level, where its mode times and errors are reported.
 KERNELS = {
@@ -199,7 +216,7 @@ def laplace_cases(op, rng, dtype, device):
             "chebdl": ((r,), SCAL_CHEB)}
     for mode, (ins, scal) in args.items():
         yield (mode, lambda m=mode, i=ins, s=scal: op.run(m, u, i, s),
-               lambda m=mode, i=ins, s=scal: op.twin(m, u, i, s))
+               lambda m=mode, i=ins, s=scal: op.twin(m, u, i, s), None)
 
 
 def cheb2_cases(kern, rng, dtype, device):
@@ -212,29 +229,39 @@ def cheb2_cases(kern, rng, dtype, device):
             "cheb2f0l": (d, None, None, SCAL_PAIR_F0)}
     for mode, a in args.items():
         yield (mode, lambda m=mode, a=a: kern.steps2(*a, m),
-               lambda m=mode, a=a: cuda_cheb2.cheb2_twin(op, *a, m))
+               lambda m=mode, a=a: cuda_cheb2.cheb2_twin(op, *a, m), None)
+
+
+def einsum3(W: torch.Tensor, src: torch.Tensor, add=None) -> torch.Tensor:
+    """B.3's yardstick: one PyTorch call for (W (x) W (x) W) src, the field
+    first so that it contracts one axis at a time (``add_`` for the
+    addend).  Timed beside the kernel; the port never calls it."""
+    out = torch.einsum("...ijk,ai,bj,ck->...abc", src, W, W, W)
+    return out if add is None else out.add_(add)
 
 
 def transfer_cases(tr, p, r, rng, dtype, device, lead=()):
     """B.3's modes on random trimmed fields, with ``lead`` = (3,) on the
-    elasticity path's vector fields (one pass per component)."""
+    elasticity path's vector fields (one launch for all components)."""
     nf, nc = (2 ** r) * p, (2 ** (r - 1)) * p
     f, dst = (torch.as_tensor(rng.standard_normal(lead + (nf,) * 3),
                               dtype=dtype, device=device) for _ in range(2))
     c = torch.as_tensor(rng.standard_normal(lead + (nc,) * 3), dtype=dtype,
                         device=device)
     twin = cuda_transfer.transfer_twin
-    yield ("restrict", lambda: tr.restrict(f),
-           lambda: twin(tr.restrict_.dense, f))
-    yield ("prolongate", lambda: tr.prolongate(c),
-           lambda: twin(tr.prolong.dense, c))
+    R, P = tr.restrict_.dense, tr.prolong.dense
+    yield ("restrict", lambda: tr.restrict(f), lambda: twin(R, f),
+           lambda: einsum3(R, f))
+    yield ("prolongate", lambda: tr.prolongate(c), lambda: twin(P, c),
+           lambda: einsum3(P, c))
     yield ("prolongate_and_add", lambda: tr.prolongate_and_add(dst, c),
-           lambda: twin(tr.prolong.dense, c, dst))
+           lambda: twin(P, c, dst), lambda: einsum3(P, c, dst))
 
 
 def level_cases(path, p, r, dtype, device, seed=0):
     """Every mode of the kernels of a path ("3d", "2d" or "elasticity", as
-    in KERNELS) at one level shape: (kernel, mode, run, twin)."""
+    in KERNELS) at one level shape: (kernel, mode, run, twin, library), the
+    library call None where no one PyTorch call computes the function."""
     rng = np.random.default_rng(seed)
     if path == "2d":
         op = cuda_laplace2d.make_cuda_laplace2d(space(p, r, 2), dtype, device)
@@ -262,7 +289,8 @@ def level_cases(path, p, r, dtype, device, seed=0):
 
 
 def compare(path, p, r, dtype, device, results) -> None:
-    for name, mode, run, twin in level_cases(path, p, r, dtype, device):
+    """Each kernel mode (and library yardstick) against its twin."""
+    for name, mode, run, twin, lib in level_cases(path, p, r, dtype, device):
         got, want = run(), twin()
         synchronize(device)
         worst = 0.0
@@ -274,11 +302,14 @@ def compare(path, p, r, dtype, device, results) -> None:
             worst = max(worst, rel)
             key = (name, mode, p, r, str(dtype).split(".")[-1])
             results[key] = max(results.get(key, 0.0), err)
+        # the yardstick must compute the same function to be one
+        lib_rel = rel_err(lib(), want)[1] if lib else 0.0
         log(f"  {name:10s} {mode:19s} p={p} r={r} {str(dtype)[6:]:8s} "
             f"max rel err {worst:.3e}")
-        if not worst <= BOUND[dtype]:
+        if not (worst <= BOUND[dtype] and lib_rel <= BOUND[dtype]):
             raise RuntimeError(f"{name}/{mode} p={p} r={r} {dtype}: relative "
-                               f"error {worst:.3e} > {BOUND[dtype]:.0e}")
+                               f"error {worst:.3e} (library {lib_rel:.3e}) "
+                               f"> {BOUND[dtype]:.0e}")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
@@ -342,6 +373,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(build_log: str) -> list[str]:
+    """One line per kernel instance from nvcc's -Xptxas -v output: its
+    registers per thread and spill bytes."""
+    rows, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"((?:laplace2d|laplace|cheb2|transfer|restrict|"
+                          r"elasticity)_kernel)I([fd])(?:Li(\d+)E)?",
+                          m.group(1))
+            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
+                    f"{', ' + k.group(3) if k.group(3) else ''}>"
+                    if k else m.group(1))
+            rows[name] = ["?", "?", "?"]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            rows[name][1:] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows[name][0] = m.group(1)
+    return [f"{n}: {r} registers, spill stores {st} B, loads {ld} B"
+            for n, (r, st, ld) in rows.items()]
+
+
 def phase_build() -> str:
     """Phase 1: the card, and the kernels built from the checkout."""
     card = card_line()
@@ -350,9 +407,8 @@ def phase_build() -> str:
         f"{torch.cuda.get_device_name(0)}")
     lib = _build.build(force=True)
     log(f"phase 1: kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
-    for line in lib.build_log.splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_report(lib.build_log):
+        log(f"  ptxas: {line}")
     return card
 
 
@@ -435,19 +491,46 @@ def phase_timing(card: str, prob, st, device) -> dict:
     return times
 
 
-def time_modes(path, p, r, device, floor_bytes: int = 0) -> dict:
-    """Each kernel mode against its twin at one level shape, in float32;
-    with ``floor_bytes`` (one field), each mode's HBM floor beside it."""
+def bound(path, name, mode, p, r) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one float32 pass — each input read once and each output written
+    once at the HBM rate, against the FMAs of this shape's operator at the
+    FP32 rate."""
+    dim = 2 if path == "2d" else 3
+    N = 2 ** r * p  # the fine level's trimmed extent
+    comps = 3 if path == "elasticity" else 1
+    nbytes = MODE_FIELDS[mode] * comps * N ** dim * 4
+    if name == "transfer":
+        # sum-factorised (W (x) W (x) W): the nonzeros of W times the
+        # columns each axis's contraction runs over
+        tr = cuda_transfer.make_cuda_h_transfer(space(p, r - 1), space(p, r),
+                                                torch.float64, "cpu")
+        W = tr.restrict_ if mode == "restrict" else tr.prolong
+        n_out, n_in = W.dense.shape
+        fmas = comps * int(torch.count_nonzero(W.dense)) * (
+            n_in ** 2 + n_in * n_out + n_out ** 2)
+    else:
+        fmas = PRODUCTS[name] * (2 * p + 1) * N ** dim
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * fmas / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_modes(path, p, r, device) -> dict:
+    """Each kernel mode against its twin (and its library yardstick) at one
+    level shape, in float32, beside its bound and roofline share."""
     times = {}
-    for name, mode, run, twin in level_cases(path, p, r, torch.float32, device):
+    for name, mode, run, twin, lib in level_cases(path, p, r, torch.float32,
+                                                  device):
         t_k, t_t = cuda_ms(run), cuda_ms(twin)
-        times[(name, mode)] = (t_k, t_t)
-        floor = ""
-        if floor_bytes:
-            ms = MODE_FIELDS[mode] * floor_bytes / HBM_BYTES_PER_S * 1e3
-            floor = f"   HBM floor {ms:.3f} ms"
+        t_l = cuda_ms(lib) if lib else None
+        b_ms, by = bound(path, name, mode, p, r)
+        times[(name, mode)] = dict(ms=t_k, plain_ms=t_t, library_ms=t_l,
+                                   bound_ms=b_ms, bound_by=by)
+        library = f"   library {t_l:8.3f} ms" if lib else ""
         log(f"  {name:10s} {mode:19s} kernel {t_k:8.3f} ms   twin {t_t:8.3f} ms"
-            f"{floor}")
+            f"{library}   bound {b_ms:.4f} ms ({by}, "
+            f"{100 * b_ms / t_k:.1f}% of roofline)")
     return times
 
 
@@ -683,9 +766,7 @@ def phase_elasticity_timing(card: str, prob, st, device) -> dict:
                       warmup=1)
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
         f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
-    p, r = KERNELS["elasticity"]["shape"]
-    field_bytes = 3 * (2 ** r * p) ** 3 * 4
-    times = time_modes("elasticity", p, r, device, floor_bytes=field_bytes)
+    times = time_modes("elasticity", *KERNELS["elasticity"]["shape"], device)
     log("phase 11: ok")
     # B.3's times are reported at the main path's shape (phase 5)
     return {k: v for k, v in times.items() if k[0] == "elasticity"}
@@ -733,13 +814,12 @@ def main() -> int:
     for name, k in KERNELS.items():
         counts = per_mode[name]
         mode = max(counts, key=counts.get)  # its path's busiest mode
-        t_k, t_t = times[(name, mode)]
         err = max(v for key, v in errs.items()
                   if key[0] == name and key[2:] == (*k["shape"], "float32"))
         kernels.append(dict(name=name, mode=mode, route=k["route"],
                             source=k["source"], replaces=k["replaces"],
                             launches=sum(counts.values()), max_abs_err=err,
-                            ms=t_k, plain_ms=t_t))
+                            **times[(name, mode)]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,6 +183,28 @@ __device__ __forceinline__ bool inside(int64_t gx, int64_t gy, int64_t gz,
   return gx >= 0 && gx < N && gy >= 0 && gy < N && gz >= 0 && gz < N;
 }
 
+// Asynchronous copy of one element from global to shared memory (cp.async,
+// L1-allocating); with valid false it writes a zero and reads nothing, and
+// src need only be a valid global address.
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src,
+                                              bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Dynamic shared memory above 48 KB must be opted into per kernel.
 inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -191,6 +213,8 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+__host__ __device__ inline int64_t ceil_div(int64_t a, int64_t b) {
+  return (a + b - 1) / b;
+}
 
 }  // namespace pmg

@@ -24,52 +24,65 @@
 // The direct sum cancels terms of size |W||u| down to the O(h) result of a
 // smooth u and loses it to f32 roundoff; M stays direct.
 //
-// What bounds it on the H100: shared-memory traffic, then HBM.  apply reads
-// u and writes one field (2 x 84.9 MB in f32 at the Q3 r=6 fine level, 3 x
-// 192^3 trimmed values: 0.051 ms at 3.35 TB/s); the cheb modes read d, r, x
-// and write three (0.152 ms).  The 21 chains share their z and y stages,
-// but each output still costs about 200 FMAs through shared memory.
+// What bounds it on the H100: FP32 FMA throughput and shared-memory
+// traffic, then HBM.  The 21 chains share 45 banded products per grid point
+// (12 along z, 21 along y, 12 along x), 45 (2p+1) FMAs: 0.067 ms of FP32
+// work at 3 x 192^3, p = 3, against an HBM floor of 0.051 ms for apply (u
+// read, one field written) and 0.152 ms for cheb.
 //
-// Design: one thread block owns a TX x TY x TZ output tile of all three
-// components.  The TPU kernel keeps 12 z-stage and 14 y-stage products live
-// at once (pallas_elasticity.py:363-436); that does not fit 227 KB of shared
-// memory at a useful tile, so the block loops over the INPUT component a:
-//   1. load u_a's window with a halo of p (zeros outside the grid);
-//   2. z stage: K, M, G, H along z on (WX, WY, TZ);
-//   3. y stage: the component's seven y-z products on (WX, TY, TZ), summed
-//      with their mu / lam / alpha weights into at most six groups, each
-//      keyed by the output it feeds and the x matrix it meets next (the
-//      groups reuse the window's buffer);
-//   4. x stage: each group contracted along x into the block's three output
-//      accumulators on (TX, TY, TZ), which stay in shared memory and are
-//      owned thread by thread.
-// After the third component each output element runs the epilogue.  The
-// TPU kernel's carry planes (pallas_elasticity.py:459-501), 128-lane zpad
-// and 8-row DMA tails exist because a Pallas grid runs in order on VMEM
-// blocks; here every tile reads its own halo.  The host picks the tile per
-// (p, itemsize) from the shared-memory formula (elasticity_tile in
-// ops/cuda_elasticity.py).
+// Design: an x-marching plane engine.  A block owns a (TY, 32) column of
+// the y-z plane for all three components and marches along x over a chunk
+// of LX output planes.  For each input plane x_in (the chunk plus p lead-in
+// planes on each side):
+//   1. the plane's window of all three components (halo p in y and z, zeros
+//      outside the grid) arrives by cp.async, double-buffered: plane x_in+1
+//      loads while x_in is contracted;
+//   2. per component a, the z stage (K, M, G, H along z on the window's
+//      WY = TY + 2p rows), then the y stage on the block's column: a
+//      thread owns one (y, z) point and sums the component's seven y-z
+//      products, weighted by mu / lam / alpha, into 12 register groups keyed
+//      by output c and x matrix (K, M, G, H) — the grouping of
+//      pallas_elasticity.py:440-457 across components.  The z stage of
+//      component a+1 shares a barrier interval with the y stage of a (two
+//      z-product buffers), so a plane costs four barriers;
+//   3. the thread writes its 12 groups into its own slot of a ring of 2p+1
+//      planes in shared memory; once plane x+p is in, it contracts its
+//      ring entries along x (the x row is the same for the whole plane, a
+//      broadcast) into the three outputs at x, in registers, and runs the
+//      epilogue straight to HBM.  The ring is thread-private, so the x stage
+//      needs no barrier and no shared-memory output accumulators.
+// Each input plane goes through the z and y stages once; only the chunk's
+// 2p lead-in planes are recomputed.  The z and y rows of a thread are fixed
+// for the whole march, so their band coefficients and row sums stay in
+// registers.  The host picks TY (block = 32 TY threads) and LX from
+// elasticity_tile in ops/cuda_elasticity.py, which mirrors smem_elems.  The
+// TPU kernel's carry planes, 128-lane zpad and 8-row DMA tails exist
+// because a Pallas grid runs in order on VMEM blocks; here the ring carries
+// the x neighbours within a block and every block reads its own halo.
 #include "common.cuh"
 
 using namespace pmg;
 
 namespace {
 
-constexpr int kGroups = 6;
+constexpr int kTZ = 32;      // z extent of a block's column: one warp
+constexpr int kGroups = 12;  // (output c, x matrix X), index 4 c + X
+enum XMat { kXK = 0, kXM = 1, kXG = 2, kXH = 3 };
 
-// shared-memory elements of a tile; must match elasticity_smem_elems() in
-// ops/cuda_elasticity.py.  Layout: [window | groups] [4 z products]
-// [3 output accumulators].
-__host__ __device__ inline int64_t smem_elems(int p, int TX, int TY, int TZ,
-                                              int64_t* zoff, int64_t* ooff) {
-  const int64_t WX = TX + 2 * p, WY = TY + 2 * p, WZ = TZ + 2 * p;
-  const int64_t win = WX * WY * WZ;
-  const int64_t groups = kGroups * WX * TY * TZ;
-  const int64_t b0 = win > groups ? win : groups;
-  const int64_t zprod = 4 * WX * WY * TZ;
-  if (zoff) *zoff = b0;
-  if (ooff) *ooff = b0 + zprod;
-  return b0 + zprod + 3 * (int64_t)TX * TY * TZ;
+// Threads a block may have: 256 up to p = 3, 128 above (the host's tile
+// keeps to it), so that two f32 blocks per SM leave the p >= 4 instances
+// 255 registers a thread and the p <= 3 ones 128 (no spills either way).
+template <int P>
+constexpr int kMaxThreads = P <= 3 ? kThreads : kThreads / 2;
+
+// shared-memory elements of a block; must match elasticity_smem_elems() in
+// ops/cuda_elasticity.py.  Layout: two windows of three components
+// [2][3][WY][WZ], two z-product sets [2][4][WY][32], the ring
+// [2p+1][12][32 TY].
+__host__ __device__ inline int64_t smem_elems(int p, int TY) {
+  const int64_t WY = TY + 2 * p, WZ = kTZ + 2 * p;
+  return 2 * 3 * WY * WZ + 2 * 4 * WY * kTZ +
+         (int64_t)(2 * p + 1) * kGroups * TY * kTZ;
 }
 
 // The four band arrays [2p+1, N] and the row sums [N] of K, G, H.
@@ -107,40 +120,16 @@ struct Row {
   }
 };
 
-// One 1D contraction at a point whose 2P+1 inputs are src[o * stride]:
-// in difference form for a band with row sum s, direct for M.
+// z stage of one component: window rows r < WY (row length WZ) -> K, M, G,
+// H along z into zb[4][WY][32].  A thread keeps its z column (and so its z
+// row w) for every row it takes.
 template <typename T, int P>
-__device__ __forceinline__ T diff_dot(const T (&w)[2 * P + 1], T s,
-                                      const T* src, int64_t stride) {
-  const T c = src[P * stride];
-  T acc = s * c;
-#pragma unroll
-  for (int o = 0; o <= 2 * P; ++o) acc += w[o] * (src[o * stride] - c);
-  return acc;
-}
-
-template <typename T, int P>
-__device__ __forceinline__ T direct_dot(const T (&w)[2 * P + 1], const T* src,
-                                        int64_t stride) {
-  T acc = T(0);
-#pragma unroll
-  for (int o = 0; o <= 2 * P; ++o) acc += w[o] * src[o * stride];
-  return acc;
-}
-
-// z stage: the window rows r < R (row length WZ) -> K, M, G, H along z on
-// columns c < C; column c's stencil centre sits at window index c + P.
-template <typename T, int P>
-__device__ __forceinline__ void stage_z(const T* win, int WZ, T* zk, T* zm,
-                                        T* zg, T* zh, int R, int C,
-                                        int64_t gz0, const Bands<T>& b,
-                                        int64_t N) {
-  const int rows = blockDim.x / C;
-  const int c = threadIdx.x % C, r0 = threadIdx.x / C;
-  Row<T, P> w;
-  w.load(b, N, gz0 + c);
-  for (int r = r0; r < R; r += rows) {
-    const T* src = win + (int64_t)r * WZ + c;
+__device__ __forceinline__ void stage_z(const T* win, int WY, int WZ, T* zb,
+                                        const Row<T, P>& w) {
+  const int tz = threadIdx.x % kTZ, rows = blockDim.x / kTZ;
+  const int nz = WY * kTZ;
+  for (int r = threadIdx.x / kTZ; r < WY; r += rows) {
+    const T* src = win + r * WZ + tz;
     const T uc = src[P];
     T ak = w.ks * uc, am = T(0), ag = w.gs * uc, ah = w.hs * uc;
 #pragma unroll
@@ -151,192 +140,212 @@ __device__ __forceinline__ void stage_z(const T* win, int WZ, T* zk, T* zm,
       ag += w.g[o] * dv;
       ah += w.h[o] * dv;
     }
-    const int64_t out = (int64_t)r * C + c;
-    zk[out] = ak;
-    zm[out] = am;
-    zg[out] = ag;
-    zh[out] = ah;
+    T* out = zb + r * kTZ + tz;
+    out[0] = ak;
+    out[nz] = am;
+    out[2 * nz] = ag;
+    out[3 * nz] = ah;
   }
 }
 
-// y stage for input component A: from the z products on (WX, WY, TZ) to the
-// component's groups on (WX, TY, TZ).  Product names: y matrix, then z
-// matrix (hm = H along y of M along z).  Group g of component A feeds
-//   A = 0: out0 via Kx, Mx; out1 via Gx, Hx; out2 via Gx, Hx
-//   A = 1: out1 via Kx, Mx; out0 via Hx, Gx; out2 via Mx
-//   A = 2: out2 via Kx, Mx; out0 via Hx, Gx; out1 via Mx
-// (the grouping of pallas_elasticity.py:440-457, one component at a time).
+// y stage of input component A at the thread's (y, z) point: the seven y-z
+// products of the component from zb[4][WY][32] (product names: y matrix,
+// then z matrix; hm = H along y of M along z), summed with their weights
+// into the 12 groups g[4 c + X] (pallas_elasticity.py:440-457):
+//   A = 0: 0K al mm, 0M mu (km + mk), 1G mu hm, 1H lam gm, 2G mu mh, 2H lam mg
+//   A = 1: 1K mu mm, 1M al km + mu mk, 0H mu gm, 0G lam hm, 2M mu gh + lam hg
+//   A = 2: 2K mu mm, 2M mu km + al mk, 0H mu mg, 0G lam mh, 1M mu hg + lam gh
 template <typename T, int P, int A>
-__device__ __forceinline__ void stage_y(const T* zk, const T* zm,
-                                        const T* zg, const T* zh, T* grp,
-                                        int WX, int WY, int TY, int TZ,
-                                        int64_t gy0, const Bands<T>& b,
-                                        int64_t N, T mu, T lam) {
-  const int nyz = TY * TZ;
-  const int yz = threadIdx.x % nyz, xstep = blockDim.x / nyz;
-  const int y = yz / TZ, z = yz % TZ;
-  Row<T, P> w;
-  w.load(b, N, gy0 + y);
+__device__ __forceinline__ void stage_y(const T* zb, int WY,
+                                        const Row<T, P>& w, T mu, T lam,
+                                        T (&g)[kGroups]) {
+  const int nz = WY * kTZ;
+  const T* zk = zb + (threadIdx.x / kTZ) * kTZ + threadIdx.x % kTZ;
+  const T* zm = zk + nz;
+  const T* zg = zk + 2 * nz;
+  const T* zh = zk + 3 * nz;
   const T al = T(2) * mu + lam;
-  const int64_t gsz = (int64_t)WX * nyz;  // one group array
-  for (int x = threadIdx.x / nyz; x < WX; x += xstep) {
-    const int64_t in = ((int64_t)x * WY + y) * TZ + z;
-    const T mm = direct_dot<T, P>(w.m, zm + in, TZ);
-    const T km = diff_dot<T, P>(w.k, w.ks, zm + in, TZ);
-    const T mk = direct_dot<T, P>(w.m, zk + in, TZ);
-    T* g = grp + (int64_t)x * nyz + yz;
-    if constexpr (A == 0) {
-      const T gm = diff_dot<T, P>(w.g, w.gs, zm + in, TZ);
-      const T hm = diff_dot<T, P>(w.h, w.hs, zm + in, TZ);
-      g[0] = al * mm;
-      g[gsz] = mu * (km + mk);
-      g[2 * gsz] = mu * hm;
-      g[3 * gsz] = lam * gm;
-      g[4 * gsz] = mu * direct_dot<T, P>(w.m, zh + in, TZ);
-      g[5 * gsz] = lam * direct_dot<T, P>(w.m, zg + in, TZ);
-    } else if constexpr (A == 1) {
-      const T gm = diff_dot<T, P>(w.g, w.gs, zm + in, TZ);
-      const T hm = diff_dot<T, P>(w.h, w.hs, zm + in, TZ);
-      const T gh = diff_dot<T, P>(w.g, w.gs, zh + in, TZ);
-      const T hg = diff_dot<T, P>(w.h, w.hs, zg + in, TZ);
-      g[0] = mu * mm;
-      g[gsz] = al * km + mu * mk;
-      g[2 * gsz] = mu * gm;
-      g[3 * gsz] = lam * hm;
-      g[4 * gsz] = mu * gh + lam * hg;
-    } else {
-      const T gh = diff_dot<T, P>(w.g, w.gs, zh + in, TZ);
-      const T hg = diff_dot<T, P>(w.h, w.hs, zg + in, TZ);
-      g[0] = mu * mm;
-      g[gsz] = mu * km + al * mk;
-      g[2 * gsz] = mu * direct_dot<T, P>(w.m, zg + in, TZ);
-      g[3 * gsz] = lam * direct_dot<T, P>(w.m, zh + in, TZ);
-      g[4 * gsz] = mu * hg + lam * gh;
+  const T cm = zm[P * kTZ], cg = zg[P * kTZ], ch = zh[P * kTZ];
+  T mm = T(0), km = w.ks * cm, mk = T(0);
+  // A = 0, 1: gm, hm; A = 0, 2: mg, mh; A = 1, 2: gh, hg
+  T gm = w.gs * cm, hm = w.hs * cm, mg = T(0), mh = T(0);
+  T gh = w.gs * ch, hg = w.hs * cg;
+#pragma unroll
+  for (int o = 0; o <= 2 * P; ++o) {
+    const int s = o * kTZ;
+    const T vm = zm[s], dm = vm - cm;
+    mm += w.m[o] * vm;
+    km += w.k[o] * dm;
+    mk += w.m[o] * zk[s];
+    if constexpr (A != 2) {
+      gm += w.g[o] * dm;
+      hm += w.h[o] * dm;
+    }
+    if constexpr (A != 1) {
+      mg += w.m[o] * zg[s];
+      mh += w.m[o] * zh[s];
+    }
+    if constexpr (A != 0) {
+      gh += w.g[o] * (zh[s] - ch);
+      hg += w.h[o] * (zg[s] - cg);
     }
   }
-}
-
-// x stage for input component A: each group contracted along x into the
-// three output accumulators on (TX, TY, TZ).  A thread owns the same output
-// elements for every component, so the accumulators need no atomics.
-template <typename T, int P, int A>
-__device__ __forceinline__ void stage_x(const T* grp, T* acc, int WX, int TX,
-                                        int TY, int TZ, int64_t gx0,
-                                        const Bands<T>& b, int64_t N) {
-  const int nxz = TX * TZ;
-  const int xz = threadIdx.x % nxz, ystep = blockDim.x / nxz;
-  const int x = xz / TZ, z = xz % TZ;
-  Row<T, P> w;
-  w.load(b, N, gx0 + x);
-  const int64_t plane = (int64_t)TY * TZ;
-  const int64_t gsz = (int64_t)WX * plane;
-  const int64_t osz = (int64_t)TX * plane;
-  for (int y = threadIdx.x / nxz; y < TY; y += ystep) {
-    const T* g = grp + (int64_t)x * plane + (int64_t)y * TZ + z;
-    const int64_t o = (int64_t)x * plane + (int64_t)y * TZ + z;
-    acc[A * osz + o] += diff_dot<T, P>(w.k, w.ks, g, plane) +
-                        direct_dot<T, P>(w.m, g + gsz, plane);
-    if constexpr (A == 0) {
-      acc[1 * osz + o] += diff_dot<T, P>(w.g, w.gs, g + 2 * gsz, plane) +
-                          diff_dot<T, P>(w.h, w.hs, g + 3 * gsz, plane);
-      acc[2 * osz + o] += diff_dot<T, P>(w.g, w.gs, g + 4 * gsz, plane) +
-                          diff_dot<T, P>(w.h, w.hs, g + 5 * gsz, plane);
-    } else {
-      acc[0 * osz + o] += diff_dot<T, P>(w.h, w.hs, g + 2 * gsz, plane) +
-                          diff_dot<T, P>(w.g, w.gs, g + 3 * gsz, plane);
-      acc[(A == 1 ? 2 : 1) * osz + o] +=
-          direct_dot<T, P>(w.m, g + 4 * gsz, plane);
-    }
+  if constexpr (A == 0) {
+    g[0 + kXK] += al * mm;
+    g[0 + kXM] += mu * (km + mk);
+    g[4 + kXG] += mu * hm;
+    g[4 + kXH] += lam * gm;
+    g[8 + kXG] += mu * mh;
+    g[8 + kXH] += lam * mg;
+  } else if constexpr (A == 1) {
+    g[4 + kXK] += mu * mm;
+    g[4 + kXM] += al * km + mu * mk;
+    g[0 + kXH] += mu * gm;
+    g[0 + kXG] += lam * hm;
+    g[8 + kXM] += mu * gh + lam * hg;
+  } else {
+    g[8 + kXK] += mu * mm;
+    g[8 + kXM] += mu * km + al * mk;
+    g[0 + kXH] += mu * mg;
+    g[0 + kXG] += lam * mh;
+    g[4 + kXM] += mu * hg + lam * gh;
   }
-}
-
-// One input component's contribution to the block's three outputs.
-template <typename T, int P, int A>
-__device__ __forceinline__ void component(const T* __restrict__ u, T* buf0,
-                                          T* zbuf, T* acc, int TX, int TY,
-                                          int TZ, int64_t x0, int64_t y0,
-                                          int64_t z0, const Bands<T>& b,
-                                          int64_t N, T mu, T lam) {
-  const int WX = TX + 2 * P, WY = TY + 2 * P, WZ = TZ + 2 * P;
-  const T* ua = u + A * N * N * N;
-  const int nwin = WX * WY * WZ;
-  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-    const int lz = i % WZ, t = i / WZ, ly = t % WY, lx = t / WY;
-    const int64_t gx = x0 - P + lx, gy = y0 - P + ly, gz = z0 - P + lz;
-    buf0[i] = inside(gx, gy, gz, N) ? ua[(gx * N + gy) * N + gz] : T(0);
-  }
-  __syncthreads();
-  const int64_t zsz = (int64_t)WX * WY * TZ;
-  T *zk = zbuf, *zm = zbuf + zsz, *zg = zbuf + 2 * zsz, *zh = zbuf + 3 * zsz;
-  stage_z<T, P>(buf0, WZ, zk, zm, zg, zh, WX * WY, TZ, z0, b, N);
-  __syncthreads();
-  stage_y<T, P, A>(zk, zm, zg, zh, buf0, WX, WY, TY, TZ, y0, b, N, mu, lam);
-  __syncthreads();
-  stage_x<T, P, A>(buf0, acc, WX, TX, TY, TZ, x0, b, N);
-  __syncthreads();
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads<P>, sizeof(T) == 4 ? 2 : 1)
 elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                   const T* __restrict__ in2, T* __restrict__ out0,
                   T* __restrict__ out1, T* __restrict__ out2, Bands<T> b,
                   const T* __restrict__ dk, const T* __restrict__ dm, T mu,
-                  T lam, T c0, T c1, int N_, int mode, int TX, int TY,
-                  int TZ) {
+                  T lam, T c0, T c1, int N_, int mode, int LX, int TY) {
+  constexpr int R = 2 * P + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t N = N_;
-  int64_t zoff, ooff;
-  smem_elems(P, TX, TY, TZ, &zoff, &ooff);
-  T* buf0 = reinterpret_cast<T*>(smem_raw);
-  T* zbuf = buf0 + zoff;
-  T* acc = buf0 + ooff;
-  const int64_t x0 = (int64_t)blockIdx.z * TX;
-  const int64_t y0 = (int64_t)blockIdx.y * TY;
-  const int64_t z0 = (int64_t)blockIdx.x * TZ;
-  const int tile = TX * TY * TZ;
-  for (int i = threadIdx.x; i < 3 * tile; i += blockDim.x) acc[i] = T(0);
-  // the first component's window load is followed by a barrier, so the
-  // zeroed accumulators are in place before the first x stage
-  component<T, P, 0>(u, buf0, zbuf, acc, TX, TY, TZ, x0, y0, z0, b, N, mu,
-                     lam);
-  component<T, P, 1>(u, buf0, zbuf, acc, TX, TY, TZ, x0, y0, z0, b, N, mu,
-                     lam);
-  component<T, P, 2>(u, buf0, zbuf, acc, TX, TY, TZ, x0, y0, z0, b, N, mu,
-                     lam);
+  const int64_t N = N_, N3 = N * N * N;
+  const int WY = TY + 2 * P, WZ = kTZ + 2 * P;
+  const int nwin = WY * WZ, ncols = TY * kTZ;
+  T* win = reinterpret_cast<T*>(smem_raw);  // [2][3][WY][WZ]
+  T* zbuf = win + 2 * 3 * nwin;             // [2][4][WY][32]
+  T* ring = zbuf + 2 * 4 * WY * kTZ;        // [R][12][ncols]
+  const int tid = threadIdx.x;
+  const int64_t z0 = (int64_t)blockIdx.x * kTZ, y0 = (int64_t)blockIdx.y * TY;
+  const int64_t x0 = (int64_t)blockIdx.z * LX;
+  const int64_t gy = y0 + tid / kTZ, gz = z0 + tid % kTZ;
+  const bool own = gy < N && gz < N;
+  const int64_t xs = x0 - P, xe = (x0 + LX < N ? x0 + LX : N) + P;
 
+  // the three components' windows of input plane xin, zeros off the grid
+  auto load_plane = [&](int64_t xin, T* dst) {
+    const bool xok = xin >= 0 && xin < N;
+    for (int i = tid; i < 3 * nwin; i += blockDim.x) {
+      const int a = i / nwin, r = i % nwin;
+      const int64_t yy = y0 - P + r / WZ, zz = z0 - P + r % WZ;
+      const bool ok = xok && yy >= 0 && yy < N && zz >= 0 && zz < N;
+      cp_async_elem(dst + i, ok ? u + a * N3 + (xin * N + yy) * N + zz : u,
+                    ok);
+    }
+    cp_async_commit();
+  };
+
+  Row<T, P> zr, yr;
+  zr.load(b, N, gz);
+  yr.load(b, N, gy);
   const T al = T(2) * mu + lam;
-  const int64_t N3 = N * N * N;
-  for (int i = threadIdx.x; i < 3 * tile; i += blockDim.x) {
-    const int c = i / tile, r = i % tile;
-    const int lz = r % TZ, t = r / TZ, ly = t % TY, lx = t / TY;
-    const int64_t gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
-    if (gx >= N || gy >= N || gz >= N) continue;
-    laplace_epilogue(mode, c * N3 + (gx * N + gy) * N + gz, acc[i], u, in1,
-                     in2, out0, out1, out2, c0, c1, [&] {
-      const T t0 = dk[gx] * dm[gy] * dm[gz];
-      const T t1 = dm[gx] * dk[gy] * dm[gz];
-      const T t2 = dm[gx] * dm[gy] * dk[gz];
-      return (c == 0 ? al : mu) * t0 + (c == 1 ? al : mu) * t1 +
-             (c == 2 ? al : mu) * t2;
-    });
+  T* zb0 = zbuf;
+  T* zb1 = zbuf + 4 * WY * kTZ;
+
+  load_plane(xs, win);
+  for (int64_t xin = xs; xin < xe; ++xin) {
+    const int i = (int)(xin - xs);
+    const T* w = win + (i & 1) * 3 * nwin;
+    if (xin + 1 < xe) {
+      load_plane(xin + 1, win + ((i + 1) & 1) * 3 * nwin);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // plane xin in; the last plane's z products all read
+    T g[kGroups];
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) g[k] = T(0);
+    stage_z<T, P>(w, WY, WZ, zb0, zr);
+    __syncthreads();
+    stage_y<T, P, 0>(zb0, WY, yr, mu, lam, g);
+    stage_z<T, P>(w + nwin, WY, WZ, zb1, zr);
+    __syncthreads();
+    stage_y<T, P, 1>(zb1, WY, yr, mu, lam, g);
+    stage_z<T, P>(w + 2 * nwin, WY, WZ, zb0, zr);
+    __syncthreads();
+    stage_y<T, P, 2>(zb0, WY, yr, mu, lam, g);
+
+    // the thread's slot of plane xin in the ring
+    T* slot = ring + (i % R) * kGroups * ncols + tid;
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) slot[k * ncols] = g[k];
+
+    // plane x + p is in: contract the ring along x into the outputs at x
+    const int64_t x = xin - P;
+    if (x < x0 || !own) continue;
+    Row<T, P> xr;
+    xr.load(b, N, x);
+    const int base = (int)(x - x0) % R;  // ring slot of plane x - p
+    int sc = base + P;
+    if (sc >= R) sc -= R;
+    const T* rc = ring + sc * kGroups * ncols + tid;
+    T cen[kGroups], acc[3];
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) cen[k] = rc[k * ncols];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      acc[c] = xr.ks * cen[4 * c + kXK] + xr.gs * cen[4 * c + kXG] +
+               xr.hs * cen[4 * c + kXH];
+    }
+#pragma unroll
+    for (int o = 0; o < R; ++o) {
+      int s = base + o;
+      if (s >= R) s -= R;
+      const T* rs = ring + s * kGroups * ncols + tid;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        acc[c] += xr.k[o] * (rs[(4 * c + kXK) * ncols] - cen[4 * c + kXK]) +
+                  xr.m[o] * rs[(4 * c + kXM) * ncols] +
+                  xr.g[o] * (rs[(4 * c + kXG) * ncols] - cen[4 * c + kXG]) +
+                  xr.h[o] * (rs[(4 * c + kXH) * ncols] - cen[4 * c + kXH]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      laplace_epilogue(mode, c * N3 + (x * N + gy) * N + gz, acc[c], u, in1,
+                       in2, out0, out1, out2, c0, c1, [&] {
+        const T t0 = dk[x] * dm[gy] * dm[gz];
+        const T t1 = dm[x] * dk[gy] * dm[gz];
+        const T t2 = dm[x] * dm[gy] * dk[gz];
+        return (c == 0 ? al : mu) * t0 + (c == 1 ? al : mu) * t1 +
+               (c == 2 ? al : mu) * t2;
+      });
+    }
   }
 }
 
 template <typename T, int P>
 int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
              T* out2, const Bands<T>& b, const T* dk, const T* dm, double mu,
-             double lam, double c0, double c1, int N, int mode, int TX,
-             int TY, int TZ, void* stream) {
-  const size_t smem =
-      (size_t)smem_elems(P, TX, TY, TZ, nullptr, nullptr) * sizeof(T);
+             double lam, double c0, double c1, int N, int mode, int LX,
+             int TY, void* stream) {
+  if (TY * kTZ > kMaxThreads<P>) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)smem_elems(P, TY) * sizeof(T);
   cudaError_t err = allow_smem((const void*)elasticity_kernel<T, P>, smem);
+  // two blocks of up to 113 KB per SM need the whole shared-memory carveout
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute((const void*)elasticity_kernel<T, P>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)ceil_div(N, TZ), (unsigned)ceil_div(N, TY),
-                  (unsigned)ceil_div(N, TX));
-  elasticity_kernel<T, P><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)ceil_div(N, kTZ), (unsigned)ceil_div(N, TY),
+                  (unsigned)ceil_div(N, LX));
+  elasticity_kernel<T, P><<<grid, TY * kTZ, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, b, dk, dm, (T)mu, (T)lam, (T)c0, (T)c1,
-      N, mode, TX, TY, TZ);
+      N, mode, LX, TY);
   return (int)cudaGetLastError();
 }
 
@@ -344,10 +353,10 @@ template <typename T>
 int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
            const T* kb, const T* ks, const T* mb, const T* gb, const T* gs,
            const T* hb, const T* hs, const T* dk, const T* dm, double mu,
-           double lam, double c0, double c1, int N, int p, int mode, int TX,
+           double lam, double c0, double c1, int N, int p, int mode, int LX,
            int TY, int TZ, void* stream) {
-  // each stage maps the threads of a block onto whole rows of the tile
-  if (kThreads % TZ || kThreads % (TY * TZ) || kThreads % (TX * TZ) ||
+  // a block is TY warps, one per y row of its column
+  if (TZ != kTZ || TY < 1 || TY * kTZ > kThreads || LX < 1 ||
       mode < kApply || mode > kChebDL)
     return (int)cudaErrorInvalidValue;
   const Bands<T> b{kb, ks, mb, gb, gs, hb, hs};
@@ -355,7 +364,7 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 #define PMG_CASE(PP)                                                       \
   case PP:                                                                 \
     return launch_p<T, PP>(u, in1, in2, out0, out1, out2, b, dk, dm, mu,  \
-                           lam, c0, c1, N, mode, TX, TY, TZ, stream);
+                           lam, c0, c1, N, mode, LX, TY, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -366,15 +375,17 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 
 }  // namespace
 
+// (LX, TY, TZ) is the launch tile: LX output planes per block along x, a
+// (TY, TZ = 32) column of the y-z plane.
 extern "C" int pmg_elasticity_f32(
     const float* u, const float* in1, const float* in2, float* out0,
     float* out1, float* out2, const float* kb, const float* ks,
     const float* mb, const float* gb, const float* gs, const float* hb,
     const float* hs, const float* dk, const float* dm, double mu, double lam,
-    double c0, double c1, int N, int p, int mode, int TX, int TY, int TZ,
+    double c0, double c1, int N, int p, int mode, int LX, int TY, int TZ,
     void* stream) {
   return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, gb, gs, hb,
-                       hs, dk, dm, mu, lam, c0, c1, N, p, mode, TX, TY, TZ,
+                       hs, dk, dm, mu, lam, c0, c1, N, p, mode, LX, TY, TZ,
                        stream);
 }
 
@@ -383,9 +394,9 @@ extern "C" int pmg_elasticity_f64(
     double* out1, double* out2, const double* kb, const double* ks,
     const double* mb, const double* gb, const double* gs, const double* hb,
     const double* hs, const double* dk, const double* dm, double mu,
-    double lam, double c0, double c1, int N, int p, int mode, int TX, int TY,
+    double lam, double c0, double c1, int N, int p, int mode, int LX, int TY,
     int TZ, void* stream) {
   return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, gb, gs,
-                        hb, hs, dk, dm, mu, lam, c0, c1, N, p, mode, TX, TY,
+                        hb, hs, dk, dm, mu, lam, c0, c1, N, p, mode, LX, TY,
                         TZ, stream);
 }

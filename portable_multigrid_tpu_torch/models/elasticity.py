@@ -47,7 +47,7 @@ class ElasticityMultigrid(_MultigridBase):
 
     def __init__(self, dim: int, degree: int, refinements: int,
                  mu: float = 1.0, lam: float = 1.0, dtype=torch.float64,
-                 variant: str = "auto", device="cpu"):
+                 variant: str = "auto", device="cuda"):
         if variant == "auto" and dim != 3:
             raise ValueError("variant 'auto' (the B.5 kernel) is 3D only; "
                              "use variant 'kron' for 2D elasticity")

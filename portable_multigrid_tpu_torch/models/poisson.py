@@ -88,7 +88,7 @@ class _MultigridBase:
     components = 1  # field components per DoF grid point
 
     def __init__(self, dtype=torch.float64, variant: str = "auto",
-                 device="cpu"):
+                 device="cuda"):
         self.dtype = dtype
         self.variant = variant
         self.device = torch.device(device)
@@ -169,7 +169,7 @@ class GeometricMultigridPoisson(_MultigridBase):
     hierarchy is the full coarsening sequence down to the 1-cell mesh."""
 
     def __init__(self, dim: int, degree: int, refinements: int,
-                 dtype=torch.float64, variant: str = "auto", device="cpu"):
+                 dtype=torch.float64, variant: str = "auto", device="cuda"):
         super().__init__(dtype, variant, device)
         mesh = HyperCubeMesh(dim, refinements)
         spaces = [FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)]
@@ -183,7 +183,7 @@ class PolynomialMultigridPoisson(_MultigridBase):
 
     def __init__(self, dim: int, degree: int, refinements: int,
                  n_levels: int | None = None, dtype=torch.float64,
-                 variant: str = "auto", device="cpu"):
+                 variant: str = "auto", device="cuda"):
         super().__init__(dtype, variant, device)
         if n_levels is None:
             n_levels = degree

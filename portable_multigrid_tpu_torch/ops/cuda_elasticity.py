@@ -50,29 +50,46 @@ from .laplace import assembled_1d_matrices, diagonal_1d_factors
 LAUNCHES = dict.fromkeys(MODES, 0)
 
 SMEM_BUDGET = 113 * 1024  # two blocks per SM
-# (TX, TY, TZ) candidates; TZ, TY TZ and TX TZ divide the 256 threads
-_TILES = ((8, 8, 32), (8, 8, 16), (4, 4, 16), (4, 4, 8), (2, 2, 8))
-_GROUPS = 6  # y-stage groups of one input component
+TZ = 32  # z extent of a block's column: one warp (kTZ in elasticity.cu)
+_TY = (8, 4, 2, 1)  # candidate y extents; a block is 32 TY threads
+_LX = (64, 48, 32, 16, 8, 4, 2)  # candidate x chunks (output planes a block)
+_GROUPS = 12  # (output, x matrix) groups in the ring
+SMS = 132  # streaming multiprocessors of the H100 SXM
 
 
-def elasticity_smem_elems(p: int, tx: int, ty: int, tz: int) -> int:
+def elasticity_smem_elems(p: int, ty: int) -> int:
     """Shared-memory elements of one block (mirrors smem_elems in
-    elasticity.cu): the window or the groups it turns into, the four z
-    products and the three output accumulators."""
-    wx, wy, wz = tx + 2 * p, ty + 2 * p, tz + 2 * p
-    return (max(wx * wy * wz, _GROUPS * wx * ty * tz) + 4 * wx * wy * tz
-            + 3 * tx * ty * tz)
+    elasticity.cu): two windows of the three components, two sets of the
+    four z products, and the ring of 2p+1 planes of 12 groups."""
+    wy, wz = ty + 2 * p, TZ + 2 * p
+    return 2 * 3 * wy * wz + 2 * 4 * wy * TZ + (2 * p + 1) * _GROUPS * ty * TZ
 
 
-def elasticity_tile(p: int, itemsize: int) -> tuple[int, int, int]:
-    """The largest candidate tile that leaves room for two blocks per SM,
-    else the largest that fits one."""
-    sizes = [(elasticity_smem_elems(p, *t) * itemsize, t) for t in _TILES]
-    for limit in (SMEM_BUDGET, SMEM_LIMIT):
-        fits = [t for b, t in sizes if b <= limit]
-        if fits:
-            return fits[0]
-    raise ValueError(f"no elasticity tile fits shared memory at p={p}")
+def elasticity_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
+    """(LX, TY, TZ) of the launch for an N^3 grid.
+
+    TY: the largest that leaves room for two blocks per SM in float32 (the
+    kernel's register bound assumes two), else the largest that fits one.
+    LX: a block marches LX + 2p planes one after the other (the chunk and
+    its lead-in), and the grid runs in waves of the blocks the SMs hold at
+    once, so the chunk minimises waves x (LX + 2p), ties to the larger
+    chunk: 64 at 3 x 192^3 (Q3 r=6), 2 on the small levels, where the
+    march is the whole time of a launch."""
+    limits = (SMEM_BUDGET, SMEM_LIMIT) if itemsize == 4 else (SMEM_LIMIT,)
+    # at p >= 4 a block has at most 128 threads (kMaxThreads in the kernel)
+    ty = next((t for limit in limits for t in _TY
+               if elasticity_smem_elems(p, t) * itemsize <= limit
+               and (p <= 3 or t <= 4)), None)
+    if ty is None:
+        raise ValueError(f"no elasticity tile fits shared memory at p={p}")
+    two = itemsize == 4 and elasticity_smem_elems(p, ty) * 4 <= SMEM_BUDGET
+    resident = SMS * (2 if two else 1)
+    columns = -(-N // TZ) * -(-N // ty)
+
+    def cost(lx):
+        return -(-columns * -(-N // lx) // resident) * (lx + 2 * p)
+
+    return min(_LX, key=lambda lx: (cost(lx), -lx)), ty, TZ
 
 
 def row_sums(W1: np.ndarray, m1: np.ndarray) -> np.ndarray:
@@ -122,10 +139,6 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     def twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
         return elasticity_twin(self, mode, u, ins, scal)
 
-    @staticmethod
-    def pick_tile(p: int, itemsize: int) -> tuple:
-        return elasticity_tile(p, itemsize)
-
     def kernel_state(self) -> tuple:
         return (self.kband, self.ksum, self.mband, self.gband, self.gsum,
                 self.hband, self.hsum, self.dK1, self.dM1)
@@ -162,8 +175,8 @@ def cuda_elasticity_from_factors(degree: int, n: int, m1, K1, M1, G1, gK, gM,
     return CudaElasticityOperator(
         degree=degree, n=n, mask1=t(m1), dK1=t(gK), dM1=t(gM),
         kband=t(to_bands(Kt, degree)), mband=t(to_bands(Mt, degree)),
-        tile=elasticity_tile(degree, itemsize), Kt=t(Kt), Mt=t(Mt),
-        mu=float(mu), lam=float(lam),
+        tile=elasticity_tile(degree, itemsize, n * degree),
+        Kt=t(Kt), Mt=t(Mt), mu=float(mu), lam=float(lam),
         gband=t(to_bands(Gt, degree)), hband=t(to_bands(Gt.T, degree)),
         ksum=t(row_sums(K1, m1)), gsum=t(row_sums(G1, m1)),
         hsum=t(row_sums(G1.T, m1)), Gt=t(Gt))

@@ -10,10 +10,11 @@ trimmed to P_t = P[:-1, :-1]; restriction is the exact transpose.  The kernel
 applies W (x) W (x) W for W = P_t (prolongation) or W = P_t^T (restriction),
 with W in padded-row form; the twin contracts the dense W along each axis.
 ``coarse_trimmed=False`` pads or trims the (small) coarse side in the
-wrapper, for the hand-off to the full-grid coarsest level.  A field with a
-leading component axis (elasticity) runs the kernel once per component,
-each pass writing its slice of one output; the twin contracts the last
-three axes.
+wrapper, for the hand-off to the full-grid coarsest level.  Restriction runs
+the x-marching ``restrict_kernel``, prolongation the tiled
+``transfer_kernel``.  A field with a leading component axis (elasticity) is
+one launch, the component a grid axis of the kernel; the twin contracts the
+last three axes.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ LAUNCHES = dict.fromkeys(MODES, 0)
 
 SMEM_BUDGET = 96 * 1024  # two blocks per SM
 _TILES = ((8, 8, 32), (4, 4, 32), (4, 4, 16), (2, 2, 16))
+# restrict_kernel's tile: a chunk of 16 coarse x rows and a coarse (8, 32)
+# column of the y-z plane (kChunk, kRY, kRZ in transfer.cu)
+RESTRICT_TILE = (16, 8, 32)
 
 
 def _axis_matrix_1d(M1: np.ndarray, n_c: int, stride_c: int, stride_f: int,
@@ -91,6 +95,15 @@ def transfer_smem_elems(tile, lens) -> int:
     return tx * ly * lz + tx * ty * lz
 
 
+def restrict_smem_bytes(w: int, lens, itemsize: int) -> int:
+    """Per-block shared memory of restrict_kernel (mirrors
+    restrict_smem_elems in transfer.cu): two fine-plane windows, the z
+    stage, the chunk's x rows, then their int starts."""
+    chunk, _, tz = RESTRICT_TILE
+    ly, lz = lens
+    return (2 * ly * lz + ly * tz + chunk * w) * itemsize + chunk * 4
+
+
 @dataclasses.dataclass
 class _Direction:
     """One 1D matrix W (used on every axis) in both forms, with its launch
@@ -102,6 +115,7 @@ class _Direction:
     w: int
     tile: tuple
     lens: tuple  # input extents (LY, LZ) a tile reaches
+    march: bool  # restrict_kernel (W = P^T) rather than transfer_kernel
 
     @property
     def n_out(self) -> int:
@@ -112,13 +126,15 @@ class _Direction:
         return self.dense.shape[1]
 
 
-def _direction(W: np.ndarray, dtype, device) -> _Direction:
+def _direction(W: np.ndarray, dtype, device, march: bool) -> _Direction:
     starts, vals, w = padded_rows(W)
     itemsize = torch.empty((), dtype=dtype).element_size()
     fits = []
-    for tile in _TILES:
+    for tile in (RESTRICT_TILE,) if march else _TILES:
         lens = tuple(window_length(starts, w, t) for t in tile[1:])
-        fits.append((transfer_smem_elems(tile, lens) * itemsize, tile, lens))
+        nbytes = (restrict_smem_bytes(w, lens, itemsize) if march
+                  else transfer_smem_elems(tile, lens) * itemsize)
+        fits.append((nbytes, tile, lens))
     # the largest tile that leaves room for two blocks per SM, else the
     # largest that fits one
     ok = ([f for f in fits if f[0] <= SMEM_BUDGET]
@@ -130,7 +146,7 @@ def _direction(W: np.ndarray, dtype, device) -> _Direction:
         dense=torch.as_tensor(W, dtype=dtype, device=device),
         starts=torch.as_tensor(starts, device=device),
         vals=torch.as_tensor(vals, dtype=dtype, device=device),
-        w=w, tile=tile, lens=lens)
+        w=w, tile=tile, lens=lens, march=march)
 
 
 def transfer_twin(W: torch.Tensor, src: torch.Tensor, add=None) -> torch.Tensor:
@@ -165,21 +181,24 @@ class CudaTransfer:
             if tuple(t.shape) != want or not t.is_contiguous():
                 raise ValueError(f"{name} must be a contiguous {want} "
                                  f"tensor, got {tuple(t.shape)}")
-        fn = _build.build().fn("pmg_transfer", _suffix(src.dtype))
+        lib = _build.build()
         out = torch.empty(lead + (n_out,) * 3, dtype=src.dtype,
                           device=src.device)
-        # one pass per component, each writing its slice of ``out``
-        count = int(np.prod(lead))
-        adds = (None,) * count if add is None else add.view(count, -1)
-        for s, a, o in zip(src.view(count, -1), adds, out.view(count, -1)):
-            err = fn(s.data_ptr(), None if a is None else a.data_ptr(),
-                     o.data_ptr(), W.starts.data_ptr(), W.vals.data_ptr(),
-                     W.w, n_in, n_out, *W.tile, *W.lens,
-                     _build.stream_handle(src.device))
-            if err:
-                raise RuntimeError(f"transfer kernel ({mode}) launch failed: "
-                                   f"CUDA error {err}")
-            LAUNCHES[mode] += 1
+        count = int(np.prod(lead))  # components: a grid axis of the kernel
+        stream = _build.stream_handle(src.device)
+        if W.march:
+            err = lib.fn("pmg_restrict", _suffix(src.dtype))(
+                src.data_ptr(), out.data_ptr(), W.starts.data_ptr(),
+                W.vals.data_ptr(), W.w, n_in, n_out, count, *W.lens, stream)
+        else:
+            err = lib.fn("pmg_transfer", _suffix(src.dtype))(
+                src.data_ptr(), None if add is None else add.data_ptr(),
+                out.data_ptr(), W.starts.data_ptr(), W.vals.data_ptr(), W.w,
+                n_in, n_out, count, *W.tile, *W.lens, stream)
+        if err:
+            raise RuntimeError(f"transfer kernel ({mode}) launch failed: "
+                               f"CUDA error {err}")
+        LAUNCHES[mode] += 1
         return out
 
     def restrict(self, f: torch.Tensor) -> torch.Tensor:
@@ -205,8 +224,9 @@ def cuda_transfer_from_matrix(P: np.ndarray, dtype=torch.float32, device="cpu",
     weights and masks folded in (:func:`_axis_matrix_1d`)."""
     P_t = np.asarray(P, np.float64)[:-1, :-1]  # trimmed: last planes dropped
     return CudaTransfer(
-        prolong=_direction(P_t, dtype, device),
-        restrict_=_direction(np.ascontiguousarray(P_t.T), dtype, device),
+        prolong=_direction(P_t, dtype, device, march=False),
+        restrict_=_direction(np.ascontiguousarray(P_t.T), dtype, device,
+                             march=True),
         coarse_trimmed=coarse_trimmed,
     )
 

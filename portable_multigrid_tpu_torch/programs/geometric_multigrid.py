@@ -30,8 +30,8 @@ def main(argv=None):
     ap.add_argument("--f32", action="store_true",
                     help="solve in float32 (default float64)")
     ap.add_argument("--rtol", type=float, default=None)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available, else cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu only when asked)")
     args = ap.parse_args(argv)
 
     import torch
@@ -39,8 +39,9 @@ def main(argv=None):
     from portable_multigrid_tpu_torch.models.poisson import (
         GeometricMultigridPoisson,
     )
+    from portable_multigrid_tpu_torch.programs import require_device
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = require_device(args.device)
     dtype = torch.float32 if args.f32 else torch.float64
     rtol = args.rtol if args.rtol is not None else (1e-5 if args.f32 else 1e-12)
     cycles = args.cycles if args.cycles is not None else 6

@@ -32,8 +32,8 @@ def main(argv=None):
     ap.add_argument("--variant", default="auto", choices=["auto", "kron"],
                     help="auto: the CUDA kernels (their plain twins on CPU); "
                          "kron: the plain Kronecker operator")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available, else cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu only when asked)")
     args = ap.parse_args(argv)
 
     import torch
@@ -41,8 +41,9 @@ def main(argv=None):
     from portable_multigrid_tpu_torch.models.poisson import (
         PolynomialMultigridPoisson,
     )
+    from portable_multigrid_tpu_torch.programs import require_device
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = require_device(args.device)
     dtype = torch.float32 if args.f32 else torch.float64
     rtol = args.rtol if args.rtol is not None else (1e-5 if args.f32 else 1e-12)
 

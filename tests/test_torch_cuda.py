@@ -119,7 +119,7 @@ def test_laplace2d_matches_twin(cuda, p, r, dtype):
 def test_elasticity_matches_twin(cuda, p, dtype):
     """Every B.5 mode against its twin at r = 2 (partial tiles), with
     mu != lam so that a swap of G and G^T or of mu and lam would show; and
-    B.3 on the path's [3, ...] fields, one pass per component."""
+    B.3 on the path's [3, ...] fields, one launch per pass."""
     rng = np.random.default_rng(p)
     sp, sc = FESpace(HyperCubeMesh(3, 2), p), FESpace(HyperCubeMesh(3, 1), p)
     op = cuda_elasticity.make_cuda_elasticity(sp, dtype, *chip_smoke.MU_LAM,
@@ -139,7 +139,33 @@ def test_elasticity_matches_twin(cuda, p, dtype):
     _close([tr.prolongate_and_add(x, c)], [twin(tr.prolong.dense, c, x)], dtype)
     torch.cuda.synchronize()
     assert sum(cuda_elasticity.LAUNCHES.values()) == before + 7
-    assert sum(cuda_transfer.LAUNCHES.values()) == moved + 9
+    assert sum(cuda_transfer.LAUNCHES.values()) == moved + 3
+
+
+@pytest.mark.parametrize("mode", cuda_transfer.MODES)
+def test_vector_transfer_is_one_launch(cuda, mode):
+    """A B.3 pass over a [3, ...] field launches the kernel once (the
+    component is a grid axis) and matches the twin, at a shape with
+    several restriction chunks (24 coarse rows)."""
+    p, dtype = 3, torch.float32
+    rng = np.random.default_rng(3)
+    tr = cuda_transfer.make_cuda_h_transfer(FESpace(HyperCubeMesh(3, 3), p),
+                                            FESpace(HyperCubeMesh(3, 4), p),
+                                            dtype, cuda)
+    f, dst = (_field(16 * p, rng, dtype, cuda, lead=(3,)) for _ in range(2))
+    c = _field(8 * p, rng, dtype, cuda, lead=(3,))
+    twin = cuda_transfer.transfer_twin
+    run, want = {
+        "restrict": (lambda: tr.restrict(f), twin(tr.restrict_.dense, f)),
+        "prolongate": (lambda: tr.prolongate(c), twin(tr.prolong.dense, c)),
+        "prolongate_and_add": (lambda: tr.prolongate_and_add(dst, c),
+                               twin(tr.prolong.dense, c, dst)),
+    }[mode]
+    before = cuda_transfer.LAUNCHES[mode]
+    got = run()
+    torch.cuda.synchronize()
+    assert cuda_transfer.LAUNCHES[mode] == before + 1
+    _close([got], [want], dtype)
 
 
 def test_elasticity_row_through_kernels(cuda):

@@ -40,6 +40,7 @@ from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
 from portable_multigrid_tpu_torch.ops.cuda_elasticity import (
     LAUNCHES,
+    SMEM_BUDGET,
     SMEM_LIMIT,
     elasticity_smem_elems,
     elasticity_tile,
@@ -154,11 +155,18 @@ def test_twin_matches_pallas_run(mode):
     check_twin_matches_pallas_run(2, 2, 4, mode)
 
 
-def kernel_emulation(op, u):
-    """The kernel's schedule in plain torch: per input component the z
-    stage (K, M, G, H), the y-z products summed into the groups of
-    csrc/elasticity.cu, and each group's x contraction into its output,
-    every K, G and H contraction in difference form."""
+def kernel_emulation(op, u, lx=None):
+    """The kernel's schedule in plain torch (csrc/elasticity.cu): x chunks
+    of ``lx`` output planes (the launch tile's LX by default), each marched
+    from its p lead-in planes before to p after; per input plane the z
+    stage (K, M, G, H) and the y-z products of each component summed into
+    the 12 groups (output c, x matrix); the groups of each plane in a ring
+    of 2p+1 slots; once plane x+p is in, output x contracted from the ring
+    along x.  Every K, G and H contraction in difference form."""
+    p = op.degree
+    R, N = 2 * p + 1, op.n * p
+    lx = op.tile[0] if lx is None else lx
+
     def K(t, ax):
         return banded(t, op.kband, ax, op.ksum)
 
@@ -173,23 +181,53 @@ def kernel_emulation(op, u):
 
     mu, lam = op.mu, op.lam
     al = 2 * mu + lam
-    out = [0.0, 0.0, 0.0]
-    for a in range(3):
-        zk, zm, zg, zh = (W(u[a], 2) for W in (K, M, G, H))
-        mm, km, mk = M(zm, 1), K(zm, 1), M(zk, 1)
-        gm, hm, gh, hg = G(zm, 1), H(zm, 1), G(zh, 1), H(zg, 1)
-        mg, mh = M(zg, 1), M(zh, 1)
-        groups = {
-            0: [(0, K, al * mm), (0, M, mu * (km + mk)), (1, G, mu * hm),
-                (1, H, lam * gm), (2, G, mu * mh), (2, H, lam * mg)],
-            1: [(1, K, mu * mm), (1, M, al * km + mu * mk), (0, H, mu * gm),
-                (0, G, lam * hm), (2, M, mu * gh + lam * hg)],
-            2: [(2, K, mu * mm), (2, M, mu * km + al * mk), (0, H, mu * mg),
-                (0, G, lam * mh), (1, M, mu * hg + lam * gh)],
-        }[a]
-        for c, X, g in groups:
-            out[c] = out[c] + X(g, 0)
-    return torch.stack(out)
+    k_, m_, g_, h_ = 0, 1, 2, 3  # x matrices: group 4 c + X
+    out = torch.zeros_like(u)
+    for x0 in range(0, N, lx):
+        xs, xe = x0 - p, min(x0 + lx, N) + p
+        ring = [None] * R
+        for xin in range(xs, xe):
+            plane = (u[:, xin] if 0 <= xin < N
+                     else torch.zeros_like(u[:, 0]))
+            g = [0.0] * 12
+            for a in range(3):
+                zk, zm, zg, zh = (W(plane[a], 1) for W in (K, M, G, H))
+                mm, km, mk = M(zm, 0), K(zm, 0), M(zk, 0)
+                gm, hm, gh, hg = G(zm, 0), H(zm, 0), G(zh, 0), H(zg, 0)
+                mg, mh = M(zg, 0), M(zh, 0)
+                terms = {
+                    0: [(0 + k_, al * mm), (0 + m_, mu * (km + mk)),
+                        (4 + g_, mu * hm), (4 + h_, lam * gm),
+                        (8 + g_, mu * mh), (8 + h_, lam * mg)],
+                    1: [(4 + k_, mu * mm), (4 + m_, al * km + mu * mk),
+                        (0 + h_, mu * gm), (0 + g_, lam * hm),
+                        (8 + m_, mu * gh + lam * hg)],
+                    2: [(8 + k_, mu * mm), (8 + m_, mu * km + al * mk),
+                        (0 + h_, mu * mg), (0 + g_, lam * mh),
+                        (4 + m_, mu * hg + lam * gh)],
+                }[a]
+                for k, t in terms:
+                    g[k] = g[k] + t
+            ring[(xin - xs) % R] = [t + torch.zeros_like(plane[0])
+                                    for t in g]
+            x = xin - p
+            if x < x0:
+                continue
+            base = (x - x0) % R
+            cen = ring[(base + p) % R]
+            for c in range(3):
+                acc = (op.ksum[x] * cen[4 * c + k_]
+                       + op.gsum[x] * cen[4 * c + g_]
+                       + op.hsum[x] * cen[4 * c + h_])
+                for o in range(R):
+                    s = ring[(base + o) % R]
+                    acc = (acc
+                           + op.kband[o, x] * (s[4 * c + k_] - cen[4 * c + k_])
+                           + op.mband[o, x] * s[4 * c + m_]
+                           + op.gband[o, x] * (s[4 * c + g_] - cen[4 * c + g_])
+                           + op.hband[o, x] * (s[4 * c + h_] - cen[4 * c + h_]))
+                out[c, x] = acc
+    return out
 
 
 @pytest.mark.parametrize("p,r", [(1, 2), (3, 1), (4, 1)])
@@ -200,6 +238,20 @@ def test_kernel_grouping_matches_twin(p, r):
     u = torch.as_tensor(rng.standard_normal(op.trimmed_shape))
     (want,) = op.twin("apply", u)
     assert _rel(want, kernel_emulation(op, u)) < 1e-12
+
+
+@pytest.mark.parametrize("p,r,lx", [(1, 2, 3), (2, 1, 3), (3, 1, 4),
+                                    (2, 2, 5)])
+def test_kernel_schedule_with_partial_chunk(p, r, lx):
+    """N not a multiple of the chunk: the last chunk is short, and chunks
+    start inside the grid, so their lead-in planes are real planes."""
+    op = make_cuda_elasticity(FESpace(HyperCubeMesh(3, r), p), torch.float64,
+                              MU, LAM)
+    assert (op.n * p) % lx
+    rng = np.random.default_rng(10 + p)
+    u = torch.as_tensor(rng.standard_normal(op.trimmed_shape))
+    (want,) = op.twin("apply", u)
+    assert _rel(want, kernel_emulation(op, u, lx)) < 1e-12
 
 
 @pytest.mark.parametrize("p,r", [(1, 3), (3, 2), (7, 2)])
@@ -225,11 +277,30 @@ def test_row_sums_are_those_of_the_folded_matrices(p, r):
 
 @pytest.mark.parametrize("p", range(1, 8))
 def test_tile_fits_shared_memory(p):
+    """The tile, chunk and ring formula for p = 1..7 in both dtypes: within
+    227 KB, and within half an SM in float32 (the kernel's register bound
+    assumes two blocks per SM); the block is whole warps, at most 256
+    threads (128 at p >= 4); the chunk of the Q3 r=6 levels minimises waves
+    of two blocks per SM times the planes a block marches."""
     for itemsize in (4, 8):
-        tx, ty, tz = elasticity_tile(p, itemsize)
-        assert elasticity_smem_elems(p, tx, ty, tz) * itemsize <= SMEM_LIMIT
-        for rows in (tz, ty * tz, tx * tz):
-            assert rows <= 256 and 256 % rows == 0
+        for N in (2 * p, 4 * p, 64 * p):
+            lx, ty, tz = elasticity_tile(p, itemsize, N)
+            nbytes = elasticity_smem_elems(p, ty) * itemsize
+            assert nbytes <= SMEM_LIMIT
+            if itemsize == 4:
+                assert nbytes <= SMEM_BUDGET
+            assert tz == 32 and ty * tz <= 256 and 256 % (ty * tz) == 0
+            assert p <= 3 or ty * tz <= 128
+            assert lx in (64, 48, 32, 16, 8, 4, 2)
+    # one more warp of y rows: a window row of three components in both
+    # buffers, a row of the four z products in both, and 2p+1 ring planes
+    # of 12 groups for 32 more columns
+    assert (elasticity_smem_elems(p, 2) - elasticity_smem_elems(p, 1)
+            == 2 * 3 * (32 + 2 * p) + 2 * 4 * 32 + (2 * p + 1) * 12 * 32)
+    # Q3 r=6, fine level down: 192^3 in 2 waves of 70 planes (not 3 of 54
+    # at LX = 48), 96^3 in one wave of 22, 48^3 in one of 10
+    chunks = [elasticity_tile(3, 4, 3 * 2 ** r)[0] for r in range(6, 0, -1)]
+    assert chunks == [64, 16, 4, 2, 2, 2]
 
 
 def test_operator_shapes_and_cpu_counts_nothing():
@@ -257,11 +328,11 @@ def test_wrapper_checks_layout_on_every_device():
 def test_variant_errors():
     sp = FESpace(HyperCubeMesh(2, 1), 2)
     with pytest.raises(ValueError, match="'kron'"):
-        ElasticityMultigrid(2, 2, 1, variant="auto")
+        ElasticityMultigrid(2, 2, 1, variant="auto", device="cpu")
     with pytest.raises(ValueError, match="not ported yet: ROADMAP A.10"):
         make_elasticity(sp, variant="sumfac")
     with pytest.raises(ValueError, match="not ported yet: ROADMAP A.10"):
-        ElasticityMultigrid(3, 2, 1, variant="dense")
+        ElasticityMultigrid(3, 2, 1, variant="dense", device="cpu")
     with pytest.raises(ValueError, match="3D"):
         make_cuda_elasticity(sp)
 

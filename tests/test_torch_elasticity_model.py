@@ -118,7 +118,8 @@ jax_q2 = jax_solve_fixture(3, 2, 2)
 
 
 def test_auto_levels_run_the_kernels():
-    prob = ElasticityMultigrid(3, 2, 2, dtype=torch.float64, variant="auto")
+    prob = ElasticityMultigrid(3, 2, 2, dtype=torch.float64, variant="auto",
+                               device="cpu")
     assert prob.fine_trimmed
     assert all(isinstance(lvl.op, CudaElasticityOperator) for lvl in prob.levels)
     for lvl in prob.levels[1:]:
@@ -170,7 +171,8 @@ def test_vcycle_from_jax_state_matches():
 @pytest.mark.parametrize("variant", ["kron", "auto"])
 def test_q2_matches_jax(jax_q2, variant):
     jst, jx = jax_q2.result()
-    prob = ElasticityMultigrid(3, 2, 2, dtype=torch.float64, variant=variant)
+    prob = ElasticityMultigrid(3, 2, 2, dtype=torch.float64, variant=variant,
+                               device="cpu")
     x, st = prob.solve()
     same_solve(st, jst)
     assert np.abs(jx - x.numpy()).max() <= 1e-9 * np.abs(jx).max()

@@ -20,14 +20,14 @@ jax_2d = jax_solve_fixture(2, 3, 2)
 
 def test_2d_kron_matches_jax(jax_2d):
     _, st = ElasticityMultigrid(2, 3, 2, dtype=torch.float64,
-                                variant="kron").solve()
+                                variant="kron", device="cpu").solve()
     same_solve(st, jax_2d.result()[0])
 
 
 @pytest.mark.parametrize("variant", ["kron", "auto"])
 def test_q3_matches_jax(jax_q3, variant):
     _, st = ElasticityMultigrid(3, 3, 2, dtype=torch.float64,
-                                variant=variant).solve()
+                                variant=variant, device="cpu").solve()
     same_solve(st, jax_q3.result()[0])
 
 

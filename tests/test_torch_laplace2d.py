@@ -155,9 +155,10 @@ def test_row_sums_are_those_of_the_folded_stiffness(p, r):
 def test_float32_ladder_keeps_the_mesh_converged_norm():
     """The difference form keeps the float32 solve at the float64 L2 norm;
     the direct banded sum (the TPU kernel's) is 1.3e-4 off at this size."""
-    _, s64 = PolynomialMultigridPoisson(2, 7, 5, 7, torch.float64).solve()
-    _, s32 = PolynomialMultigridPoisson(2, 7, 5, 7, torch.float32).solve(
-        rtol=1e-5)
+    _, s64 = PolynomialMultigridPoisson(2, 7, 5, 7, torch.float64,
+                                        device="cpu").solve()
+    _, s32 = PolynomialMultigridPoisson(2, 7, 5, 7, torch.float32,
+                                        device="cpu").solve(rtol=1e-5)
     assert s32.converged and s32.iterations <= 3
     assert s32.solution_l2_norm == pytest.approx(s64.solution_l2_norm,
                                                  rel=1e-6)
@@ -197,7 +198,7 @@ def test_tile_fits_shared_memory(p):
 
 
 def test_levels_share_one_operator():
-    prob = PolynomialMultigridPoisson(2, 3, 1, dtype=torch.float64)
+    prob = PolynomialMultigridPoisson(2, 3, 1, dtype=torch.float64, device="cpu")
     assert all(isinstance(lvl.op, CudaLaplace2D) for lvl in prob.levels)
     for lvl in prob.levels[1:]:
         assert isinstance(lvl.smoother, FusedChebyshev)

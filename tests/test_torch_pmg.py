@@ -87,7 +87,8 @@ def test_p_transfer_rejects_two_meshes():
                          ids=lambda r: f"p{r['degree']}-L{r['levels']}-r{r['refinements']}")
 def test_golden_rows(row):
     prob = PolynomialMultigridPoisson(2, row["degree"], row["refinements"],
-                                      row["levels"], torch.float64, "auto")
+                                      row["levels"], torch.float64, "auto",
+                                      device="cpu")
     assert all(isinstance(lvl.op, CudaLaplace2D) for lvl in prob.levels)
     _, st = prob.solve()
     assert st.converged and st.iterations == row["iterations"]
@@ -106,13 +107,14 @@ def same_solve(st, jst):
 def check_ladder_matches_jax(degree, levels, r):
     _, jst = JPolynomial(2, degree, r, levels, jnp.float64, "sumfac").solve()
     _, st = PolynomialMultigridPoisson(2, degree, r, levels, torch.float64,
-                                       "auto").solve()
+                                       "auto", device="cpu").solve()
     same_solve(st, jst)
 
 
 def test_geometric_2d_matches_jax():
     _, jst = JGeometric(2, 2, 2, jnp.float64, "sumfac").solve()
-    prob = GeometricMultigridPoisson(2, 2, 2, torch.float64, "auto")
+    prob = GeometricMultigridPoisson(2, 2, 2, torch.float64, "auto",
+                                     device="cpu")
     # plain h-transfers, adapted to the trimmed levels
     assert all(isinstance(lvl.transfer, TrimmedTransfer)
                for lvl in prob.levels[1:])
@@ -120,16 +122,19 @@ def test_geometric_2d_matches_jax():
 
 
 def test_kron_ladder_matches_auto():
-    _, a = PolynomialMultigridPoisson(2, 4, 2, 3, torch.float64, "auto").solve()
-    _, k = PolynomialMultigridPoisson(2, 4, 2, 3, torch.float64, "kron").solve()
+    _, a = PolynomialMultigridPoisson(2, 4, 2, 3, torch.float64, "auto",
+                                      device="cpu").solve()
+    _, k = PolynomialMultigridPoisson(2, 4, 2, 3, torch.float64, "kron",
+                                      device="cpu").solve()
     assert a.iterations == k.iterations
     assert a.solution_l2_norm == pytest.approx(k.solution_l2_norm, rel=1e-12)
 
 
 def test_n_levels_checked():
     with pytest.raises(ValueError, match="n_levels"):
-        PolynomialMultigridPoisson(2, 2, 1, 3)
-    prob = PolynomialMultigridPoisson(2, 3, 1)  # n_levels defaults to degree
+        PolynomialMultigridPoisson(2, 2, 1, 3, device="cpu")
+    # n_levels defaults to degree
+    prob = PolynomialMultigridPoisson(2, 3, 1, device="cpu")
     assert [sp.degree for sp in prob.spaces] == [1, 2, 3]
 
 
@@ -181,7 +186,7 @@ def test_driver_prints_reference_format():
     assert "============== fe_degree = 3, mg_levels = 3 ==============" in out
     assert out.count("Cycle ") == 2
     for r in (1, 2):
-        _, jst = PolynomialMultigridPoisson(2, 3, r, 3).solve()
+        _, jst = PolynomialMultigridPoisson(2, 3, r, 3, device="cpu").solve()
         dofs = ", ".join(str(d) for d in jst.dofs_per_level)
         assert (f" Number of degrees of freedom: {jst.n_dofs} (by level: "
                 f"{dofs})") in out

@@ -31,7 +31,8 @@ def _golden():
 
 def test_slice_matches_jax_q4_r2():
     jx, jst = JPoisson(3, 4, 2, jnp.float64, "auto").solve()
-    x, st = GeometricMultigridPoisson(3, 4, 2, torch.float64, "auto").solve()
+    x, st = GeometricMultigridPoisson(3, 4, 2, torch.float64, "auto",
+                                      device="cpu").solve()
     assert st.converged and jst.converged
     assert st.iterations == jst.iterations
     assert st.n_dofs == jst.n_dofs and st.dofs_per_level == jst.dofs_per_level
@@ -46,7 +47,7 @@ def test_golden_table(degree, refinements):
     CG counts exactly, L2 norms to 1e-10."""
     want = _golden()[(degree, refinements)]
     _, st = GeometricMultigridPoisson(3, degree, refinements, torch.float64,
-                                      "auto").solve()
+                                      "auto", device="cpu").solve()
     assert st.converged
     assert st.iterations == want["iterations"]
     assert st.solution_l2_norm == pytest.approx(want["l2_norm"], rel=1e-10)
@@ -57,14 +58,14 @@ def test_golden_table(degree, refinements):
 def test_kron_variant_matches_golden(degree):
     want = _golden()[(degree, 2)]
     _, st = GeometricMultigridPoisson(3, degree, 2, torch.float64,
-                                      "kron").solve()
+                                      "kron", device="cpu").solve()
     assert st.iterations == want["iterations"]
     assert st.solution_l2_norm == pytest.approx(want["l2_norm"], rel=1e-10)
 
 
 def test_float32_solve_converges():
-    x, st = GeometricMultigridPoisson(3, 4, 2, torch.float32, "auto").solve(
-        rtol=1e-5)
+    x, st = GeometricMultigridPoisson(3, 4, 2, torch.float32, "auto",
+                                      device="cpu").solve(rtol=1e-5)
     assert x.dtype == torch.float32 and st.converged and st.iterations <= 4
     assert st.solution_l2_norm == pytest.approx(
         _golden()[(4, 2)]["l2_norm"], rel=1e-4)
@@ -72,9 +73,10 @@ def test_float32_solve_converges():
 
 def test_variant_errors():
     with pytest.raises(ValueError, match="2D and 3D"):
-        GeometricMultigridPoisson(1, 2, 1, torch.float64, "auto")
+        GeometricMultigridPoisson(1, 2, 1, torch.float64, "auto", device="cpu")
     with pytest.raises(ValueError, match="not ported yet"):
-        GeometricMultigridPoisson(3, 2, 1, torch.float64, "dense")
+        GeometricMultigridPoisson(3, 2, 1, torch.float64, "dense",
+                                  device="cpu")
 
 
 def test_port_never_imports_jax():

@@ -5,7 +5,10 @@
 * the B.3 twin against ``PallasTransfer`` in interpret mode (``bf=4``,
   Q4 r3 <-> r2) to 2e-5 in float32, the JAX package's own bound
   (tests/test_pallas_transfer.py), for both coarse representations;
-* restriction is the exact transpose: <P c, f> = <c, R f>.
+* restriction is the exact transpose: <P c, f> = <c, R f>;
+* the x-marching restriction of csrc/transfer.cu, emulated in plain torch
+  from the padded rows and the launch geometry, against ``transfer_twin``
+  on scalar and [3, ...] fields.
 """
 
 import jax.numpy as jnp
@@ -22,7 +25,11 @@ from portable_multigrid_tpu.ops.transfer import (
 )
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
-from portable_multigrid_tpu_torch.ops.cuda_transfer import make_cuda_h_transfer
+from portable_multigrid_tpu_torch.ops.cuda_transfer import (
+    RESTRICT_TILE,
+    make_cuda_h_transfer,
+    transfer_twin,
+)
 from portable_multigrid_tpu_torch.ops.transfer import (
     TrimmedTransfer,
     make_h_transfer,
@@ -119,3 +126,73 @@ def test_restriction_is_exact_transpose(p):
     lhs = torch.sum(kern.prolongate(ct) * ft)
     rhs = torch.sum(ct * kern.restrict(ft))
     assert abs(float(lhs - rhs)) <= 1e-12 * abs(float(lhs))
+
+
+def restrict_emulation(W, f):
+    """restrict_kernel's schedule in plain torch: per component, coarse x
+    chunk and coarse (y, z) column, march over the fine x planes the chunk
+    reaches; each plane's (LY, LZ) window (zeros past the grid) contracted
+    along z, then y, from the padded rows, and added into the chunk's
+    coarse x rows whose windows hold the plane."""
+    chunk, ty, tz = RESTRICT_TILE
+    starts = [int(s) for s in W.starts]
+    vals, w, (LY, LZ) = W.vals, W.w, W.lens
+    n_in, n_out = W.n_in, W.n_out
+    lead = f.shape[:-3]
+    fields = f.reshape((-1,) + f.shape[-3:])
+    out = torch.zeros((fields.shape[0],) + (n_out,) * 3, dtype=f.dtype)
+
+    def rows(r0, t, s0):
+        """(offsets in the window, [t, w] values) of rows r0..r0+t-1,
+        zero rows past n_out."""
+        off = torch.zeros(t, dtype=torch.long)
+        v = torch.zeros(t, w, dtype=f.dtype)
+        for j in range(min(t, n_out - r0)):
+            off[j] = starts[r0 + j] - s0
+            v[j] = vals[r0 + j]
+        return off, v
+
+    taps = torch.arange(w)
+    for comp, fine in enumerate(fields):
+        for cx0 in range(0, n_out, chunk):
+            cn = min(chunk, n_out - cx0)
+            f0, f1 = starts[cx0], starts[cx0 + cn - 1] + w
+            for y0 in range(0, n_out, ty):
+                for z0 in range(0, n_out, tz):
+                    sy, sz = starts[y0], starts[z0]
+                    oy, vy = rows(y0, ty, sy)
+                    oz, vz = rows(z0, tz, sz)
+                    acc = torch.zeros(chunk, ty, tz, dtype=f.dtype)
+                    for fx in range(f0, f1):
+                        win = torch.zeros(LY, LZ, dtype=f.dtype)
+                        part = fine[fx, sy:sy + LY, sz:sz + LZ]
+                        win[:part.shape[0], :part.shape[1]] = part
+                        # z: zb[ly, c] = sum_k vz[c, k] win[ly, oz[c] + k]
+                        zb = (win[:, oz[:, None] + taps] * vz).sum(-1)
+                        # y: v[r, c] = sum_k vy[r, k] zb[oy[r] + k, c]
+                        v = (zb[oy[:, None] + taps] * vy[..., None]).sum(1)
+                        for c in range(cn):
+                            k = fx - starts[cx0 + c]
+                            if 0 <= k < w:
+                                acc[c] += vals[cx0 + c, k] * v
+                    ny, nz = min(ty, n_out - y0), min(tz, n_out - z0)
+                    out[comp, cx0:cx0 + cn, y0:y0 + ny, z0:z0 + nz] = \
+                        acc[:cn, :ny, :nz]
+    return out.reshape(lead + (n_out,) * 3)
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["scalar", "vector"])
+@pytest.mark.parametrize("p,r", [(1, 2), (2, 3), (3, 4), (7, 2)])
+def test_restrict_schedule_matches_twin(p, r, lead):
+    """Chunks and column tiles partial or several (coarse rows: 2 at p = 1,
+    r = 2; 8 at p = 2, r = 3; 24 at p = 3, r = 4, two chunks and three y
+    tiles; 14 at p = 7, r = 2, the widest rows)."""
+    coarse, fine = _pair(p, r)
+    tr = make_cuda_h_transfer(coarse, fine, torch.float64)
+    W = tr.restrict_
+    assert W.march and W.n_in == 2 * W.n_out
+    f = torch.as_tensor(np.random.default_rng(p).standard_normal(
+        lead + (W.n_in,) * 3))
+    want = transfer_twin(W.dense, f)
+    assert _rel(want, restrict_emulation(W, f)) < 1e-13
+    assert _rel(want, tr.restrict(f)) == 0.0
