@@ -10,10 +10,11 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      every kernel instance;
   2. kernel vs twin — every mode of every kernel against its plain torch
      twin on the card, in float32 and float64: the 3D kernels (B.1-B.3) at
-     p = 1..7, r = 2 and at the Q4 r = 6 fine-level shape; the 2D kernel
-     (B.4) at p = 1..7, r = 2 and 3 (partial tiles) and at the Q7 r = 9
-     fine-level shape (3584^2); bound 1e-5 (f32) / 1e-12 (f64) on the max
-     error relative to the twin's max magnitude;
+     p = 1..7, r = 2 and at every level shape of the Q4 r = 6 main path
+     (p = 4, r = 1..6: trimmed 8^3 to 256^3); the 2D kernel (B.4) at
+     p = 1..7, r = 2 and 3 (partial tiles) and at the Q7 r = 9 fine-level
+     shape (3584^2); bound 1e-5 (f32) / 1e-12 (f64) on the max error
+     relative to the twin's max magnitude;
   3. golden replay — the ``geometric_3d`` rows (p = 1..7, r = 1..3) and the
      ``polynomial_2d`` rows of tests/golden_convergence.json in float64
      through the kernels: CG counts exact, L2 norms to 1e-10;
@@ -22,11 +23,15 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      1e-4 of 0.0249871331, every tensor on the card, and the launch count of
      each of its kernels (B.1, B.2, B.3) raised by that run;
   5. timing of the main path — CUDA events, warm-up then the median of 10
-     runs: the V-cycle, the whole solve, and each 3D kernel mode against its
+     runs: the V-cycle with B.2 pairs and with B.1 single steps in their
+     place (the smoothers' ``op_cheb2`` set to None; CG count of each), in
+     turns, its split by level and the profiler's device-busy share and
+     kernel split, the whole solve, and each 3D kernel mode against its
      twin at r = 6, beside its bound (the larger of its bytes over the HBM
-     rate and its FMAs over the FP32 rate) and, for B.3, beside one PyTorch
-     call that computes the same function (``library_ms``: an einsum over
-     the three axes, ``add_`` for ``prolongate_and_add``);
+     rate and its FMAs over the FP32 rate), each B.2 mode beside two B.1
+     ``cheb`` passes (the work one pair replaces) and, for B.3, beside one
+     PyTorch call that computes the same function (``library_ms``: an
+     einsum over the three axes, ``add_`` for ``prolongate_and_add``);
   6. second path — the reference's second driver,
      PolynomialMultigridPoisson(2, 7, 9, 7, "auto") on the card (12.8M
      DoFs, p = 7..1 on one mesh): in float64 to rtol 1e-12 (<= 6 CG
@@ -380,8 +385,8 @@ def ptxas_report(build_log: str) -> list[str]:
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"((?:laplace2d|laplace|cheb2|transfer|restrict|"
-                          r"elasticity)_kernel)I([fd])(?:Li(\d+)E)?",
+            k = re.search(r"((?:laplace2d|laplace|cheb2|rhs|transfer|"
+                          r"restrict|elasticity)_kernel)I([fd])(?:Li(\d+)E)?",
                           m.group(1))
             name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
                     f"{', ' + k.group(3) if k.group(3) else ''}>"
@@ -479,16 +484,65 @@ def phase_timing(card: str, prob, st, device) -> dict:
     rhs = prob.rhs()
     fine_op = prob.levels[-1].op
     n_dofs = prob.spaces[-1].n_dofs
-    t_vc = cuda_ms(lambda: mg.apply(rhs))
-    log(f"  V-cycle: {t_vc:.3f} ms = {n_dofs / (t_vc * 1e-3):.4e} DoF/s "
-        f"({n_dofs} DoFs)")
+    singles = singles_vcycle(prob)
+    its = {k: cg(fine_op.apply, rhs, v.apply, rtol=1e-5).iterations
+           for k, v in (("pairs", mg), ("singles", singles))}
+    runs = {"pairs": [], "singles": []}
+    for name in ("pairs", "singles", "singles", "pairs"):
+        v = mg if name == "pairs" else singles
+        runs[name].append(cuda_ms(lambda v=v: v.apply(rhs)))
+    for name, ts in runs.items():
+        log(f"  V-cycle with {name:7s} (B.2 {'pairs' if name == 'pairs' else 'off'}"
+            f"): {ts[0]:.3f} / {ts[1]:.3f} ms = "
+            f"{n_dofs / (min(ts) * 1e-3):.4e} DoF/s ({n_dofs} DoFs; "
+            f"CG {its[name]} iterations to rtol 1e-5)")
+    own = level_times(prob, rhs)
+    for k, sp in enumerate(prob.spaces):
+        what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
+        log(f"  level r={k} ({sp.n_dofs} DoFs, {what}): "
+            f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
+    device_busy(mg, rhs)
     t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
                       warmup=1)
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
         f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
-    times = time_modes("3d", *KERNELS["laplace"]["shape"], device)
+    p, r = KERNELS["laplace"]["shape"]
+    t_two = two_single_steps_ms(p, r, device)
+    log(f"  two B.1 cheb passes (the work of one B.2 pair): {t_two:.3f} ms")
+    times = time_modes("3d", p, r, device)
+    for (name, mode), t in times.items():
+        if name == "cheb2":
+            log(f"  cheb2 {mode:9s} {t['ms']:.3f} ms vs two B.1 passes "
+                f"{t_two:.3f} ms ({t_two / t['ms']:.2f}x), bound "
+                f"{t['bound_ms']:.4f} ms, twin {t['plain_ms']:.3f} ms")
     log("phase 5: ok")
     return times
+
+
+def singles_vcycle(prob) -> VCycle:
+    """The main path's V-cycle with every B.2 pair run as two B.1 single
+    steps (the smoothers' pair kernel removed; nothing else changes)."""
+    levels = tuple(
+        dataclasses.replace(lvl, smoother=dataclasses.replace(
+            lvl.smoother, op_cheb2=None))
+        if getattr(lvl.smoother, "op_cheb2", None) is not None else lvl
+        for lvl in prob.levels)
+    return VCycle(levels=levels, fine_trimmed=prob.fine_trimmed)
+
+
+def two_single_steps_ms(p: int, r: int, device) -> float:
+    """Two chained B.1 cheb passes at one level shape, in float32: the
+    yardstick of a B.2 pair."""
+    op = cuda_laplace.make_cuda_laplace(space(p, r), torch.float32, device)
+    rng = np.random.default_rng(1)
+    d, r_, x = (masked_trimmed(op, rng, torch.float32, device)
+                for _ in range(3))
+
+    def two():
+        r1, d1, x1 = op.run("cheb", d, (r_, x), SCAL_CHEB)
+        return op.run("cheb", d1, (r1, x1), SCAL_CHEB)
+
+    return cuda_ms(two)
 
 
 def bound(path, name, mode, p, r) -> tuple[float, str]:
@@ -781,7 +835,8 @@ def main() -> int:
     card = phase_build()
     dtypes = (torch.float32, torch.float64)
     shapes = [("3d", p, 2, dt) for dt in dtypes for p in range(1, 8)]
-    shapes += [("3d", 4, 6, dt) for dt in dtypes]
+    # every level shape of the main path's kernel levels, 8^3 to 256^3
+    shapes += [("3d", 4, r, dt) for dt in dtypes for r in (1, 3, 4, 5, 6)]
     shapes += [("2d", p, r, dt) for dt in dtypes for r in (2, 3)
                for p in range(1, 8)]
     shapes += [("2d", 7, 9, dt) for dt in dtypes]

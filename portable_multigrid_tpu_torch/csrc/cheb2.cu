@@ -8,205 +8,558 @@
 //     x2 = x + d1 + d2
 // with A the mask-folded banded operator of laplace.cu.  "l" modes write x2
 // only; chebd2* take x == d; cheb2f0* start from the rhs b (passed in the d
-// slot): d0 = b / (theta diag), r0 = b, x0 = d0, all derived in-kernel.
+// slot): d0 = b / (theta diag), r0 = b, x0 = d0 — chebd2* on (d0, b), d0
+// written by a pre-pass (rhs_kernel) into the wrapper's scratch field.
+// Every K contraction runs in difference form,
+//     (K u)_i = sum_o K[i, i+o] (u_{i+o} - u_i) + s_i u_i,
+// s_i the row sum of the trimmed mask-folded K (ksum, taken on the host);
+// M stays direct.
 //
-// What bounds it on the H100: HBM traffic, 24 B/DoF in f32 for two steps
-// (d, r, x in; r2, d2, x2 out) against 48 B/DoF for two single steps: the
-// pair halves the smoother's dominant stream, which is the point of the
-// kernel.  At 3.35 TB/s the r=6 Q4 fine level needs 120 us per pair.
+// What bounds it on the H100: HBM traffic is 24 B/DoF in f32 for two steps
+// (d, r, x in; r2, d2, x2 out), 0.080-0.120 ms at 256^3; but the 14 banded
+// products of 2p+1 FMAs per point, the shared-memory operand loads that
+// feed them and the latency of the stage chains come first (1.4 ms at
+// 256^3, p = 4, on an H100 80GB HBM3 at 700 W), and the overgrowth below
+// multiplies them.
 //
-// Design: the second application A d1 needs d1 completed within p of every
-// output point, so a block owning a TX x TY x TZ tile loads d with a 2p halo
-// in all three dimensions, computes step one redundantly on the tile grown
-// by p, and step two on the tile itself; r and x are read straight from
-// global memory at the points that need them.  Unlike the TPU kernel, where
-// z sits whole in the lanes, the halo here is 3D, so the window and the
-// stage buffers grow as (T + 4p)^3: the host picks the largest tile that
-// fits the 227 KB of shared memory per block, and a block of 512 threads
-// brings enough warps to an SM that holds only one such block.  Where even
-// the smallest candidate does not fit (p >= 5 in f64, p = 7 in f32), the
-// same code runs on per-block slices of a global workspace that the wrapper
-// allocates — a correct, slower path.  The redundant halo work (about 6x
-// the FMAs of two plain steps at p = 4 with 8x8x16 tiles) is the cost of
-// this first version.
+// Design: an x-marching engine with two rings.  A block owns a y-z column of
+// TY x TZ output points (TZ = 32 - 2p, so that the column grown by p in z is
+// one warp wide) and marches a chunk of LX output planes along x.  Step two
+// needs d1 within p of every output point, so step one runs on the column
+// grown by p in y and z (EY = TY + 2p rows of 32), and the chunk's input
+// planes run from x0 - 2p to x0 + LX + 2p.  For each input plane x_in:
+//   1. the d window (2p halo in y and z, zeros off the grid) arrives by
+//      cp.async a plane ahead, with the epilogues' inputs (r and d at the
+//      x1 below, x at the x2, the x rows of K, M and the diagonal);
+//   2. step one's z stage (K, M along z) and y stage give the two y-z
+//      products the x stage needs (My Mz d and Ky Mz d + My Kz d, the split
+//      of common.cuh) on the grown column, into ring 1 (2p+1 planes);
+//   3. once x_in is in ring 1, the x contraction gives r1 and d1 at plane
+//      x1 = x_in - p on the grown column; d1 goes to a plane buffer, and the
+//      interior r1, d1 into a lag ring of p+1 planes;
+//   4. step two's z stage of that d1 plane, then its y stage on the
+//      interior, into ring 2 (2p+1 planes); once d1 plane x2 + p is in, the
+//      x contraction gives r2, d2 and x2 at plane x2 = x1 - p, and the
+//      epilogue writes them to HBM.
+// Every input plane goes through step one once; only the chunk's 4p
+// lead-in planes are recomputed, and the y-z overgrowth is 2p (1.9x the
+// FMAs of two plain steps at p = 4, TY = 16, against 6x for a 3D halo).
+// A thread keeps its z row (its lane of the grown column) and its two y
+// rows (round robin over the warps, interior rows first) for the whole
+// march, so their bands and row sums stay in registers; every ring entry,
+// the d1 plane row of its own warp and the lag ring are private to the
+// thread or warp that reads them.  The stages are skewed by a plane (step
+// one's y and x stages run an iteration after its z stage, step two's y
+// and x stages an iteration after its z stage), with three windows and two
+// sets of z products in flight, so a plane costs one block barrier.  The
+// tile (TY, warps) is a compile-time function of p and the type that
+// ops/cuda_cheb2.py mirrors (cheb2_tile); every p = 1..7 fits one block of
+// shared memory in both types.  One block per SM: in f32 at p = 4 a block
+// of 12 warps over TY = 16 beat two blocks of 8 warps over TY = 8 (less
+// overgrowth, the same warps).
 #include "common.cuh"
 
 using namespace pmg;
 
 namespace {
 
-// one block per SM fits the buffers, so the block brings its own warps
-constexpr int kPairThreads = 512;
+constexpr int kEZ = 32;  // z extent of the grown column: one warp
+constexpr int64_t kSmemLimit = 227 * 1024;  // one block
 
 enum Mode { kCheb2 = 0, kCheb2L = 1, kChebD2 = 2, kChebD2L = 3, kF0 = 4,
             kF0L = 5 };
 
-// per-block buffer elements (buf0, buf1); must match cheb2_smem_elems() in
-// ops/cuda_cheb2.py
-__host__ __device__ inline int64_t smem_elems(int p, int TX, int TY, int TZ,
-                                              int64_t* buf0) {
-  const int64_t DX = TX + 4 * p, DY = TY + 4 * p, DZ = TZ + 4 * p;
-  const int64_t EX = TX + 2 * p, EY = TY + 2 * p, EZ = TZ + 2 * p;
-  const int64_t win = DX * DY * DZ;
-  const int64_t y1 = 2 * DX * EY * EZ;
-  const int64_t s2 = 2 * EX * EY * TZ + 2 * EX * TY * TZ;
-  int64_t b0 = win > y1 ? win : y1;
-  b0 = b0 > s2 ? b0 : s2;
-  const int64_t z1 = 2 * DX * DY * EZ;
-  const int64_t e1 = 2 * EX * EY * EZ;
-  if (buf0) *buf0 = b0;
-  return b0 + (z1 > e1 ? z1 : e1);
+// elements of an x row in shared memory: K and M (2p+1 each), K's row sum,
+// dK and dM, rounded up to 16 bytes of float
+__host__ __device__ constexpr int xrow_elems(int p) {
+  return (4 * p + 5 + 3) / 4 * 4;
+}
+
+// shared-memory elements of a block with TY interior rows; must match
+// cheb2_smem_elems() in ops/cuda_cheb2.py.  Layout: three d windows
+// [3][WY][WZ], two sets of step one's z products [2][2][WY][32], ring 1
+// [R][2][EY][32], the d1 plane [EY][32], two sets of step two's z products
+// [2][2][EY][32], ring 2 [R][2][TY][32], the lag ring [p+1][2][TY][32];
+// the epilogues' inputs
+// r and d [2][2][EY][32] and x [2][TY][32], three sets of the two x rows
+// [3][2][xrow_elems].
+__host__ __device__ constexpr int64_t smem_elems(int p, int ty) {
+  const int64_t R = 2 * p + 1, WY = ty + 4 * p, WZ = kEZ + 2 * p,
+                EY = ty + 2 * p;
+  return 3 * WY * WZ + 4 * WY * kEZ + R * 2 * EY * kEZ + EY * kEZ +
+         4 * EY * kEZ + R * 2 * ty * kEZ + (p + 1) * 2 * ty * kEZ +
+         4 * EY * kEZ + 2 * ty * kEZ + 3 * 2 * xrow_elems(p);
+}
+
+// warps a block may have: 12 in float (168 registers a thread), 8 in
+// double (255 registers)
+template <typename T>
+__host__ __device__ constexpr int max_warps() {
+  return sizeof(T) == 4 ? 12 : 8;
+}
+
+// TY: the largest candidate whose TY + 2p grown rows the warps can own,
+// two each, and whose buffers fit the block (one block per SM)
+template <typename T, int P>
+__host__ __device__ constexpr int tile_ty() {
+  const int cand[6] = {16, 8, 6, 4, 2, 1};
+  for (int k = 0; k < 6; ++k) {
+    const int ty = cand[k];
+    if (ty + 2 * P <= 2 * max_warps<T>() &&
+        smem_elems(P, ty) * (int64_t)sizeof(T) <= kSmemLimit)
+      return ty;
+  }
+  return 0;
+}
+
+// warps: two grown rows each
+template <typename T, int P>
+__host__ __device__ constexpr int tile_warps() {
+  return (tile_ty<T, P>() + 2 * P + 1) / 2;
+}
+
+// The coefficients of one row of K and M and K's row sum (zeros for a row
+// outside [0, N), which makes its outputs zero).
+template <typename T, int P>
+struct Row {
+  T k[2 * P + 1], m[2 * P + 1], s;
+
+  __device__ __forceinline__ void load(const T* __restrict__ kb,
+                                       const T* __restrict__ mb,
+                                       const T* __restrict__ ks, int64_t N,
+                                       int64_t row) {
+    const bool in = row >= 0 && row < N;
+#pragma unroll
+    for (int o = 0; o <= 2 * P; ++o) {
+      k[o] = in ? kb[o * N + row] : T(0);
+      m[o] = in ? mb[o * N + row] : T(0);
+    }
+    s = in ? ks[row] : T(0);
+  }
+
+  // The row and the diagonal factors dK, dM from an x row in shared
+  // memory (k, m, s, dK, dM in order; 16-byte aligned), in broadcast
+  // 16-byte loads.
+  __device__ __forceinline__ void load_smem(const T* src, T& dk, T& dm) {
+    constexpr int V = 16 / sizeof(T);
+#pragma unroll
+    for (int q = 0; q < (4 * P + 5 + V - 1) / V; ++q) {
+      T v[V];
+      if constexpr (V == 4) {
+        const float4 t = reinterpret_cast<const float4*>(src)[q];
+        v[0] = t.x;
+        v[1] = t.y;
+        v[2] = t.z;
+        v[3] = t.w;
+      } else {
+        const double2 t = reinterpret_cast<const double2*>(src)[q];
+        v[0] = t.x;
+        v[1] = t.y;
+      }
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const int e = q * V + u;
+        if (e <= 2 * P) {
+          k[e] = v[u];
+        } else if (e <= 4 * P + 1) {
+          m[e - 2 * P - 1] = v[u];
+        } else if (e == 4 * P + 2) {
+          s = v[u];
+        } else if (e == 4 * P + 3) {
+          dk = v[u];
+        } else if (e == 4 * P + 4) {
+          dm = v[u];
+        }
+      }
+    }
+  }
+};
+
+// K and M of a row along z, u[o] the 2P+1 taps.
+template <typename T, int P>
+__device__ __forceinline__ void contract_km(const Row<T, P>& w, const T* u,
+                                            T& ak, T& am) {
+  const T uc = u[P];
+  ak = w.s * uc;
+  am = T(0);
+#pragma unroll
+  for (int o = 0; o <= 2 * P; ++o) {
+    const T v = u[o];
+    ak += w.k[o] * (v - uc);
+    am += w.m[o] * v;
+  }
+}
+
+// The y stage at one point: za / zm the K / M z products at the 2P+1 taps
+// (stride 32); MB = My (Mz u), S = Ky (Mz u) + My (Kz u).
+template <typename T, int P>
+__device__ __forceinline__ void contract_y(const Row<T, P>& w, const T* za,
+                                           const T* zm, T& mb, T& s) {
+  const T bc = zm[P * kEZ];
+  mb = T(0);
+  s = w.s * bc;
+#pragma unroll
+  for (int o = 0; o <= 2 * P; ++o) {
+    const T bv = zm[o * kEZ];
+    mb += w.m[o] * bv;
+    s += w.k[o] * (bv - bc) + w.m[o] * za[o * kEZ];
+  }
+}
+
+// The x stage from a ring of 2P+1 planes of (MB, S) pairs: planes
+// x - P + o in slots (base + o) % R, the pair's S `half` elements after
+// its MB; raw = Kx MB + Mx S.
+template <typename T, int P>
+__device__ __forceinline__ T contract_x(const Row<T, P>& w, const T* ring,
+                                        int slot_elems, int half, int base) {
+  constexpr int R = 2 * P + 1;
+  int c = base + P;
+  if (c >= R) c -= R;
+  const T mbc = ring[c * slot_elems];
+  T raw = w.s * mbc;
+#pragma unroll
+  for (int o = 0; o < R; ++o) {
+    int s = base + o;
+    if (s >= R) s -= R;
+    const T* e = ring + s * slot_elems;
+    raw += w.k[o] * (e[0] - mbc) + w.m[o] * e[half];
+  }
+  return raw;
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kPairThreads)
+constexpr int kPairThreads = tile_warps<T, P>() * 32;
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kPairThreads<T, P>, 1)
 cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
              const T* __restrict__ x, T* __restrict__ out0,
              T* __restrict__ out1, T* __restrict__ out2,
              const T* __restrict__ kb, const T* __restrict__ mb,
-             const T* __restrict__ dk, const T* __restrict__ dm, T c0a, T c1a,
-             T c0b, T c1b, T theta, int N_, int mode, int TX, int TY, int TZ,
-             T* workspace) {
+             const T* __restrict__ ks, const T* __restrict__ dk,
+             const T* __restrict__ dm, T c0a, T c1a, T c0b, T c1b, int N_,
+             int mode, int LX) {
+  constexpr int R = 2 * P + 1, TY = tile_ty<T, P>(), NW = tile_warps<T, P>();
+  constexpr int WY = TY + 4 * P, WZ = kEZ + 2 * P, EY = TY + 2 * P;
+  constexpr int TZ = kEZ - 2 * P;
+  constexpr int R1 = (EY + NW - 1) / NW;  // grown rows a warp owns
+  constexpr int XH = xrow_elems(P);  // an x row: K, M, K's row sum, dK, dM
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* win = reinterpret_cast<T*>(smem_raw);  // [3][WY][WZ]
+  T* zb1 = win + 3 * WY * WZ;               // [2][2][WY][32]  Kz d, Mz d
+  T* ring1 = zb1 + 4 * WY * kEZ;            // [R][2][EY][32]
+  T* d1p = ring1 + R * 2 * EY * kEZ;        // [EY][32]
+  T* zb2 = d1p + EY * kEZ;                  // [2][2][EY][32]  Kz d1, Mz d1
+  T* ring2 = zb2 + 4 * EY * kEZ;            // [R][2][TY][32]
+  T* lag = ring2 + R * 2 * TY * kEZ;        // [P+1][2][TY][32]  r1, d1
+  T* rbuf = lag + (P + 1) * 2 * TY * kEZ;   // [2][EY][32]  r (b) at x1
+  T* dbuf = rbuf + 2 * EY * kEZ;            // [2][EY][32]  d at x1
+  T* xbuf = dbuf + 2 * EY * kEZ;            // [2][TY][32]  x (d, b) at x2
+  T* xrow = xbuf + 2 * TY * kEZ;            // [3][2][XH]   rows x1, x2
   const int64_t N = N_;
-  const int DX = TX + 4 * P, DY = TY + 4 * P, DZ = TZ + 4 * P;
-  const int EX = TX + 2 * P, EY = TY + 2 * P, EZ = TZ + 2 * P;
-  int64_t b0;
-  const int64_t per_block = smem_elems(P, TX, TY, TZ, &b0);
-  T* buf0;
-  if (workspace) {
-    const int64_t blk =
-        ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    buf0 = workspace + blk * per_block;
-  } else {
-    buf0 = reinterpret_cast<T*>(smem_raw);
-  }
-  T* buf1 = buf0 + b0;
-  const int64_t x0 = (int64_t)blockIdx.z * TX;
-  const int64_t y0 = (int64_t)blockIdx.y * TY;
-  const int64_t z0 = (int64_t)blockIdx.x * TZ;
-  const bool f0 = mode == kF0 || mode == kF0L;
+  const int lane = threadIdx.x % kEZ, w = threadIdx.x / kEZ;
+  const int64_t z0 = (int64_t)blockIdx.x * TZ, y0 = (int64_t)blockIdx.y * TY;
+  const int64_t x0 = (int64_t)blockIdx.z * LX;
+  const int64_t xend = x0 + LX < N ? x0 + LX : N;
+  const int64_t xs = x0 - 2 * P, xe = xend + 2 * P;
+  const int64_t gz = z0 - P + lane;  // the thread's z row, all march long
+  const bool zok = gz >= 0 && gz < N;
+  const bool last = mode == kCheb2L || mode == kChebD2L;
+  const T* xsrc = mode == kCheb2 || mode == kCheb2L ? x : d;  // x on entry
+  // interior lanes P..31-P; the thread's grown row j is an interior row
+  // (row P + q of the column, y0 + q on the grid) when q = w + j NW < TY
+  const bool lane_in = lane >= P && lane < kEZ - P;
 
-  // ---- d window with a 2P halo (d0 = b / (theta diag) in the f0 modes)
-  const int nwin = DX * DY * DZ;
-  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-    const int lz = i % DZ, t = i / DZ, ly = t % DY, lx = t / DY;
-    const int64_t gx = x0 - 2 * P + lx, gy = y0 - 2 * P + ly,
-                  gz = z0 - 2 * P + lz;
-    T v = T(0);
-    if (inside(gx, gy, gz, N)) {
-      v = d[(gx * N + gy) * N + gz];
-      if (f0) v = v / (theta * diag_at(dk, dm, gx, gy, gz));
-    }
-    buf0[i] = v;
+  // grown rows of this warp: q = w + j NW in the order interior rows
+  // (q < TY: row P + q), then the 2P halo rows; -1 past the column.  The
+  // diagonal at (x, y, z) is dK_x ay + dM_x by with the y-z factors below.
+  int ey[R1];
+  Row<T, P> yr[R1];
+  T ay[R1], by[R1];
+#pragma unroll
+  for (int j = 0; j < R1; ++j) {
+    const int q = w + j * NW, h = q - TY;
+    ey[j] = q >= EY ? -1 : q < TY ? P + q : h < P ? h : h + TY;
+    const int64_t gy = ey[j] < 0 ? -1 : y0 - P + ey[j];
+    yr[j].load(kb, mb, ks, N, gy);
+    const bool ok = zok && gy >= 0 && gy < N;
+    ay[j] = ok ? dm[gy] * dm[gz] : T(0);
+    by[j] = ok ? dk[gy] * dm[gz] + dm[gy] * dk[gz] : T(0);
   }
-  __syncthreads();
-
-  // ---- step one on the tile grown by P: z, y, x
-  T* A1 = buf1;
-  T* B1 = buf1 + (int64_t)DX * DY * EZ;
-  stage_z<T, P>(buf0, DZ, A1, B1, DX * DY, EZ, z0 - P, kb, mb, N);
-  __syncthreads();
-  T* MB1 = buf0;
-  T* S1 = buf0 + (int64_t)DX * EY * EZ;
-  stage_y<T, P>(A1, B1, DY, MB1, S1, DX, EY, EZ, y0 - P, kb, mb, N);
-  __syncthreads();
-  // r1 = r - A d, d1 = c0a d + (c1a / diag) r1 (zero outside the grid)
-  T* D1 = buf1;
-  T* R1 = buf1 + (int64_t)EX * EY * EZ;
-  stage_x<T, P>(MB1, S1, EX, EY, EZ, x0 - P, kb, mb, N,
-                [&](int lx, int ly, int lz, T raw) {
-    const int64_t gx = x0 - P + lx, gy = y0 - P + ly, gz = z0 - P + lz;
-    T r1 = T(0), d1 = T(0);
-    if (inside(gx, gy, gz, N)) {
-      const int64_t g = (gx * N + gy) * N + gz;
-      const T diag = diag_at(dk, dm, gx, gy, gz);
-      T dE, rE;
-      if (f0) {
-        rE = d[g];
-        dE = rE / (theta * diag);
-      } else {
-        rE = r[g];
-        dE = d[g];
+  Row<T, P> zr;
+  zr.load(kb, mb, ks, N, gz);
+  // everything the iteration of input plane xn reads from global memory,
+  // by cp.async (zeros off the grid): the d window of xn; r (b) and d at
+  // step one's x1 = xn - 1 - P on the thread's grown points and x (d, b)
+  // at step two's x2 = xn - 2 - 2P on its interior points, into buffer b;
+  // the K, M rows, K row sums and diagonal factors of x1 and x2
+  auto load_plane = [&](int64_t xn, int b) {
+    if (xn < xe) {
+      const bool xok = xn >= 0 && xn < N;
+      T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
+      for (int rw = w; rw < WY; rw += NW) {
+        const int64_t yy = y0 - 2 * P + rw;
+        const bool yok = xok && yy >= 0 && yy < N;
+        for (int c = lane; c < WZ; c += kEZ) {
+          const int64_t zz = z0 - 2 * P + c;
+          const bool ok = yok && zz >= 0 && zz < N;
+          cp_async_elem(dst + rw * WZ + c,
+                        ok ? d + (xn * N + yy) * N + zz : d, ok);
+        }
       }
-      r1 = rE - raw;
-      d1 = c0a * dE + (c1a / diag) * r1;
     }
-    const int64_t e = ((int64_t)lx * EY + ly) * EZ + lz;
-    D1[e] = d1;
-    R1[e] = r1;
-  });
-  __syncthreads();
+    const int64_t x1 = xn - 1 - P, x2 = xn - 2 - 2 * P;
+    if (xn <= xe && x1 >= x0 - P && x1 >= 0 && x1 < N) {
+#pragma unroll
+      for (int j = 0; j < R1; ++j) {
+        if (ey[j] < 0) continue;
+        const int64_t gy = y0 - P + ey[j];
+        const bool ok = zok && gy >= 0 && gy < N;
+        const int64_t g = (x1 * N + gy) * N + gz;
+        const int e = (b * EY + ey[j]) * kEZ + lane;
+        cp_async_elem(rbuf + e, ok ? r + g : r, ok);
+        cp_async_elem(dbuf + e, ok ? d + g : d, ok);
+      }
+    }
+    if (lane_in && zok && x2 >= x0 && x2 < xend) {
+#pragma unroll
+      for (int j = 0; j < R1; ++j) {
+        const int q = w + j * NW;
+        if (q < TY && y0 + q < N)
+          cp_async_elem(xbuf + (b * TY + q) * kEZ + lane,
+                        xsrc + (x2 * N + y0 + q) * N + gz, true);
+      }
+    }
+    if (w == NW - 1) {
+      // the rows of x1 and x2
+      T* xr = xrow + (int)((xn - xs) % 3) * 2 * XH;
+      for (int e = lane; e < 2 * XH; e += kEZ) {
+        const int k = e % XH;
+        int64_t row = e < XH ? x1 : x2;
+        const T* src;
+        if (k < R) {
+          src = kb + k * N;
+        } else if (k < 2 * R) {
+          src = mb + (k - R) * N;
+        } else if (k <= 2 * R + 2) {
+          src = k == 2 * R ? ks : k == 2 * R + 1 ? dk : dm;
+        } else {
+          continue;
+        }
+        const bool ok = row >= 0 && row < N;
+        cp_async_elem(xr + e, ok ? src + row : src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // The march, one block barrier a plane.  Iteration xin runs, on data
+  // the last iteration left behind the barrier: step two of d1 plane
+  // xin - 2 - P (y stage into ring 2, then r2, d2, x2 at x2 = xin - 2 - 2P);
+  // step one's z stage of input plane xin; step one's y stage of plane
+  // xin - 1 into ring 1, its x stage and epilogue at x1 = xin - 1 - P and
+  // step two's z stage of d1 plane x1.  The windows cycle through three
+  // buffers and the z products through two, so that no stage overwrites
+  // what a slower warp may still read.
+  load_plane(xs, 0);
+  for (int64_t xin = xs; xin <= xe + 1; ++xin) {
+    const int i = (int)(xin - xs), b = i & 1;
+    const T* xr1 = xrow + (i % 3) * 2 * XH;  // rows of x1 and x2
+    if (xin <= xe) {
+      load_plane(xin + 1, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
 
-  // ---- step two on the tile: z, y, x
-  T* A2 = buf0;
-  T* B2 = buf0 + (int64_t)EX * EY * TZ;
-  stage_z<T, P>(D1, EZ, A2, B2, EX * EY, TZ, z0, kb, mb, N);
-  __syncthreads();
-  T* MB2 = buf0 + 2 * (int64_t)EX * EY * TZ;
-  T* S2 = MB2 + (int64_t)EX * TY * TZ;
-  stage_y<T, P>(A2, B2, EY, MB2, S2, EX, TY, TZ, y0, kb, mb, N);
-  __syncthreads();
-  const bool last = mode == kCheb2L || mode == kChebD2L || mode == kF0L;
-  stage_x<T, P>(MB2, S2, TX, TY, TZ, x0, kb, mb, N,
-                [&](int lx, int ly, int lz, T raw) {
-    const int64_t gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
-    if (gx >= N || gy >= N || gz >= N) return;
-    const int64_t e = ((int64_t)(lx + P) * EY + ly + P) * EZ + lz + P;
-    const int64_t g = (gx * N + gy) * N + gz;
-    const T diag = diag_at(dk, dm, gx, gy, gz);
-    const T d1 = D1[e];
-    const T r2 = R1[e] - raw;
-    const T d2 = c0b * d1 + (c1b / diag) * r2;
-    T xv;
-    if (mode == kCheb2 || mode == kCheb2L) {
-      xv = x[g];
-    } else if (f0) {
-      xv = d[g] / (theta * diag);
-    } else {
-      xv = d[g];
+    // ---- step two of d1 plane x1 = xin - 2 - P
+    {
+      const int64_t x1 = xin - 2 - P, x2 = x1 - P;
+      if (lane_in && x1 >= x0 - P && x1 < xend + P) {
+        const T* zk = zb2 + (int)(x1 & 1) * 2 * EY * kEZ;
+        const bool out_x = x2 >= x0 && x2 < xend && zok;
+        Row<T, P> xr;
+        T dkx, dmx;
+        xr.load_smem(xr1 + XH, dkx, dmx);
+        const int s2 = (int)((x1 - x0 + P) % R);
+        // ring 2 and lag slots of plane x2 (x2 >= x0 - 2P; used for x2 >= x0)
+        const int base = (int)((x2 - x0 + R) % R);
+        const int ls = (int)((x2 - x0 + 3 * P + 2) % (P + 1));
+#pragma unroll
+        for (int j = 0; j < R1; ++j) {
+          const int q = w + j * NW;
+          if (q >= TY) continue;
+          T mbv, sv;
+          contract_y<T, P>(yr[j], zk + q * kEZ + lane,
+                           zk + (EY + q) * kEZ + lane, mbv, sv);
+          T* slot = ring2 + s2 * 2 * TY * kEZ + q * kEZ + lane;
+          slot[0] = mbv;
+          slot[TY * kEZ] = sv;
+          if (!out_x || y0 + q >= N) continue;
+          const T raw = contract_x<T, P>(xr, ring2 + q * kEZ + lane,
+                                         2 * TY * kEZ, TY * kEZ, base);
+          const T* lg = lag + ls * 2 * TY * kEZ + q * kEZ + lane;
+          const T r1 = lg[0], d1 = lg[TY * kEZ];
+          const int64_t g = (x2 * N + y0 + q) * N + gz;
+          const T diag = dkx * ay[j] + dmx * by[j];
+          const T r2 = r1 - raw;
+          const T d2 = c0b * d1 + (c1b / diag) * r2;
+          T xv = xbuf[(b * TY + q) * kEZ + lane];
+          const T x2v = xv + d1 + d2;
+          if (last) {
+            out0[g] = x2v;
+          } else {
+            out0[g] = r2;
+            out1[g] = d2;
+            out2[g] = x2v;
+          }
+        }
+      }
     }
-    const T x2 = xv + d1 + d2;
-    if (last) {
-      out0[g] = x2;
-    } else {
-      out0[g] = r2;
-      out1[g] = d2;
-      out2[g] = x2;
+
+    // ---- step one's z stage of input plane xin
+    if (xin < xe) {
+      const T* buf = win + (i % 3) * WY * WZ;
+      T* zo = zb1 + b * 2 * WY * kEZ;
+#pragma unroll
+      for (int k = 0; k < (WY + NW - 1) / NW; ++k) {
+        const int rw = w + k * NW;
+        if (rw >= WY) break;
+        T ak, am;
+        contract_km<T, P>(zr, buf + rw * WZ + lane, ak, am);
+        zo[rw * kEZ + lane] = ak;
+        zo[(WY + rw) * kEZ + lane] = am;
+      }
     }
-  });
+
+    // ---- step one's y stage of plane xin - 1, its x stage at x1
+    if (xin - 1 < xs || xin - 1 >= xe) continue;
+    const T* zi = zb1 + (b ^ 1) * 2 * WY * kEZ;
+    T* r1slot = ring1 + ((i - 1) % R) * 2 * EY * kEZ;
+#pragma unroll
+    for (int j = 0; j < R1; ++j) {
+      if (ey[j] < 0) continue;
+      T mbv, sv;
+      contract_y<T, P>(yr[j], zi + ey[j] * kEZ + lane,
+                       zi + (WY + ey[j]) * kEZ + lane, mbv, sv);
+      r1slot[ey[j] * kEZ + lane] = mbv;
+      r1slot[(EY + ey[j]) * kEZ + lane] = sv;
+    }
+    const int64_t x1 = xin - 1 - P;
+    if (x1 < x0 - P) continue;
+    // r1, d1 at plane x1 on the grown rows (zero off the grid)
+    const bool xok = x1 < N && x1 >= 0;
+    Row<T, P> xr;
+    T dkx, dmx;
+    xr.load_smem(xr1, dkx, dmx);
+    const int base = (int)((x1 - P - xs) % R);
+    const int lslot = (int)((x1 - x0 + P) % (P + 1));
+#pragma unroll
+    for (int j = 0; j < R1; ++j) {
+      if (ey[j] < 0) continue;
+      const int64_t gy = y0 - P + ey[j];
+      T r1 = T(0), d1 = T(0);
+      if (xok && gy >= 0 && gy < N && zok) {
+        const T raw = contract_x<T, P>(xr, ring1 + ey[j] * kEZ + lane,
+                                       2 * EY * kEZ, EY * kEZ, base);
+        const int e = (b * EY + ey[j]) * kEZ + lane;
+        const T diag = dkx * ay[j] + dmx * by[j];
+        const T rE = rbuf[e];
+        const T dE = dbuf[e];
+        r1 = rE - raw;
+        d1 = c0a * dE + (c1a / diag) * r1;
+      }
+      d1p[ey[j] * kEZ + lane] = d1;
+      const int q = w + j * NW;
+      if (q < TY && lane_in) {
+        T* lg = lag + lslot * 2 * TY * kEZ + q * kEZ + lane;
+        lg[0] = r1;
+        lg[TY * kEZ] = d1;
+      }
+    }
+    // step two's z stage of d1 plane x1 on the warp's own rows (the
+    // interior lanes; their taps are lanes of the same warp)
+    __syncwarp();
+    if (lane_in) {
+      T* zo = zb2 + (int)(x1 & 1) * 2 * EY * kEZ;
+#pragma unroll
+      for (int j = 0; j < R1; ++j) {
+        if (ey[j] < 0) continue;
+        T ak, am;
+        contract_km<T, P>(zr, d1p + ey[j] * kEZ + lane - P, ak, am);
+        zo[ey[j] * kEZ + lane] = ak;
+        zo[(EY + ey[j]) * kEZ + lane] = am;
+      }
+    }
+  }
+}
+
+// The cheb2f0 pre-pass: d0 = b / (theta diag) on the trimmed grid, one
+// block per (x, y) row, the threads along z.  An elementwise HBM pass
+// (8 B a point in f32); it takes the b / (theta diag) of every window point
+// out of the marching kernel, which would repeat it for each of the 3-4
+// windows that hold the point.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rhs_kernel(const T* __restrict__ b, T* __restrict__ d0,
+           const T* __restrict__ dk, const T* __restrict__ dm, T theta,
+           int N_) {
+  const int64_t N = N_, row = blockIdx.x, gx = row / N, gy = row % N;
+  for (int64_t gz = threadIdx.x; gz < N; gz += blockDim.x) {
+    const int64_t g = row * N + gz;
+    d0[g] = b[g] / (theta * diag_at(dk, dm, gx, gy, gz));
+  }
 }
 
 template <typename T, int P>
 int launch_p(const T* d, const T* r, const T* x, T* out0, T* out1, T* out2,
-             const T* kb, const T* mb, const T* dk, const T* dm, double c0a,
-             double c1a, double c0b, double c1b, double theta, int N,
-             int mode, int TX, int TY, int TZ, T* workspace, void* stream) {
-  size_t smem = 0;
-  if (!workspace) {
-    smem = (size_t)smem_elems(P, TX, TY, TZ, nullptr) * sizeof(T);
-    cudaError_t err = allow_smem((const void*)cheb2_kernel<T, P>, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)ceil_div(N, TZ), (unsigned)ceil_div(N, TY),
-                  (unsigned)ceil_div(N, TX));
-  cheb2_kernel<T, P><<<grid, kPairThreads, smem, (cudaStream_t)stream>>>(
-      d, r, x, out0, out1, out2, kb, mb, dk, dm, (T)c0a, (T)c1a, (T)c0b,
-      (T)c1b, (T)theta, N, mode, TX, TY, TZ, workspace);
+             const T* kb, const T* mb, const T* ks, const T* dk, const T* dm,
+             double c0a, double c1a, double c0b, double c1b, int N, int mode,
+             int LX, int TY, int NW, void* stream) {
+  constexpr int kTY = tile_ty<T, P>(), kNW = tile_warps<T, P>();
+  static_assert(kTY > 0, "no pair tile fits shared memory");
+  // the host's tile must be the one this instance was compiled for
+  if (TY != kTY || NW != kNW || LX < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)smem_elems(P, kTY) * sizeof(T);
+  cudaError_t err = allow_smem((const void*)cheb2_kernel<T, P>, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute((const void*)cheb2_kernel<T, P>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)ceil_div(N, kEZ - 2 * P), (unsigned)ceil_div(N, kTY),
+                  (unsigned)ceil_div(N, LX));
+  cheb2_kernel<T, P><<<grid, kPairThreads<T, P>, smem, (cudaStream_t)stream>>>(
+      d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, (T)c0a, (T)c1a, (T)c0b,
+      (T)c1b, N, mode, LX);
   return (int)cudaGetLastError();
 }
 
+// cheb2f0* is chebd2* on d = b / (theta diag) (the pre-pass, into
+// scratch) and r = b
 template <typename T>
 int launch(const T* d, const T* r, const T* x, T* out0, T* out1, T* out2,
-           const T* kb, const T* mb, const T* dk, const T* dm, double c0a,
-           double c1a, double c0b, double c1b, double theta, int N, int p,
-           int mode, int TX, int TY, int TZ, T* workspace, void* stream) {
+           const T* kb, const T* mb, const T* ks, const T* dk, const T* dm,
+           T* scratch, double c0a, double c1a, double c0b, double c1b,
+           double theta, int N, int p, int mode, int LX, int TY, int NW,
+           void* stream) {
+  if (mode < kCheb2 || mode > kF0L) return (int)cudaErrorInvalidValue;
+  if (mode == kF0 || mode == kF0L) {
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    rhs_kernel<T><<<(unsigned)((int64_t)N * N), kThreads, 0,
+                    (cudaStream_t)stream>>>(d, scratch, dk, dm, (T)theta, N);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    r = d;
+    d = scratch;
+    x = nullptr;
+    mode = mode == kF0 ? kChebD2 : kChebD2L;
+  }
   switch (p) {
 #define PMG_CASE(PP)                                                          \
   case PP:                                                                    \
-    return launch_p<T, PP>(d, r, x, out0, out1, out2, kb, mb, dk, dm, c0a,   \
-                           c1a, c0b, c1b, theta, N, mode, TX, TY, TZ,         \
-                           workspace, stream);
+    return launch_p<T, PP>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm,    \
+                           c0a, c1a, c0b, c1b, N, mode, LX, TY, NW, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -217,26 +570,30 @@ int launch(const T* d, const T* r, const T* x, T* out0, T* out1, T* out2,
 
 }  // namespace
 
+// (LX, TY, NW): LX output planes per block along x, TY interior rows of the
+// block's y-z column and NW warps (the compiled tile of cheb2_tile);
+// scratch: a trimmed field for the cheb2f0 modes' d0, else unused.
 extern "C" int pmg_cheb2_f32(const float* d, const float* r, const float* x,
                              float* out0, float* out1, float* out2,
-                             const float* kb, const float* mb, const float* dk,
-                             const float* dm, double c0a, double c1a,
-                             double c0b, double c1b, double theta, int N,
-                             int p, int mode, int TX, int TY, int TZ,
-                             float* workspace, void* stream) {
-  return launch<float>(d, r, x, out0, out1, out2, kb, mb, dk, dm, c0a, c1a,
-                       c0b, c1b, theta, N, p, mode, TX, TY, TZ, workspace,
+                             const float* kb, const float* mb, const float* ks,
+                             const float* dk, const float* dm, float* scratch,
+                             double c0a, double c1a, double c0b, double c1b,
+                             double theta, int N, int p, int mode, int LX,
+                             int TY, int NW, void* stream) {
+  return launch<float>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, scratch,
+                       c0a, c1a, c0b, c1b, theta, N, p, mode, LX, TY, NW,
                        stream);
 }
 
 extern "C" int pmg_cheb2_f64(const double* d, const double* r,
                              const double* x, double* out0, double* out1,
                              double* out2, const double* kb, const double* mb,
-                             const double* dk, const double* dm, double c0a,
+                             const double* ks, const double* dk,
+                             const double* dm, double* scratch, double c0a,
                              double c1a, double c0b, double c1b, double theta,
-                             int N, int p, int mode, int TX, int TY, int TZ,
-                             double* workspace, void* stream) {
-  return launch<double>(d, r, x, out0, out1, out2, kb, mb, dk, dm, c0a, c1a,
-                        c0b, c1b, theta, N, p, mode, TX, TY, TZ, workspace,
+                             int N, int p, int mode, int LX, int TY, int NW,
+                             void* stream) {
+  return launch<double>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, scratch,
+                        c0a, c1a, c0b, c1b, theta, N, p, mode, LX, TY, NW,
                         stream);
 }

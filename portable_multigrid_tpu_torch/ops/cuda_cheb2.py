@@ -11,8 +11,12 @@ trimmed state:
 Modes (:data:`MODES`): ``cheb2`` in (d, r, x) out (r2, d2, x2); ``cheb2l``
 out x2 only; ``chebd2``/``chebd2l`` take x == d; ``cheb2f0``/``cheb2f0l``
 start from the rhs b passed in the d slot (d0 = b / (theta diag), r0 = b,
-x0 = d0; theta is scal[4]).  The kernel shares the operator's band arrays
-and diagonal factors (:class:`~.cuda_laplace.CudaLaplaceOperator`).
+x0 = d0; theta is scal[4]); the kernel runs them as ``chebd2*`` on
+(d0, b), d0 written by its elementwise pre-pass into a scratch field.  The
+kernel shares the operator's band arrays, the row sums of K (it contracts
+K in difference form) and the diagonal factors
+(:class:`~.cuda_laplace.CudaLaplaceOperator`); the twin contracts the
+dense trimmed matrices directly.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from .. import _build
 from .cuda_laplace import (
     SMEM_LIMIT,
+    SMS,
     CudaLaplaceOperator,
     _check,
     _suffix,
@@ -33,26 +38,54 @@ from .cuda_laplace import (
 MODES = ("cheb2", "cheb2l", "chebd2", "chebd2l", "cheb2f0", "cheb2f0l")
 LAUNCHES = dict.fromkeys(MODES, 0)
 
-_TILES = ((8, 8, 32), (8, 8, 16), (8, 8, 8), (4, 4, 8))
-# tile of the global-workspace path (shapes whose windows fit no block)
-_WORKSPACE_TILE = (8, 8, 8)
+EZ = 32  # z extent of a block's grown column: one warp (kEZ in cheb2.cu)
+_TY = (16, 8, 6, 4, 2, 1)  # candidate interior rows of a block's column
 
 
-def cheb2_smem_elems(p: int, tx: int, ty: int, tz: int) -> int:
-    """Per-block buffer elements (mirrors smem_elems in cheb2.cu)."""
-    dx, dy, dz = tx + 4 * p, ty + 4 * p, tz + 4 * p
-    ex, ey, ez = tx + 2 * p, ty + 2 * p, tz + 2 * p
-    b0 = max(dx * dy * dz, 2 * dx * ey * ez, 2 * ex * ey * tz + 2 * ex * ty * tz)
-    return b0 + max(2 * dx * dy * ez, 2 * ex * ey * ez)
+def cheb2_smem_elems(p: int, ty: int) -> int:
+    """Shared-memory elements of one block (mirrors smem_elems in
+    cheb2.cu): three d windows, two sets of step one's z products, ring 1
+    of 2p+1 planes on the grown column, the d1 plane, two sets of step
+    two's z products, ring 2 of 2p+1 planes and the lag ring of p+1
+    (r1, d1) planes on the interior; the epilogues' inputs loaded a plane
+    ahead (r and d on the grown column, x on the interior, twice each;
+    three sets of the two x rows of 2(2p+1) + 3 values, padded to a
+    multiple of four)."""
+    R, wy, wz, ey = 2 * p + 1, ty + 4 * p, EZ + 2 * p, ty + 2 * p
+    xrow = -(-(2 * R + 3) // 4) * 4  # 16-byte aligned in float32
+    return (3 * wy * wz + 4 * wy * EZ + R * 2 * ey * EZ + ey * EZ
+            + 4 * ey * EZ + R * 2 * ty * EZ + (p + 1) * 2 * ty * EZ
+            + 4 * ey * EZ + 2 * ty * EZ + 3 * 2 * xrow)
 
 
-def cheb2_tile(p: int, itemsize: int) -> tuple[tuple[int, int, int], bool]:
-    """(tile, in_shared_memory): the largest candidate whose buffers fit a
-    block's shared memory, else the workspace tile."""
-    for tile in _TILES:
-        if cheb2_smem_elems(p, *tile) * itemsize <= SMEM_LIMIT:
-            return tile, True
-    return _WORKSPACE_TILE, False
+def cheb2_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
+    """(LX, TY, NW) of the launch for an N^3 grid, as cheb2.cu's tile_ty /
+    tile_warps compile it.
+
+    TY: the largest candidate whose TY + 2p grown rows the block's warps
+    own two each and whose buffers fit one block; NW = ceil((TY + 2p) / 2)
+    warps.  One block per SM: at p = 4 in float32 one block over TY = 16
+    beat two blocks of 8 warps over TY = 8 by 15% on an H100 80GB HBM3 at
+    700 W (less y overgrowth for as many warps).  LX: a block marches LX + 4p
+    planes one after the other, and the grid runs in waves of one block
+    per SM, so N is cut into k chunks of LX = ceil(N / k) planes, the k
+    that minimises waves x (LX + 4p), ties to the larger chunk."""
+    # two grown rows for each of at most 12 warps in float32 (168 registers
+    # a thread; at 16 warps, 128 registers, p = 3 and 5 spilled) and 8 in
+    # float64 (255 registers): max_warps in cheb2.cu
+    limit = 2 * (12 if itemsize == 4 else 8)
+    ty = next((t for t in _TY if t + 2 * p <= limit
+               and cheb2_smem_elems(p, t) * itemsize <= SMEM_LIMIT), None)
+    if ty is None:
+        raise ValueError(f"no pair tile fits shared memory at p={p}")
+    columns = -(-N // (EZ - 2 * p)) * -(-N // ty)
+
+    def cost(lx):
+        return -(-columns * -(-N // lx) // SMS) * (lx + 4 * p)
+
+    chunks = {-(-N // k) for k in range(1, max(N // 2, 1) + 1)}
+    return (min(chunks, key=lambda lx: (cost(lx), -lx)), ty,
+            (ty + 2 * p + 1) // 2)
 
 
 @dataclasses.dataclass
@@ -60,8 +93,7 @@ class Cheb2Kernel:
     """Two-step fused recurrence on the operator ``op``'s level."""
 
     op: CudaLaplaceOperator
-    tile: tuple
-    in_smem: bool
+    tile: tuple  # (LX, TY, NW) of cheb2_tile
 
     def steps2(self, d, r, x, scal, mode: str = "cheb2"):
         """One pass of ``mode``; returns (r2, d2, x2) or (x2,) for "l" modes."""
@@ -90,21 +122,15 @@ class Cheb2Kernel:
         last = mode.endswith("l")
         outs = [torch.empty_like(d) for _ in range(1 if last else 3)]
         optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
-        N = op.n * op.degree
-        workspace = None
-        if not self.in_smem:
-            nblocks = 1
-            for t in self.tile:
-                nblocks *= -(-N // t)
-            workspace = torch.empty(
-                nblocks * cheb2_smem_elems(op.degree, *self.tile),
-                dtype=d.dtype, device=d.device)
         sc = [float(s) for s in scal] + [0.0] * (5 - len(scal))
+        # cheb2f0*: the kernel's pre-pass writes d0 = b / (theta diag) here
+        scratch = torch.empty_like(d) if r is None else None
         err = fn(d.data_ptr(), None if r is None else r.data_ptr(),
                  None if x is None else x.data_ptr(), *optrs,
-                 op.kband.data_ptr(), op.mband.data_ptr(), op.dK1.data_ptr(),
-                 op.dM1.data_ptr(), *sc, N, op.degree, MODES.index(mode),
-                 *self.tile, None if workspace is None else workspace.data_ptr(),
+                 op.kband.data_ptr(), op.mband.data_ptr(), op.ksum.data_ptr(),
+                 op.dK1.data_ptr(), op.dM1.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), *sc,
+                 op.n * op.degree, op.degree, MODES.index(mode), *self.tile,
                  _build.stream_handle(d.device))
         if err:
             raise RuntimeError(f"cheb2 kernel ({mode}) launch failed: "
@@ -138,5 +164,5 @@ def make_cheb2(op: CudaLaplaceOperator) -> Cheb2Kernel:
         # as in the JAX package (pallas_cheb2.py:59-69)
         raise ValueError("the pair kernel B.2 is 3D only")
     itemsize = torch.empty((), dtype=op.dtype).element_size()
-    tile, in_smem = cheb2_tile(op.degree, itemsize)
-    return Cheb2Kernel(op=op, tile=tile, in_smem=in_smem)
+    return Cheb2Kernel(op=op,
+                       tile=cheb2_tile(op.degree, itemsize, op.n * op.degree))

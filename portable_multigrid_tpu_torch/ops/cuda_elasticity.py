@@ -34,7 +34,9 @@ from ..fem.space import FESpace
 from .cuda_laplace import (
     MODES,
     SMEM_LIMIT,
+    SMS,
     CudaLaplaceOperator,
+    row_sums,
     to_bands,
     twin_epilogue,
 )
@@ -54,7 +56,6 @@ TZ = 32  # z extent of a block's column: one warp (kTZ in elasticity.cu)
 _TY = (8, 4, 2, 1)  # candidate y extents; a block is 32 TY threads
 _LX = (64, 48, 32, 16, 8, 4, 2)  # candidate x chunks (output planes a block)
 _GROUPS = 12  # (output, x matrix) groups in the ring
-SMS = 132  # streaming multiprocessors of the H100 SXM
 
 
 def elasticity_smem_elems(p: int, ty: int) -> int:
@@ -92,14 +93,6 @@ def elasticity_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
     return min(_LX, key=lambda lx: (cost(lx), -lx)), ty, TZ
 
 
-def row_sums(W1: np.ndarray, m1: np.ndarray) -> np.ndarray:
-    """Row sums of the trimmed mask-folded (m W1 m)[:-1, :-1], from the
-    entries the mask removes: the free rows of the assembled K, G and G^T
-    sum to zero, so free row i sums to -sum_j W1[i, j] (1 - m_j), with no
-    cancellation (constrained rows are zero)."""
-    return (-m1 * (W1 @ (1.0 - m1)))[:-1]
-
-
 @dataclasses.dataclass
 class CudaElasticityOperator(CudaLaplaceOperator):
     """3D Q_p elasticity operator for the kernel path, on one device: the
@@ -110,7 +103,6 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     lam: float = 1.0
     gband: torch.Tensor = None  # [2p+1, N-1] bands of the trimmed folded G
     hband: torch.Tensor = None  # [2p+1, N-1] bands of its transpose
-    ksum: torch.Tensor = None  # [N-1] row sums of the trimmed folded K
     gsum: torch.Tensor = None  # ... of G
     hsum: torch.Tensor = None  # ... of G^T
     Gt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded G (twin)

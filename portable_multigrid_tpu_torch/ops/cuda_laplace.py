@@ -44,6 +44,7 @@ _N_IN = {"apply": 0, "residual1t": 1, "residual3t": 1, "cheb": 2, "chebl": 2,
 LAUNCHES = dict.fromkeys(MODES, 0)
 
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
+SMS = 132  # streaming multiprocessors of the H100 SXM
 _TILES = ((8, 8, 32), (8, 8, 16), (4, 4, 16))
 
 
@@ -113,6 +114,9 @@ class CudaLaplaceOperator:
     dim: int = 3
     Kt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded K (3D twin)
     Mt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded M (3D twin)
+    # [N-1] row sums of the trimmed mask-folded K, for the kernels that
+    # contract K in difference form (B.2, B.4)
+    ksum: torch.Tensor = None
     kernel: ClassVar[str] = "pmg_laplace"  # C entry point (without dtype)
     launches: ClassVar[dict] = LAUNCHES
     # B.2 runs two Chebyshev steps of this operator per pass (3D Laplace
@@ -202,7 +206,7 @@ class CudaLaplaceOperator:
         return laplace_tile(p, itemsize)
 
     @staticmethod
-    def twin_state(t, m1, K1, Kt, Mt) -> dict:
+    def twin_state(t, Kt, Mt) -> dict:
         """The fields the twin needs beyond the bands: the dense trimmed
         mask-folded 1D matrices."""
         return dict(Kt=t(Kt), Mt=t(Mt))
@@ -285,6 +289,14 @@ def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal):
     return tuple(outs)
 
 
+def row_sums(W1: np.ndarray, m1: np.ndarray) -> np.ndarray:
+    """Row sums of the trimmed mask-folded (m W1 m)[:-1, :-1], from the
+    entries the mask removes: the free rows of the assembled K, G and G^T
+    sum to zero, so free row i sums to -sum_j W1[i, j] (1 - m_j), with no
+    cancellation (constrained rows are zero)."""
+    return (-m1 * (W1 @ (1.0 - m1)))[:-1]
+
+
 def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
                               dtype=torch.float32, device="cpu",
                               cls=CudaLaplaceOperator) -> CudaLaplaceOperator:
@@ -311,7 +323,8 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
         kband=t(to_bands(Kt, degree)),
         mband=t(to_bands(Mt, degree)),
         tile=cls.pick_tile(degree, itemsize),
-        **cls.twin_state(t, m1, K1, Kt, Mt),
+        ksum=t(row_sums(K1, m1)),
+        **cls.twin_state(t, Kt, Mt),
     )
 
 

@@ -109,7 +109,6 @@ class CudaLaplace2D(CudaLaplaceOperator):
     surface of the 3D operator, with ``tile`` = (TX, TY)."""
 
     dim: int = 2
-    ksum: torch.Tensor = None  # [N-1] row sums of the trimmed mask-folded K
     kernel: ClassVar[str] = "pmg_laplace2d"
     launches: ClassVar[dict] = LAUNCHES
     pair_kernel: ClassVar[bool] = False
@@ -127,11 +126,9 @@ class CudaLaplace2D(CudaLaplaceOperator):
         return laplace2d_tile(p, itemsize)
 
     @staticmethod
-    def twin_state(t, m1, K1, Kt, Mt) -> dict:
-        """The stiffness row sums, from the entries the mask removes: the
-        rows of K1 sum to zero, so row i of M K M sums to
-        -m_i sum_j K1[i, j] (1 - m_j), with no cancellation."""
-        return dict(ksum=t((-m1 * (K1 @ (1.0 - m1)))[:-1]))
+    def twin_state(t, Kt, Mt) -> dict:
+        """The twin contracts the bands and ``ksum`` (difference form)."""
+        return {}
 
     def kernel_state(self) -> tuple:
         return self.kband, self.ksum, self.mband, self.dK1, self.dM1

@@ -1,16 +1,17 @@
 """Geometric-multigrid driver of the port (the reference's first program).
 
-3D Poisson on the unit cube, f ≡ 1, homogeneous Dirichlet everywhere,
-h-multigrid V(2,2) with Chebyshev(5) smoothing, CG to rtol * ||b||.  Sweeps
-fe_degree = 1..max_degree and refinement cycles, printing DoF counts, CG
+dim-D Poisson on the unit hyper-cube (3D by default), f ≡ 1, homogeneous
+Dirichlet everywhere, h-multigrid V(2,2) with Chebyshev(5) smoothing, CG to
+rtol * ||b||.  Sweeps fe_degree = 1..max_degree and refinement cycles
+(9 - dim by default), printing DoF counts, CG
 iteration counts and solution L2 norms in the format of the JAX driver
 (programs/geometric_multigrid.py) and the reference (reference:
 source/geometric_multigrid/program.cc:189-199,354-355,395).
 
 Usage:
   python -m portable_multigrid_tpu_torch.programs.geometric_multigrid
-         [--max-degree 7] [--cycles N] [--variant auto|kron] [--f32]
-         [--rtol R] [--device cuda]
+         [--dim 3] [--max-degree 7] [--cycles N] [--variant auto|kron]
+         [--f32] [--rtol R] [--device cuda]
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ import argparse
 import time
 
 
-def main(argv=None):
+def main(argv=None) -> list:
+    """Run the sweep; returns the SolveStats of every solve, in order."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dim", type=int, default=3)
     ap.add_argument("--max-degree", type=int, default=7)
     ap.add_argument("--cycles", type=int, default=None,
-                    help="refinement cycles (default 6, as the reference in 3D)")
+                    help="refinement cycles (default: 9 - dim, as the reference)")
     ap.add_argument("--variant", default="auto", choices=["auto", "kron"],
                     help="auto: the CUDA kernels (their plain twins on CPU); "
                          "kron: the plain Kronecker operator")
@@ -44,21 +47,24 @@ def main(argv=None):
     device = require_device(args.device)
     dtype = torch.float32 if args.f32 else torch.float64
     rtol = args.rtol if args.rtol is not None else (1e-5 if args.f32 else 1e-12)
-    cycles = args.cycles if args.cycles is not None else 6
+    cycles = args.cycles if args.cycles is not None else 9 - args.dim
 
+    stats = []
     for degree in range(1, args.max_degree + 1):
         print(f"============== fe_degree = {degree} ============== \n")
         for cycle in range(cycles):
             print(f"\nCycle {cycle}")
-            refinements = cycle + 1
+            # a 2D mesh starts one refinement finer, as in the JAX driver
+            refinements = (3 - args.dim if args.dim < 3 else 0) + cycle + 1
             t0 = time.time()
             prob = GeometricMultigridPoisson(
-                3, degree, refinements, dtype=dtype,
+                args.dim, degree, refinements, dtype=dtype,
                 variant=args.variant, device=device,
             )
-            prob.solve(rtol=rtol, verbose=True)
+            stats.append(prob.solve(rtol=rtol, verbose=True)[1])
             print(f"  (wall: {time.time() - t0:.2f}s)")
             print()
+    return stats
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ Bounds follow deal.II's published rules (beta = 1.2 lambda_max; alpha =
 lambda_max / range if range > 1 else min(0.9 lambda_max, lambda_min);
 adaptive degree from the Chebyshev error bound).  The eigenvalue estimate
 runs Jacobi-preconditioned CG from the same seeded start vector as the JAX
-package (``numpy.random.default_rng(42)``), so both packages estimate the
+package (``numpy.random.default_rng(42)`` on the host; above 2^25 grid
+points ``jax.random.uniform(PRNGKey(42), ...)`` on the device, which
+:func:`jax_uniform` reproduces bit for bit), so both packages estimate the
 same extremes.
 
 Recurrence scalars are computed in the working dtype with NumPy scalars,
@@ -172,9 +174,60 @@ class FusedChebyshev:
         return r0
 
 
+# Above this many grid points the start vector is drawn on the operator's
+# device, as the JAX package draws it there (its solvers/chebyshev.py:676)
+DEVICE_DRAW_POINTS = 2 ** 25
+_U32 = 0xFFFFFFFF
+_DRAW_CHUNK = 2 ** 24  # values a device draw computes at once
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
 def _pseudo_random_grid(shape) -> np.ndarray:
     rng = np.random.default_rng(42)
     return rng.uniform(-0.5, 0.5, size=shape).astype(np.float64)
+
+
+def threefry2x32(k1: int, k2: int, x0: torch.Tensor,
+                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash (20 rounds, JAX's ``threefry2x32_p``) of the
+    count pairs (x0, x1) under the key (k1, k2).  uint32 values are held in
+    int64 tensors and masked to 32 bits after each addition and shift
+    (CUDA has no uint32 shifts in torch)."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _U32
+    x1 = (x1 + ks[1]) & _U32
+    for i in range(5):
+        for rot in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = (((x1 << rot) | (x1 >> (32 - rot))) & _U32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _U32
+    return x0, x1
+
+
+def jax_uniform(shape, dtype, device) -> torch.Tensor:
+    """``jax.random.uniform(jax.random.PRNGKey(42), shape, dtype, -0.5,
+    0.5)`` bit for bit, drawn on ``device`` in chunks of ``_DRAW_CHUNK``
+    values.  It follows JAX's partitionable threefry (the default since
+    JAX 0.5): the flat index i of each value is the count pair (i >> 32,
+    i & 0xFFFFFFFF) under the key (0, 42); its two hash words are xor-ed
+    into 32 random bits (float32) or joined into 64 (float64); the top
+    mantissa bits of those make a float in [1, 2), less 1, scaled to
+    [-0.5, 0.5) (an exact shift: the span is 1)."""
+    n = int(np.prod(shape))
+    out = torch.empty(n, dtype=dtype, device=device)
+    for start in range(0, n, _DRAW_CHUNK):
+        i = torch.arange(start, min(n, start + _DRAW_CHUNK),
+                         dtype=torch.int64, device=device)
+        b1, b2 = threefry2x32(0, 42, i >> 32, i & _U32)
+        if dtype == torch.float32:
+            f = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32).view(dtype)
+        elif dtype == torch.float64:
+            f = ((b1 << 20) | (b2 >> 12) | 0x3FF0000000000000).view(dtype)
+        else:
+            raise ValueError(f"uniform draws float32 or float64, not {dtype}")
+        out[start:start + len(i)] = torch.clamp_min((f - 1.0) - 0.5, -0.5)
+    return out.reshape(shape)
 
 
 def _host_free_mask(op) -> np.ndarray:
@@ -183,6 +236,17 @@ def _host_free_mask(op) -> np.ndarray:
     m = m1[0].detach().cpu().numpy().astype(np.float64)
     for f in m1[1:]:
         m = np.multiply.outer(m, f.detach().cpu().numpy().astype(np.float64))
+    return m
+
+
+def _device_free_mask(op) -> torch.Tensor:
+    """The free-DoF grid mask on the operator's device, in its dtype, from
+    its 1D factors (a product over the spatial axes, which trail any
+    component axis)."""
+    m1 = op.mask1 if isinstance(op.mask1, tuple) else (op.mask1,) * op.dim
+    m = m1[0]
+    for f in m1[1:]:
+        m = m[..., None] * f
     return m
 
 
@@ -288,10 +352,14 @@ def make_chebyshev(
     :class:`FusedChebyshev` on trimmed state, with ``cheb2`` its optional
     pair kernel."""
     # one draw over the whole field, components included, times the grid
-    # mask broadcast over them — the JAX package's start vector
+    # mask broadcast over them — the JAX package's start vector: NumPy's on
+    # the host, or above DEVICE_DRAW_POINTS jax.random's on the device
     shape = op.shape
-    v0 = _pseudo_random_grid(shape) * _host_free_mask(op)
-    v0 = torch.as_tensor(v0, dtype=op.dtype, device=op.device)
+    if int(np.prod(shape)) > DEVICE_DRAW_POINTS:
+        v0 = jax_uniform(shape, op.dtype, op.device) * _device_free_mask(op)
+    else:
+        v0 = _pseudo_random_grid(shape) * _host_free_mask(op)
+        v0 = torch.as_tensor(v0, dtype=op.dtype, device=op.device)
     n_iter = max(1, min(int(eig_cg_n_iterations), int(np.prod(shape)),
                         int(eig_max_iters)))
     min_eig, max_eig = estimate_eigenvalues(op, n_iter, v0)
