@@ -1,6 +1,11 @@
 """Drive the PyTorch / CUDA port once on an NVIDIA card, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --main-path   # phases 1, 4 and 5 alone
+
+``--main-path`` builds the kernels, then solves and times the main path
+alone (for A/B runs of kernel variants, each from its own tree, in one
+call); it prints no result line.
 
 Phases (each raises on failure; nothing is allowed to fall back to the CPU):
 
@@ -11,7 +16,8 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
   2. kernel vs twin — every mode of every kernel against its plain torch
      twin on the card, in float32 and float64: the 3D kernels (B.1-B.3) at
      p = 1..7, r = 2 and at every level shape of the Q4 r = 6 main path
-     (p = 4, r = 1..6: trimmed 8^3 to 256^3); the 2D kernel (B.4) at
+     (p = 4, r = 1..6: trimmed 8^3 to 256^3, and B.1 on the 1-cell
+     level's 4^3, r = 0); the 2D kernel (B.4) at
      p = 1..7, r = 2 and 3 (partial tiles) and at the Q7 r = 9 fine-level
      shape (3584^2); bound 1e-5 (f32) / 1e-12 (f64) on the max error
      relative to the twin's max magnitude;
@@ -20,7 +26,7 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      through the kernels: CG counts exact, L2 norms to 1e-10;
   4. main path — GeometricMultigridPoisson(3, 4, 6, float32, "auto") on the
      card, solved to rtol 1e-5: converged in <= 4 iterations, L2 norm within
-     1e-4 of 0.0249871331, every tensor on the card, and the launch count of
+     1e-5 of 0.0249871331, every tensor on the card, and the launch count of
      each of its kernels (B.1, B.2, B.3) raised by that run;
   5. timing of the main path — CUDA events, warm-up then the median of 10
      runs: the V-cycle with B.2 pairs and with B.1 single steps in their
@@ -28,7 +34,8 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      turns, its split by level and the profiler's device-busy share and
      kernel split, the whole solve, and each 3D kernel mode against its
      twin at r = 6, beside its bound (the larger of its bytes over the HBM
-     rate and its FMAs over the FP32 rate), each B.2 mode beside two B.1
+     rate and its FMAs over the FP32 rate; B.1's modes summed up on one
+     line with their roofline shares), each B.2 mode beside two B.1
      ``cheb`` passes (the work one pair replaces) and, for B.3, beside one
      PyTorch call that computes the same function (``library_ms``: an
      einsum over the three axes, ``add_`` for ``prolongate_and_add``);
@@ -101,6 +108,10 @@ from portable_multigrid_tpu_torch.solvers.cg import cg
 from portable_multigrid_tpu_torch.solvers.vcycle import VCycle
 
 GOLDEN_L2_Q4_R6 = 0.0249871331
+# bound on the float32 main path's L2 norm against the golden one: B.1, the
+# CG operator, contracts K in difference form (csrc/laplace.cu); the TPU
+# kernel's direct sum left it 6.6e-5 off
+F32_L2_BOUND_3D = 1e-5
 # the mesh-converged 2D L2 norm, on which the three polynomial_2d golden
 # rows agree to 1e-10
 MESH_L2_2D = 0.0412614897
@@ -273,23 +284,23 @@ def level_cases(path, p, r, dtype, device, seed=0):
         for case in laplace_cases(op, rng, dtype, device):
             yield ("laplace2d",) + case
         return
-    tr = cuda_transfer.make_cuda_h_transfer(space(p, r - 1), space(p, r),
-                                            dtype, device)
     if path == "elasticity":
         op = cuda_elasticity.make_cuda_elasticity(space(p, r), dtype, *MU_LAM,
                                                   device)
-        for case in laplace_cases(op, rng, dtype, device):
-            yield ("elasticity",) + case
-        for case in transfer_cases(tr, p, r, rng, dtype, device, lead=(3,)):
-            yield ("transfer",) + case
-        return
-    op = cuda_laplace.make_cuda_laplace(space(p, r), dtype, device)
-    kern = cuda_cheb2.make_cheb2(op)
+        name, lead = "elasticity", (3,)
+    else:
+        op = cuda_laplace.make_cuda_laplace(space(p, r), dtype, device)
+        name, lead = "laplace", ()
     for case in laplace_cases(op, rng, dtype, device):
-        yield ("laplace",) + case
-    for case in cheb2_cases(kern, rng, dtype, device):
-        yield ("cheb2",) + case
-    for case in transfer_cases(tr, p, r, rng, dtype, device):
+        yield (name,) + case
+    if r == 0:
+        return  # the 1-cell level has no transfer and no pair kernel
+    tr = cuda_transfer.make_cuda_h_transfer(space(p, r - 1), space(p, r),
+                                            dtype, device)
+    if path == "3d":
+        for case in cheb2_cases(cuda_cheb2.make_cheb2(op), rng, dtype, device):
+            yield ("cheb2",) + case
+    for case in transfer_cases(tr, p, r, rng, dtype, device, lead=lead):
         yield ("transfer",) + case
 
 
@@ -466,11 +477,13 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
     log(f"  setup {t_setup:.2f} s; launches per mode: {per_mode}")
     l2_rel = abs(st.solution_l2_norm / l2_ref - 1.0)
     log(f"  CG iterations {st.iterations}, residual {st.residual_norm:.3e}, "
-        f"L2 {st.solution_l2_norm:.10f} (rel diff {l2_rel:.2e})")
+        f"L2 {st.solution_l2_norm:.10f}, "
+        f"{st.solution_l2_norm - l2_ref:+.3e} from the golden {l2_ref} "
+        f"(rel diff {l2_rel:.2e})")
     if not (st.converged and st.iterations <= max_iterations):
         raise RuntimeError(f"main path: converged={st.converged} in "
                            f"{st.iterations} iterations")
-    if l2_rel > 1e-4:
+    if l2_rel > F32_L2_BOUND_3D:
         raise RuntimeError(f"main path L2 norm off by {l2_rel:.2e}")
     check_on_card(prob, x, device, per_mode, "main path")
     log("phase 4: ok")
@@ -510,6 +523,10 @@ def phase_timing(card: str, prob, st, device) -> dict:
     t_two = two_single_steps_ms(p, r, device)
     log(f"  two B.1 cheb passes (the work of one B.2 pair): {t_two:.3f} ms")
     times = time_modes("3d", p, r, device)
+    log(f"  B.1 at {2 ** r * p}^3: " + ", ".join(
+        f"{mode} {t['ms']:.3f} ms (bound {t['bound_ms']:.4f}, "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}%)"
+        for (name, mode), t in times.items() if name == "laplace"))
     for (name, mode), t in times.items():
         if name == "cheb2":
             log(f"  cheb2 {mode:9s} {t['ms']:.3f} ms vs two B.1 passes "
@@ -826,17 +843,23 @@ def phase_elasticity_timing(card: str, prob, st, device) -> dict:
     return {k: v for k, v in times.items() if k[0] == "elasticity"}
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--main-path"]):
+        raise SystemExit(f"unknown arguments {argv}; see the module docstring")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     device = torch.device("cuda", 0)
     exact_matmuls()
     t_start = time.perf_counter()
     card = phase_build()
+    if argv:
+        prob, st, _ = phase_main(device, 6, GOLDEN_L2_Q4_R6, 4)
+        phase_timing(card, prob, st, device)
+        return 0
     dtypes = (torch.float32, torch.float64)
     shapes = [("3d", p, 2, dt) for dt in dtypes for p in range(1, 8)]
-    # every level shape of the main path's kernel levels, 8^3 to 256^3
-    shapes += [("3d", 4, r, dt) for dt in dtypes for r in (1, 3, 4, 5, 6)]
+    # every level shape of the main path's kernel levels, 4^3 to 256^3
+    shapes += [("3d", 4, r, dt) for dt in dtypes for r in (0, 1, 3, 4, 5, 6)]
     shapes += [("2d", p, r, dt) for dt in dtypes for r in (2, 3)
                for p in range(1, 8)]
     shapes += [("2d", 7, 9, dt) for dt in dtypes]
@@ -883,4 +906,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

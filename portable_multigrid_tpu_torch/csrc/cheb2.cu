@@ -33,7 +33,7 @@
 //      x1 below, x at the x2, the x rows of K, M and the diagonal);
 //   2. step one's z stage (K, M along z) and y stage give the two y-z
 //      products the x stage needs (My Mz d and Ky Mz d + My Kz d, the split
-//      of common.cuh) on the grown column, into ring 1 (2p+1 planes);
+//      of march.cuh) on the grown column, into ring 1 (2p+1 planes);
 //   3. once x_in is in ring 1, the x contraction gives r1 and d1 at plane
 //      x1 = x_in - p on the grown column; d1 goes to a plane buffer, and the
 //      interior r1, d1 into a lag ring of p+1 planes;
@@ -57,23 +57,14 @@
 // shared memory in both types.  One block per SM: in f32 at p = 4 a block
 // of 12 warps over TY = 16 beat two blocks of 8 warps over TY = 8 (less
 // overgrowth, the same warps).
-#include "common.cuh"
+#include "march.cuh"
 
 using namespace pmg;
 
 namespace {
 
-constexpr int kEZ = 32;  // z extent of the grown column: one warp
-constexpr int64_t kSmemLimit = 227 * 1024;  // one block
-
 enum Mode { kCheb2 = 0, kCheb2L = 1, kChebD2 = 2, kChebD2L = 3, kF0 = 4,
             kF0L = 5 };
-
-// elements of an x row in shared memory: K and M (2p+1 each), K's row sum,
-// dK and dM, rounded up to 16 bytes of float
-__host__ __device__ constexpr int xrow_elems(int p) {
-  return (4 * p + 5 + 3) / 4 * 4;
-}
 
 // shared-memory elements of a block with TY interior rows; must match
 // cheb2_smem_elems() in ops/cuda_cheb2.py.  Layout: three d windows
@@ -91,13 +82,6 @@ __host__ __device__ constexpr int64_t smem_elems(int p, int ty) {
          4 * EY * kEZ + 2 * ty * kEZ + 3 * 2 * xrow_elems(p);
 }
 
-// warps a block may have: 12 in float (168 registers a thread), 8 in
-// double (255 registers)
-template <typename T>
-__host__ __device__ constexpr int max_warps() {
-  return sizeof(T) == 4 ? 12 : 8;
-}
-
 // TY: the largest candidate whose TY + 2p grown rows the warps can own,
 // two each, and whose buffers fit the block (one block per SM)
 template <typename T, int P>
@@ -105,7 +89,7 @@ __host__ __device__ constexpr int tile_ty() {
   const int cand[6] = {16, 8, 6, 4, 2, 1};
   for (int k = 0; k < 6; ++k) {
     const int ty = cand[k];
-    if (ty + 2 * P <= 2 * max_warps<T>() &&
+    if (ty + 2 * P <= 2 * march_warps<T>() &&
         smem_elems(P, ty) * (int64_t)sizeof(T) <= kSmemLimit)
       return ty;
   }
@@ -116,115 +100,6 @@ __host__ __device__ constexpr int tile_ty() {
 template <typename T, int P>
 __host__ __device__ constexpr int tile_warps() {
   return (tile_ty<T, P>() + 2 * P + 1) / 2;
-}
-
-// The coefficients of one row of K and M and K's row sum (zeros for a row
-// outside [0, N), which makes its outputs zero).
-template <typename T, int P>
-struct Row {
-  T k[2 * P + 1], m[2 * P + 1], s;
-
-  __device__ __forceinline__ void load(const T* __restrict__ kb,
-                                       const T* __restrict__ mb,
-                                       const T* __restrict__ ks, int64_t N,
-                                       int64_t row) {
-    const bool in = row >= 0 && row < N;
-#pragma unroll
-    for (int o = 0; o <= 2 * P; ++o) {
-      k[o] = in ? kb[o * N + row] : T(0);
-      m[o] = in ? mb[o * N + row] : T(0);
-    }
-    s = in ? ks[row] : T(0);
-  }
-
-  // The row and the diagonal factors dK, dM from an x row in shared
-  // memory (k, m, s, dK, dM in order; 16-byte aligned), in broadcast
-  // 16-byte loads.
-  __device__ __forceinline__ void load_smem(const T* src, T& dk, T& dm) {
-    constexpr int V = 16 / sizeof(T);
-#pragma unroll
-    for (int q = 0; q < (4 * P + 5 + V - 1) / V; ++q) {
-      T v[V];
-      if constexpr (V == 4) {
-        const float4 t = reinterpret_cast<const float4*>(src)[q];
-        v[0] = t.x;
-        v[1] = t.y;
-        v[2] = t.z;
-        v[3] = t.w;
-      } else {
-        const double2 t = reinterpret_cast<const double2*>(src)[q];
-        v[0] = t.x;
-        v[1] = t.y;
-      }
-#pragma unroll
-      for (int u = 0; u < V; ++u) {
-        const int e = q * V + u;
-        if (e <= 2 * P) {
-          k[e] = v[u];
-        } else if (e <= 4 * P + 1) {
-          m[e - 2 * P - 1] = v[u];
-        } else if (e == 4 * P + 2) {
-          s = v[u];
-        } else if (e == 4 * P + 3) {
-          dk = v[u];
-        } else if (e == 4 * P + 4) {
-          dm = v[u];
-        }
-      }
-    }
-  }
-};
-
-// K and M of a row along z, u[o] the 2P+1 taps.
-template <typename T, int P>
-__device__ __forceinline__ void contract_km(const Row<T, P>& w, const T* u,
-                                            T& ak, T& am) {
-  const T uc = u[P];
-  ak = w.s * uc;
-  am = T(0);
-#pragma unroll
-  for (int o = 0; o <= 2 * P; ++o) {
-    const T v = u[o];
-    ak += w.k[o] * (v - uc);
-    am += w.m[o] * v;
-  }
-}
-
-// The y stage at one point: za / zm the K / M z products at the 2P+1 taps
-// (stride 32); MB = My (Mz u), S = Ky (Mz u) + My (Kz u).
-template <typename T, int P>
-__device__ __forceinline__ void contract_y(const Row<T, P>& w, const T* za,
-                                           const T* zm, T& mb, T& s) {
-  const T bc = zm[P * kEZ];
-  mb = T(0);
-  s = w.s * bc;
-#pragma unroll
-  for (int o = 0; o <= 2 * P; ++o) {
-    const T bv = zm[o * kEZ];
-    mb += w.m[o] * bv;
-    s += w.k[o] * (bv - bc) + w.m[o] * za[o * kEZ];
-  }
-}
-
-// The x stage from a ring of 2P+1 planes of (MB, S) pairs: planes
-// x - P + o in slots (base + o) % R, the pair's S `half` elements after
-// its MB; raw = Kx MB + Mx S.
-template <typename T, int P>
-__device__ __forceinline__ T contract_x(const Row<T, P>& w, const T* ring,
-                                        int slot_elems, int half, int base) {
-  constexpr int R = 2 * P + 1;
-  int c = base + P;
-  if (c >= R) c -= R;
-  const T mbc = ring[c * slot_elems];
-  T raw = w.s * mbc;
-#pragma unroll
-  for (int o = 0; o < R; ++o) {
-    int s = base + o;
-    if (s >= R) s -= R;
-    const T* e = ring + s * slot_elems;
-    raw += w.k[o] * (e[0] - mbc) + w.m[o] * e[half];
-  }
-  return raw;
 }
 
 template <typename T, int P>
@@ -390,8 +265,8 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
           const int q = w + j * NW;
           if (q >= TY) continue;
           T mbv, sv;
-          contract_y<T, P>(yr[j], zk + q * kEZ + lane,
-                           zk + (EY + q) * kEZ + lane, mbv, sv);
+          contract_y<T, P>(&yr[j], zk + q * kEZ + lane,
+                           zk + (EY + q) * kEZ + lane, &mbv, &sv);
           T* slot = ring2 + s2 * 2 * TY * kEZ + q * kEZ + lane;
           slot[0] = mbv;
           slot[TY * kEZ] = sv;
@@ -440,8 +315,8 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
     for (int j = 0; j < R1; ++j) {
       if (ey[j] < 0) continue;
       T mbv, sv;
-      contract_y<T, P>(yr[j], zi + ey[j] * kEZ + lane,
-                       zi + (WY + ey[j]) * kEZ + lane, mbv, sv);
+      contract_y<T, P>(&yr[j], zi + ey[j] * kEZ + lane,
+                       zi + (WY + ey[j]) * kEZ + lane, &mbv, &sv);
       r1slot[ey[j] * kEZ + lane] = mbv;
       r1slot[(EY + ey[j]) * kEZ + lane] = sv;
     }

@@ -6,121 +6,269 @@
 // state with
 //     A = Kx (x) My (x) Mz + Mx (x) Ky (x) Mz + Mx (x) My (x) Kz,
 // each 1D factor (2p+1)-banded with the Dirichlet mask folded in, followed by
-// the mode's elementwise epilogue (laplace_epilogue in common.cuh).  The
-// diagonal is rebuilt from its 1D factors instead of being streamed.
+// the mode's elementwise epilogue (laplace_epilogue in common.cuh).  Every K
+// contraction runs in difference form (march.cuh), with the row sums of the
+// trimmed mask-folded K taken on the host (ksum); M stays direct.  The TPU
+// kernel sums K directly, which leaves the f32 Q4 r=6 solve 6.6e-5 off its
+// golden L2 norm.  The diagonal is rebuilt from its 1D factors instead of
+// being streamed.
 //
-// What bounds it on the H100: HBM traffic.  apply reads u and writes one
-// field (8 B/DoF in f32), the cheb modes read d, r, x and write three
-// (24 B/DoF); at 3.35 TB/s the r=6 Q4 fine level (16.8M trimmed DoFs) is
-// 40 us for apply and 120 us for cheb.  The FLOPs (about 60 per DoF) are
-// far under the f32 peak.
+// What bounds it on the H100: HBM traffic is 8 B/DoF in f32 for apply (u in,
+// one field out) to 24 B/DoF for cheb (u, r, x in; three out), 0.040-0.120
+// ms at 256^3; but the 7 banded products of 2p+1 taps per point, the
+// shared-memory operand loads that feed them and the latency of the stage
+// chain come first.
 //
-// Design: one thread block owns a TX x TY x TZ output tile.  It loads u with
-// a halo of p on every side into shared memory (zeros outside the grid),
-// contracts z (Kz u and Mz u share each load), then y, then x, in the order
-// of pallas_laplace.py:466-469, keeping every intermediate in shared memory
-// (stage helpers in common.cuh; the degree is a template parameter, so each
-// thread holds its row's band coefficients in registers).  The band arrays
-// are the GLOBAL mask-folded 1D matrices, so every tile reads its own halo
-// and no carry planes are needed (the TPU carries exist only because a
-// Pallas grid runs in order).  The price of this simple first version is
-// halo re-reads (an 8x8 xy tile at p = 4 reads its window about 3x, mostly
-// from L2); z-marching, TMA and tile tuning are later work.
-#include "common.cuh"
+// Design: the x-marching plane engine of cheb2.cu, one step and no growth.
+// A block owns a y-z column of TY x 32 output points (each row one warp of
+// 32 z lanes) and marches a chunk of LX output planes along x; the chunk's
+// input planes run from x0 - p to x0 + LX + p.  For each input plane x_in:
+//   1. the u window (TY + 2p rows of 32 + 2p, zeros off the grid) arrives
+//      by cp.async a plane ahead, with the epilogue's inputs at the output
+//      plane x_o = x_in - p (u, r, x at the thread's own points) and the x
+//      row of x_o (K, M, K's row sum, dK, dM);
+//   2. the z stage (Kz u, Mz u) on every window row, into one of two sets of
+//      z products;
+//   3. an iteration later, the y stage gives the two y-z products the x
+//      stage needs (My Mz u and Ky Mz u + My Kz u) on the column, into a
+//      ring of 2p+1 planes;
+//   4. once x_in is in the ring, the x contraction gives raw = M A M u at
+//      x_o, and the epilogue writes the mode's outputs.
+// Every input plane goes through the z and y stages once; only the chunk's
+// 2p lead-in planes and the column's 2p halo rows of the z stage are extra.
+// A thread keeps its z row (its lane) and its y rows (two adjacent rows,
+// whose y stages share their tap loads) for the whole march, so their
+// bands, row sums and the diagonal's y-z factors stay in registers; every
+// ring entry and epilogue input is private to the thread that reads it.
+// The z stage of plane x_in and the y and x stages of x_in - 1 share an
+// iteration, with three windows and two sets of z products in flight, so a
+// plane costs one block barrier.  The tile (TY rows, warps) is a
+// compile-time function of the type that ops/cuda_laplace.py mirrors
+// (laplace_tile), one block per SM.
+#include "march.cuh"
 
 using namespace pmg;
 
 namespace {
 
-// shared-memory elements for a tile; must match laplace_smem_elems() in
-// ops/cuda_laplace.py
-__host__ __device__ inline int64_t smem_elems(int p, int TX, int TY, int TZ,
-                                              int64_t* buf0) {
-  const int64_t WX = TX + 2 * p, WY = TY + 2 * p, WZ = TZ + 2 * p;
-  const int64_t win = WX * WY * WZ;
-  const int64_t ystage = 2 * WX * TY * TZ;
-  const int64_t b0 = win > ystage ? win : ystage;
-  if (buf0) *buf0 = b0;
-  return b0 + 2 * WX * WY * TZ;
+// warps of a block and rows of its column: march_warps (12 in float, 8
+// in double), two rows a warp, the rule of cheb2.cu.  At p = 4 on an H100
+// 80GB HBM3 at 700 W, two blocks of 8 warps over 16 rows per SM were as
+// fast, and one block of 16 warps at 128 registers 3% faster.
+template <typename T>
+constexpr int kWarps = march_warps<T>();
+template <typename T>
+constexpr int kTY = 2 * kWarps<T>;
+
+// shared-memory elements of a block with TY rows; must match
+// march_smem_elems() in ops/cuda_laplace.py.  Layout: three u windows
+// [3][WY][WZ], two sets of z products [2][2][WY][32], the ring
+// [R][2][TY][32], two sets of the epilogue's inputs [2][3][TY][32] (u, r, x
+// at the output plane), three x rows [3][xrow_elems].
+__host__ __device__ constexpr int64_t smem_elems(int p, int ty) {
+  const int64_t R = 2 * p + 1, WY = ty + 2 * p, WZ = kEZ + 2 * p;
+  return 3 * WY * WZ + 4 * WY * kEZ + R * 2 * ty * kEZ + 6 * ty * kEZ +
+         3 * xrow_elems(p);
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarps<T> * 32, 1)
 laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                const T* __restrict__ in2, T* __restrict__ out0,
                T* __restrict__ out1, T* __restrict__ out2,
-               const T* __restrict__ kb, const T* __restrict__ mb,
-               const T* __restrict__ dk, const T* __restrict__ dm, T c0, T c1,
-               int N_, int mode, int TX, int TY, int TZ) {
+               const T* __restrict__ kb, const T* __restrict__ ks,
+               const T* __restrict__ mb, const T* __restrict__ dk,
+               const T* __restrict__ dm, T c0, T c1, int N_, int mode,
+               int LX) {
+  constexpr int R = 2 * P + 1, NW = kWarps<T>, TY = kTY<T>, RW = TY / NW;
+  constexpr int WY = TY + 2 * P, WZ = kEZ + 2 * P, XH = xrow_elems(P);
+  constexpr int TP = TY * kEZ;  // one plane of the column
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* win = reinterpret_cast<T*>(smem_raw);  // [3][WY][WZ]
+  T* zb = win + 3 * WY * WZ;                // [2][2][WY][32]  Kz u, Mz u
+  T* ring = zb + 4 * WY * kEZ;              // [R][2][TY][32]  MB, S
+  T* ebuf = ring + R * 2 * TP;              // [2][3][TY][32]  u, r, x
+  T* xrow = ebuf + 6 * TP;                  // [3][XH]
   const int64_t N = N_;
-  const int WX = TX + 2 * P, WY = TY + 2 * P, WZ = TZ + 2 * P;
-  int64_t b0;
-  smem_elems(P, TX, TY, TZ, &b0);
-  T* buf0 = reinterpret_cast<T*>(smem_raw);
-  T* buf1 = buf0 + b0;
-  const int64_t x0 = (int64_t)blockIdx.z * TX;
-  const int64_t y0 = (int64_t)blockIdx.y * TY;
-  const int64_t z0 = (int64_t)blockIdx.x * TZ;
+  const int lane = threadIdx.x % kEZ, w = threadIdx.x / kEZ;
+  const int64_t z0 = (int64_t)blockIdx.x * kEZ, y0 = (int64_t)blockIdx.y * TY;
+  const int64_t x0 = (int64_t)blockIdx.z * LX;
+  const int64_t xend = x0 + LX < N ? x0 + LX : N;
+  const int64_t xs = x0 - P, xe = xend + P;
+  const int64_t gz = z0 + lane;  // the thread's z row, all march long
+  const bool zok = gz < N;
+  // the epilogue's inputs: u at the output (residual3t and the cheb
+  // family), in1 (every mode but apply), in2 (cheb, chebl)
+  const bool need_u = mode >= kRes3, need_r = mode != kApply,
+             need_x = mode == kCheb || mode == kChebL;
 
-  // u window with a halo of P (zeros outside the grid)
-  const int nwin = WX * WY * WZ;
-  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-    const int lz = i % WZ, t = i / WZ, ly = t % WY, lx = t / WY;
-    const int64_t gx = x0 - P + lx, gy = y0 - P + ly, gz = z0 - P + lz;
-    buf0[i] = inside(gx, gy, gz, N) ? u[(gx * N + gy) * N + gz] : T(0);
+  // the thread's rows q = qw + j of the column, their bands and the
+  // diagonal's y-z factors: diag = dK_x ay + dM_x by
+  const int qw = w * RW;
+  Row<T, P> yr[RW];
+  T ay[RW], by[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int64_t gy = y0 + qw + j;
+    yr[j].load(kb, mb, ks, N, gy);
+    const bool ok = zok && gy < N;
+    ay[j] = ok ? dm[gy] * dm[gz] : T(0);
+    by[j] = ok ? dk[gy] * dm[gz] + dm[gy] * dk[gz] : T(0);
   }
-  __syncthreads();
+  Row<T, P> zr;
+  zr.load(kb, mb, ks, N, gz);
+  // everything the iteration of input plane xn reads from global memory,
+  // by cp.async (zeros off the grid): the u window of xn; the epilogue's
+  // inputs at x_o = xn - 1 - P on the thread's points, into buffer b; the
+  // x row of x_o
+  auto load_plane = [&](int64_t xn, int b) {
+    if (xn < xe) {
+      const bool xok = xn >= 0 && xn < N;
+      T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
+      for (int rw = w; rw < WY; rw += NW) {
+        const int64_t yy = y0 - P + rw;
+        const bool yok = xok && yy >= 0 && yy < N;
+        for (int c = lane; c < WZ; c += kEZ) {
+          const int64_t zz = z0 - P + c;
+          const bool ok = yok && zz >= 0 && zz < N;
+          cp_async_elem(dst + rw * WZ + c,
+                        ok ? u + (xn * N + yy) * N + zz : u, ok);
+        }
+      }
+    }
+    const int64_t xo = xn - 1 - P;
+    if (xo >= x0 && xo < xend) {
+      if (zok) {
+#pragma unroll
+        for (int j = 0; j < RW; ++j) {
+          const int q = qw + j;
+          if (y0 + q >= N) continue;
+          const int64_t g = (xo * N + y0 + q) * N + gz;
+          T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
+          if (need_u) cp_async_elem(e, u + g, true);
+          if (need_r) cp_async_elem(e + TP, in1 + g, true);
+          if (need_x) cp_async_elem(e + 2 * TP, in2 + g, true);
+        }
+      }
+      if (w == NW - 1) {
+        T* xr = xrow + (int)((xn - xs) % 3) * XH;
+        for (int e = lane; e < 2 * R + 3; e += kEZ) {
+          const T* src = e < R        ? kb + e * N
+                         : e < 2 * R  ? mb + (e - R) * N
+                         : e == 2 * R ? ks
+                         : e == 2 * R + 1 ? dk
+                                          : dm;
+          cp_async_elem(xr + e, src + xo, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // The march, one block barrier a plane.  Iteration xin runs, on data the
+  // last iteration left behind the barrier: the z stage of input plane
+  // xin; the y stage of plane xin - 1 into the ring; the x stage and the
+  // epilogue at x_o = xin - 1 - P.  The windows cycle through three
+  // buffers, the x rows through three sets and the z products through two,
+  // so that no stage overwrites what a slower warp may still read.
+  load_plane(xs, 0);
+  for (int64_t xin = xs; xin <= xe; ++xin) {
+    const int i = (int)(xin - xs), b = i & 1;
+    if (xin < xe) {
+      load_plane(xin + 1, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
 
-  // z: a = Kz u, b = Mz u on (WX, WY, TZ)
-  T* A = buf1;
-  T* B = buf1 + WX * WY * TZ;
-  stage_z<T, P>(buf0, WZ, A, B, WX * WY, TZ, z0, kb, mb, N);
-  __syncthreads();
+    // ---- z stage of input plane xin
+    if (xin < xe) {
+      const T* buf = win + (i % 3) * WY * WZ;
+      T* zo = zb + b * 2 * WY * kEZ;
+#pragma unroll
+      for (int k = 0; k < (WY + NW - 1) / NW; ++k) {
+        const int rw = w + k * NW;
+        if (rw >= WY) break;
+        T ak, am;
+        contract_km<T, P>(zr, buf + rw * WZ + lane, ak, am);
+        zo[rw * kEZ + lane] = ak;
+        zo[(WY + rw) * kEZ + lane] = am;
+      }
+    }
 
-  // y: mb = My b, s = Ky b + My a on (WX, TY, TZ)
-  T* MB = buf0;
-  T* S = buf0 + WX * TY * TZ;
-  stage_y<T, P>(A, B, WY, MB, S, WX, TY, TZ, y0, kb, mb, N);
-  __syncthreads();
+    // ---- y stage of plane xin - 1 into ring slot (xin - 1 - xs) % R
+    if (xin == xs) continue;
+    const T* zi = zb + (b ^ 1) * 2 * WY * kEZ;
+    T* slot = ring + ((i - 1) % R) * 2 * TP + qw * kEZ + lane;
+    {
+      T mbv[RW], sv[RW];
+      contract_y<T, P, RW>(yr, zi + qw * kEZ + lane,
+                           zi + (WY + qw) * kEZ + lane, mbv, sv);
+#pragma unroll
+      for (int j = 0; j < RW; ++j) {
+        slot[j * kEZ] = mbv[j];
+        slot[TP + j * kEZ] = sv[j];
+      }
+    }
 
-  // x: raw = Kx mb + Mx s on the tile, then the mode's epilogue
-  stage_x<T, P>(MB, S, TX, TY, TZ, x0, kb, mb, N,
-                [&](int lx, int ly, int lz, T raw) {
-    const int64_t gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
-    if (gx >= N || gy >= N || gz >= N) return;
-    laplace_epilogue(mode, (gx * N + gy) * N + gz, raw, u, in1, in2, out0,
-                     out1, out2, c0, c1,
-                     [&] { return diag_at(dk, dm, gx, gy, gz); });
-  });
+    // ---- x stage and epilogue at x_o = xin - 1 - P
+    const int64_t xo = xin - 1 - P;
+    if (xo < x0 || !zok) continue;
+    Row<T, P> xr;
+    T dkx, dmx;
+    xr.load_smem(xrow + (i % 3) * XH, dkx, dmx);
+    const int base = (int)((xo - P - xs) % R);
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      const int q = qw + j;
+      if (y0 + q >= N) continue;
+      const T raw = contract_x<T, P>(xr, ring + q * kEZ + lane, 2 * TP, TP,
+                                     base);
+      const T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
+      laplace_epilogue(
+          mode, (xo * N + y0 + q) * N + gz, raw,
+          [&](int k) { return e[k * TP]; }, out0, out1, out2, c0, c1,
+          [&] { return dkx * ay[j] + dmx * by[j]; });
+    }
+  }
 }
 
 template <typename T, int P>
 int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
-             T* out2, const T* kb, const T* mb, const T* dk, const T* dm,
-             double c0, double c1, int N, int mode, int TX, int TY, int TZ,
-             void* stream) {
-  const size_t smem = (size_t)smem_elems(P, TX, TY, TZ, nullptr) * sizeof(T);
+             T* out2, const T* kb, const T* ks, const T* mb, const T* dk,
+             const T* dm, double c0, double c1, int N, int mode, int LX,
+             int TY, int NW, void* stream) {
+  constexpr int kNW = kWarps<T>, kRows = kTY<T>;
+  constexpr size_t smem = (size_t)smem_elems(P, kRows) * sizeof(T);
+  static_assert(smem <= (size_t)kSmemLimit, "B.1 tile exceeds shared memory");
+  // the host's tile must be the one this instance was compiled for
+  if (TY != kRows || NW != kNW || LX < 1 || mode < kApply ||
+      mode > kChebDL)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem((const void*)laplace_kernel<T, P>, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute((const void*)laplace_kernel<T, P>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)ceil_div(N, TZ), (unsigned)ceil_div(N, TY),
-                  (unsigned)ceil_div(N, TX));
-  laplace_kernel<T, P><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      u, in1, in2, out0, out1, out2, kb, mb, dk, dm, (T)c0, (T)c1, N, mode,
-      TX, TY, TZ);
+  const dim3 grid((unsigned)ceil_div(N, kEZ), (unsigned)ceil_div(N, kRows),
+                  (unsigned)ceil_div(N, LX));
+  laplace_kernel<T, P><<<grid, kNW * 32, smem, (cudaStream_t)stream>>>(
+      u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, (T)c0, (T)c1, N,
+      mode, LX);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
-           const T* kb, const T* mb, const T* dk, const T* dm, double c0,
-           double c1, int N, int p, int mode, int TX, int TY, int TZ,
-           void* stream) {
+           const T* kb, const T* ks, const T* mb, const T* dk, const T* dm,
+           double c0, double c1, int N, int p, int mode, int LX, int TY,
+           int NW, void* stream) {
   switch (p) {
 #define PMG_CASE(PP)                                                        \
   case PP:                                                                  \
-    return launch_p<T, PP>(u, in1, in2, out0, out1, out2, kb, mb, dk, dm,  \
-                           c0, c1, N, mode, TX, TY, TZ, stream);
+    return launch_p<T, PP>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk,  \
+                           dm, c0, c1, N, mode, LX, TY, NW, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -131,23 +279,26 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 
 }  // namespace
 
+// (LX, TY, NW): LX output planes per block along x, TY rows of the block's
+// y-z column and NW warps (the compiled tile of laplace_tile).
 extern "C" int pmg_laplace_f32(const float* u, const float* in1,
                                const float* in2, float* out0, float* out1,
-                               float* out2, const float* kb, const float* mb,
-                               const float* dk, const float* dm, double c0,
-                               double c1, int N, int p, int mode, int TX,
-                               int TY, int TZ, void* stream) {
-  return launch<float>(u, in1, in2, out0, out1, out2, kb, mb, dk, dm, c0, c1,
-                       N, p, mode, TX, TY, TZ, stream);
+                               float* out2, const float* kb, const float* ks,
+                               const float* mb, const float* dk,
+                               const float* dm, double c0, double c1, int N,
+                               int p, int mode, int LX, int TY, int NW,
+                               void* stream) {
+  return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
+                       c1, N, p, mode, LX, TY, NW, stream);
 }
 
 extern "C" int pmg_laplace_f64(const double* u, const double* in1,
                                const double* in2, double* out0, double* out1,
                                double* out2, const double* kb,
-                               const double* mb, const double* dk,
-                               const double* dm, double c0, double c1, int N,
-                               int p, int mode, int TX, int TY, int TZ,
-                               void* stream) {
-  return launch<double>(u, in1, in2, out0, out1, out2, kb, mb, dk, dm, c0, c1,
-                        N, p, mode, TX, TY, TZ, stream);
+                               const double* ks, const double* mb,
+                               const double* dk, const double* dm, double c0,
+                               double c1, int N, int p, int mode, int LX,
+                               int TY, int NW, void* stream) {
+  return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
+                        c1, N, p, mode, LX, TY, NW, stream);
 }

@@ -23,13 +23,12 @@
 // is 31 us for apply and 92 us for cheb.  The FLOPs (about 4(2p+1) per DoF
 // plus the halo rows) are far under the f32 peak.
 //
-// Design: the 2D analogue of B.1 (laplace.cu).  One thread block owns a
-// TX x TY output tile.  It loads u with a halo of p on every side into
-// shared memory (zeros outside the grid), contracts y (Ky u and My u share
-// each load), then x (raw = Kx (My u) + Mx (Ky u)), in the manner of the
-// stage helpers of common.cuh: the degree is a template parameter and each
-// thread holds its row's band coefficients in registers.  The bands are the
-// GLOBAL mask-folded trimmed 1D matrices, so every tile reads its own halo;
+// Design: one thread block owns a TX x TY output tile.  It loads u with a
+// halo of p on every side into shared memory (zeros outside the grid),
+// contracts y (Ky u and My u share each load), then x (raw = Kx (My u) +
+// Mx (Ky u)): the degree is a template parameter and each thread holds its
+// row's band coefficients in registers.  The bands are the GLOBAL
+// mask-folded trimmed 1D matrices, so every tile reads its own halo;
 // the TPU kernel's carry row (pallas_laplace2d.py:274-285) exists only
 // because a Pallas grid runs in order, and is gone here, as are its lane
 // padding, 8-row DMA frames and bf16 streams.  The host picks the tile from

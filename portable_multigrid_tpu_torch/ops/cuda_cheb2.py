@@ -16,7 +16,7 @@ x0 = d0; theta is scal[4]); the kernel runs them as ``chebd2*`` on
 kernel shares the operator's band arrays, the row sums of K (it contracts
 K in difference form) and the diagonal factors
 (:class:`~.cuda_laplace.CudaLaplaceOperator`); the twin contracts the
-dense trimmed matrices directly.
+bands with the same difference form.
 """
 
 from __future__ import annotations
@@ -27,18 +27,19 @@ import torch
 
 from .. import _build
 from .cuda_laplace import (
+    EZ,
     SMEM_LIMIT,
-    SMS,
     CudaLaplaceOperator,
     _check,
     _suffix,
     apply_trimmed,
+    chunk_planes,
+    march_warps,
 )
 
 MODES = ("cheb2", "cheb2l", "chebd2", "chebd2l", "cheb2f0", "cheb2f0l")
 LAUNCHES = dict.fromkeys(MODES, 0)
 
-EZ = 32  # z extent of a block's grown column: one warp (kEZ in cheb2.cu)
 _TY = (16, 8, 6, 4, 2, 1)  # candidate interior rows of a block's column
 
 
@@ -66,26 +67,18 @@ def cheb2_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
     own two each and whose buffers fit one block; NW = ceil((TY + 2p) / 2)
     warps.  One block per SM: at p = 4 in float32 one block over TY = 16
     beat two blocks of 8 warps over TY = 8 by 15% on an H100 80GB HBM3 at
-    700 W (less y overgrowth for as many warps).  LX: a block marches LX + 4p
-    planes one after the other, and the grid runs in waves of one block
-    per SM, so N is cut into k chunks of LX = ceil(N / k) planes, the k
-    that minimises waves x (LX + 4p), ties to the larger chunk."""
+    700 W (less y overgrowth for as many warps).  LX: the chunk rule of
+    :func:`~.cuda_laplace.chunk_planes` with 4p lead-in planes."""
     # two grown rows for each of at most 12 warps in float32 (168 registers
     # a thread; at 16 warps, 128 registers, p = 3 and 5 spilled) and 8 in
-    # float64 (255 registers): max_warps in cheb2.cu
-    limit = 2 * (12 if itemsize == 4 else 8)
+    # float64 (255 registers): march_warps in march.cuh
+    limit = 2 * march_warps(itemsize)
     ty = next((t for t in _TY if t + 2 * p <= limit
                and cheb2_smem_elems(p, t) * itemsize <= SMEM_LIMIT), None)
     if ty is None:
         raise ValueError(f"no pair tile fits shared memory at p={p}")
     columns = -(-N // (EZ - 2 * p)) * -(-N // ty)
-
-    def cost(lx):
-        return -(-columns * -(-N // lx) // SMS) * (lx + 4 * p)
-
-    chunks = {-(-N // k) for k in range(1, max(N // 2, 1) + 1)}
-    return (min(chunks, key=lambda lx: (cost(lx), -lx)), ty,
-            (ty + 2 * p + 1) // 2)
+    return chunk_planes(N, columns, 4 * p), ty, (ty + 2 * p + 1) // 2
 
 
 @dataclasses.dataclass
@@ -149,9 +142,10 @@ def cheb2_twin(op: CudaLaplaceOperator, d, r, x, scal, mode: str):
         x = d
     elif mode in ("chebd2", "chebd2l"):
         x = d
-    r1 = r - apply_trimmed(op.Kt, op.Mt, d)
+    bands = op.kband, op.ksum, op.mband
+    r1 = r - apply_trimmed(*bands, d)
     d1 = c0a * d + (c1a / diag) * r1
-    r2 = r1 - apply_trimmed(op.Kt, op.Mt, d1)
+    r2 = r1 - apply_trimmed(*bands, d1)
     d2 = c0b * d1 + (c1b / diag) * r2
     x2 = x + d1 + d2
     if mode.endswith("l"):

@@ -105,7 +105,10 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     hband: torch.Tensor = None  # [2p+1, N-1] bands of its transpose
     gsum: torch.Tensor = None  # ... of G
     hsum: torch.Tensor = None  # ... of G^T
-    Gt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded G (twin)
+    # [N-1, N-1] trimmed mask-folded K, M and G (twin)
+    Kt: torch.Tensor = None
+    Mt: torch.Tensor = None
+    Gt: torch.Tensor = None
     kernel: ClassVar[str] = "pmg_elasticity"
     launches: ClassVar[dict] = LAUNCHES
     pair_kernel: ClassVar[bool] = False

@@ -8,10 +8,18 @@ order with z contiguous — and computes M A M u with
     A = Kx (x) My (x) Mz + Mx (x) Ky (x) Mz + Mx (x) My (x) Kz
 
 from the GLOBAL mask-folded 1D matrices, plus the single-step Chebyshev
-epilogues of the TPU kernel (modes in :data:`MODES`).  On a CUDA tensor
-:meth:`CudaLaplaceOperator.run` launches the hand-written kernel; on a CPU
-tensor it runs :func:`laplace_twin`, the plain torch Kronecker form of the
-same modes and outputs.
+epilogues of the TPU kernel (modes in :data:`MODES`).  Every stiffness
+contraction runs in difference form,
+
+    (K u)_i = sum_o K[i, i+o] (u_{i+o} - u_i) + s_i u_i,
+
+with s_i the row sum of the mask-folded K (``ksum``), in the kernel and in
+its twin: the TPU kernel's direct banded sum loses the small K u of a
+smooth u to cancellation, which left the float32 Q4 r=6 solve 6.6e-5 off
+its golden L2 norm.  On a CUDA tensor :meth:`CudaLaplaceOperator.run`
+launches the hand-written kernel; on a CPU tensor it runs
+:func:`laplace_twin`, the plain torch banded form of the same modes and
+outputs.
 """
 
 from __future__ import annotations
@@ -30,7 +38,6 @@ from .laplace import (
     separable_inv_diag,
     separable_mask,
 )
-from .structured import contract
 from .transfer import pad_last_planes, trim_last_planes
 
 MODES = ("apply", "residual1t", "residual3t", "cheb", "chebl", "chebd",
@@ -45,21 +52,53 @@ LAUNCHES = dict.fromkeys(MODES, 0)
 
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
 SMS = 132  # streaming multiprocessors of the H100 SXM
-_TILES = ((8, 8, 32), (8, 8, 16), (4, 4, 16))
+EZ = 32  # z extent of a marching column's rows: one warp (kEZ in march.cuh)
 
 
-def laplace_smem_elems(p: int, tx: int, ty: int, tz: int) -> int:
-    """Shared-memory elements of one block (mirrors smem_elems in laplace.cu)."""
-    wx, wy, wz = tx + 2 * p, ty + 2 * p, tz + 2 * p
-    return max(wx * wy * wz, 2 * wx * ty * tz) + 2 * wx * wy * tz
+def march_smem_elems(p: int, ty: int) -> int:
+    """Shared-memory elements of one B.1 block (mirrors smem_elems in
+    laplace.cu): three u windows of (TY + 2p) x (32 + 2p), two sets of the
+    z products (2 x (TY + 2p) x 32), the ring of 2p+1 planes of the two y-z
+    products on the TY x 32 column, two sets of the epilogue's three inputs
+    and three x rows of 2(2p+1) + 3 values, padded to a multiple of four."""
+    R, wy, wz = 2 * p + 1, ty + 2 * p, EZ + 2 * p
+    xrow = -(-(2 * R + 3) // 4) * 4
+    return (3 * wy * wz + 4 * wy * EZ + R * 2 * ty * EZ + 6 * ty * EZ
+            + 3 * xrow)
 
 
-def laplace_tile(p: int, itemsize: int) -> tuple[int, int, int]:
-    """Largest candidate tile whose window and stage buffers fit."""
-    for tile in _TILES:
-        if laplace_smem_elems(p, *tile) * itemsize <= SMEM_LIMIT:
-            return tile
-    raise ValueError(f"no laplace tile fits shared memory at p={p}")
+def march_warps(itemsize: int) -> int:
+    """Warps of one marching block (march_warps in march.cuh): 12 in
+    float32 (168 registers a thread), 8 in float64 (255); one block per
+    SM."""
+    return 12 if itemsize == 4 else 8
+
+
+def chunk_planes(N: int, columns: int, lead: int) -> int:
+    """Output planes LX of an x chunk.  A block marches LX + ``lead``
+    planes one after the other and the grid's ``columns`` y-z columns run
+    in waves of one block per SM, so N is cut into k chunks of
+    LX = ceil(N / k) planes, the k that minimises waves x (LX + lead),
+    ties to the larger chunk."""
+
+    def cost(lx):
+        return -(-columns * -(-N // lx) // SMS) * (lx + lead)
+
+    chunks = {-(-N // k) for k in range(1, max(N // 2, 1) + 1)}
+    return min(chunks, key=lambda lx: (cost(lx), -lx))
+
+
+def laplace_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
+    """(LX, TY, NW) of the B.1 launch for an N^3 grid, as laplace.cu
+    compiles it: NW = :func:`march_warps` warps of one block per SM, two
+    rows of the column each (TY = 2 NW), and x chunks of LX planes with 2p
+    lead-in planes."""
+    nw = march_warps(itemsize)
+    ty = 2 * nw
+    if march_smem_elems(p, ty) * itemsize > SMEM_LIMIT:
+        raise ValueError(f"no laplace tile fits shared memory at p={p}")
+    columns = -(-N // EZ) * -(-N // ty)
+    return chunk_planes(N, columns, 2 * p), ty, nw
 
 
 def to_bands(W: np.ndarray, p: int) -> np.ndarray:
@@ -73,15 +112,35 @@ def to_bands(W: np.ndarray, p: int) -> np.ndarray:
     return bands
 
 
-def apply_trimmed(Kt: torch.Tensor, Mt: torch.Tensor,
-                  u: torch.Tensor) -> torch.Tensor:
-    """M A M u on trimmed state, with mask-folded trimmed 1D matrices."""
-    b = contract(u, Mt, 2)
-    a = contract(u, Kt, 2)
-    mb = contract(b, Mt, 1)
-    kb = contract(b, Kt, 1)
-    ma = contract(a, Mt, 1)
-    return contract(mb, Kt, 0) + contract(kb + ma, Mt, 0)
+def banded(u: torch.Tensor, bands: torch.Tensor, axis: int,
+           rowsum: torch.Tensor | None = None) -> torch.Tensor:
+    """sum_o bands[p+o, i] u[i+o] along ``axis`` (zero beyond the grid); with
+    ``rowsum``, in difference form: sum_o bands[p+o, i] (u[i+o] - u[i])
+    + rowsum[i] u[i]."""
+    p = (bands.shape[0] - 1) // 2
+    u = torch.movedim(u, axis, 0)
+    L = u.shape[0]
+    shape = (L,) + (1,) * (u.ndim - 1)
+    padded = torch.nn.functional.pad(u, (0, 0) * (u.ndim - 1) + (p, p))
+    out = torch.zeros_like(u) if rowsum is None else rowsum.reshape(shape) * u
+    for o in range(-p, p + 1):
+        v = padded[p + o: p + o + L]
+        if rowsum is not None:
+            v = v - u
+        out = out + bands[p + o].reshape(shape) * v
+    return torch.movedim(out, 0, axis)
+
+
+def apply_trimmed(kband: torch.Tensor, ksum: torch.Tensor,
+                  mband: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """M A M u on trimmed 3D state in the kernels' order, z, then y, then
+    x: Kx (My Mz u) + Mx (Ky Mz u + My Kz u), every K contraction in
+    difference form."""
+    b = banded(u, mband, 2)
+    a = banded(u, kband, 2, ksum)
+    mb = banded(b, mband, 1)
+    s = banded(b, kband, 1, ksum) + banded(a, mband, 1)
+    return banded(mb, kband, 0, ksum) + banded(s, mband, 0)
 
 
 def diag_trimmed(dKt: torch.Tensor, dMt: torch.Tensor) -> torch.Tensor:
@@ -109,14 +168,10 @@ class CudaLaplaceOperator:
     dK1: torch.Tensor  # [N] assembled stiffness diagonal (h-folded)
     dM1: torch.Tensor  # [N] assembled mass diagonal
     kband: torch.Tensor  # [2p+1, N-1] bands of the trimmed mask-folded K
+    ksum: torch.Tensor  # [N-1] row sums of the trimmed mask-folded K
     mband: torch.Tensor  # [2p+1, N-1] bands of the trimmed mask-folded M
-    tile: tuple  # (TX, TY, TZ) of the kernel launch
+    tile: tuple  # the kernel's launch tile: (LX, TY, NW) of laplace_tile
     dim: int = 3
-    Kt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded K (3D twin)
-    Mt: torch.Tensor = None  # [N-1, N-1] trimmed mask-folded M (3D twin)
-    # [N-1] row sums of the trimmed mask-folded K, for the kernels that
-    # contract K in difference form (B.2, B.4)
-    ksum: torch.Tensor = None
     kernel: ClassVar[str] = "pmg_laplace"  # C entry point (without dtype)
     launches: ClassVar[dict] = LAUNCHES
     # B.2 runs two Chebyshev steps of this operator per pass (3D Laplace
@@ -202,18 +257,12 @@ class CudaLaplaceOperator:
         return laplace_twin(self, mode, u, ins, scal)
 
     @staticmethod
-    def pick_tile(p: int, itemsize: int) -> tuple:
-        return laplace_tile(p, itemsize)
-
-    @staticmethod
-    def twin_state(t, Kt, Mt) -> dict:
-        """The fields the twin needs beyond the bands: the dense trimmed
-        mask-folded 1D matrices."""
-        return dict(Kt=t(Kt), Mt=t(Mt))
+    def pick_tile(p: int, itemsize: int, N: int) -> tuple:
+        return laplace_tile(p, itemsize, N)
 
     def kernel_state(self) -> tuple:
         """Operator arrays handed to the kernel, in its argument order."""
-        return self.kband, self.mband, self.dK1, self.dM1
+        return self.kband, self.ksum, self.mband, self.dK1, self.dM1
 
     def kernel_scalars(self) -> tuple:
         """Operator scalars handed to the kernel after its arrays."""
@@ -223,8 +272,9 @@ class CudaLaplaceOperator:
 def laplace_twin(op: CudaLaplaceOperator, mode: str, u: torch.Tensor,
                  ins=(), scal=()):
     """Plain torch version of every kernel mode (same inputs and outputs)."""
-    return twin_epilogue(op, mode, apply_trimmed(op.Kt, op.Mt, u), u, ins,
-                         scal)
+    return twin_epilogue(op, mode,
+                         apply_trimmed(op.kband, op.ksum, op.mband, u), u,
+                         ins, scal)
 
 
 def twin_epilogue(op, mode: str, raw: torch.Tensor, u: torch.Tensor, ins=(),
@@ -304,7 +354,7 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
     mask ``m1``, the assembled 1D matrices ``K1``/``M1`` and the diagonal
     factors ``gK`` (h-folded) / ``gM``, all of length n*degree + 1.
     ``cls`` is the operator class; its ``pick_tile`` chooses the launch
-    tile and its ``twin_state`` the state the twin keeps."""
+    tile."""
     m1, K1, M1 = (np.asarray(a, np.float64) for a in (m1, K1, M1))
     Kt = (m1[:, None] * K1 * m1[None, :])[:-1, :-1]
     Mt = (m1[:, None] * M1 * m1[None, :])[:-1, :-1]
@@ -322,9 +372,8 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
         dM1=t(gM),
         kband=t(to_bands(Kt, degree)),
         mband=t(to_bands(Mt, degree)),
-        tile=cls.pick_tile(degree, itemsize),
+        tile=cls.pick_tile(degree, itemsize, n * degree),
         ksum=t(row_sums(K1, m1)),
-        **cls.twin_state(t, Kt, Mt),
     )
 
 

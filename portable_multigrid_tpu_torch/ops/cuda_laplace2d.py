@@ -45,6 +45,7 @@ from .cuda_laplace import (
     MODES,
     SMEM_LIMIT,
     CudaLaplaceOperator,
+    banded,
     cuda_laplace_from_factors,
     twin_epilogue,
 )
@@ -76,25 +77,6 @@ def laplace2d_tile(p: int, itemsize: int) -> tuple[int, int]:
     raise ValueError(f"no laplace2d tile fits shared memory at p={p}")
 
 
-def banded(u: torch.Tensor, bands: torch.Tensor, axis: int,
-           rowsum: torch.Tensor | None = None) -> torch.Tensor:
-    """sum_o bands[p+o, i] u[i+o] along ``axis`` (zero beyond the grid); with
-    ``rowsum``, in difference form: sum_o bands[p+o, i] (u[i+o] - u[i])
-    + rowsum[i] u[i]."""
-    p = (bands.shape[0] - 1) // 2
-    u = torch.movedim(u, axis, 0)
-    L = u.shape[0]
-    shape = (L,) + (1,) * (u.ndim - 1)
-    padded = torch.nn.functional.pad(u, (0, 0) * (u.ndim - 1) + (p, p))
-    out = torch.zeros_like(u) if rowsum is None else rowsum.reshape(shape) * u
-    for o in range(-p, p + 1):
-        v = padded[p + o: p + o + L]
-        if rowsum is not None:
-            v = v - u
-        out = out + bands[p + o].reshape(shape) * v
-    return torch.movedim(out, 0, axis)
-
-
 def apply_trimmed_2d(kband: torch.Tensor, ksum: torch.Tensor,
                      mband: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """M A M u on trimmed 2D state: Kx (My u) + Mx (Ky u), the stiffness
@@ -122,16 +104,8 @@ class CudaLaplace2D(CudaLaplaceOperator):
         return laplace2d_twin(self, mode, u, ins, scal)
 
     @staticmethod
-    def pick_tile(p: int, itemsize: int) -> tuple:
+    def pick_tile(p: int, itemsize: int, N: int) -> tuple:
         return laplace2d_tile(p, itemsize)
-
-    @staticmethod
-    def twin_state(t, Kt, Mt) -> dict:
-        """The twin contracts the bands and ``ksum`` (difference form)."""
-        return {}
-
-    def kernel_state(self) -> tuple:
-        return self.kband, self.ksum, self.mband, self.dK1, self.dM1
 
 
 def laplace2d_twin(op: CudaLaplace2D, mode: str, u: torch.Tensor, ins=(),

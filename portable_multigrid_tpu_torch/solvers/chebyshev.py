@@ -24,6 +24,7 @@ kernels in the working dtype, where the TPU kernels took them in float32.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import ClassVar
 
 import numpy as np
@@ -338,7 +339,6 @@ def make_chebyshev(
     smoothing_range: float = 15.0,
     degree: int | None = 5,
     eig_cg_n_iterations: int = 10,
-    eig_max_iters: int = 256,
     fused: bool = False,
     cheb2=None,
 ):
@@ -346,9 +346,10 @@ def make_chebyshev(
 
     Defaults mirror the reference smoothing levels; pass
     ``smoothing_range=1e-3, degree=None, eig_cg_n_iterations=op.n_dofs`` for
-    the coarse-level Chebyshev-as-solver configuration.  ``eig_max_iters``
-    caps the Lanczos length (eig iterations = m() is an upper bound; the
-    extremes settle after tens of steps).  ``fused`` builds a
+    the coarse-level Chebyshev-as-solver configuration.  The environment's
+    ``PMG_EIG_MAX_ITERS`` (default 256, as in the JAX package) caps the
+    Lanczos length (eig iterations = m() is an upper bound; the extremes
+    settle after tens of steps).  ``fused`` builds a
     :class:`FusedChebyshev` on trimmed state, with ``cheb2`` its optional
     pair kernel."""
     # one draw over the whole field, components included, times the grid
@@ -360,8 +361,8 @@ def make_chebyshev(
     else:
         v0 = _pseudo_random_grid(shape) * _host_free_mask(op)
         v0 = torch.as_tensor(v0, dtype=op.dtype, device=op.device)
-    n_iter = max(1, min(int(eig_cg_n_iterations), int(np.prod(shape)),
-                        int(eig_max_iters)))
+    cap = int(os.environ.get("PMG_EIG_MAX_ITERS", "256"))
+    n_iter = max(1, min(int(eig_cg_n_iterations), int(np.prod(shape)), cap))
     min_eig, max_eig = estimate_eigenvalues(op, n_iter, v0)
     alpha, beta, deg = chebyshev_bounds(min_eig, max_eig, smoothing_range,
                                         degree)

@@ -113,6 +113,28 @@ def test_make_chebyshev_bounds_match():
                                    rtol=1e-10)
 
 
+def test_eig_cap_comes_from_the_environment(monkeypatch):
+    """PMG_EIG_MAX_ITERS caps the Lanczos length of the coarse-solver setup
+    in both packages (729 DoFs, eig iterations = m()): at a cap of 7 the
+    port estimates the JAX package's bounds, and not those of the default
+    cap of 256."""
+    jsp = JSpace(JMesh(3, 2), 2)
+    sp = FESpace(HyperCubeMesh(3, 2), 2)
+    op = make_cuda_laplace(sp, torch.float64)
+    kw = dict(smoothing_range=1e-3, degree=None,
+              eig_cg_n_iterations=sp.n_dofs)
+    monkeypatch.delenv("PMG_EIG_MAX_ITERS", raising=False)
+    full = tcheb.make_chebyshev(op, **kw)
+    monkeypatch.setenv("PMG_EIG_MAX_ITERS", "7")
+    jsm = jcheb.make_chebyshev(jmake_laplace(jsp, jnp.float64, "kron"), **kw)
+    sm = tcheb.make_chebyshev(op, **kw)
+    assert sm.degree == jsm.degree
+    np.testing.assert_allclose([sm.theta, sm.delta],
+                               [float(jsm.theta), float(jsm.delta)],
+                               rtol=1e-10)
+    assert abs(sm.delta / full.delta - 1) > 1e-3
+
+
 @pytest.mark.parametrize("pair", [True, False])
 def test_fused_chebyshev_matches(pair):
     """FusedChebyshev (trimmed) against the JAX package's, whose kernels run
