@@ -11,16 +11,17 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
 
   1. card and build — the card's name and power limit, then the kernels
      built from ``portable_multigrid_tpu_torch/csrc`` (one nvcc per source,
-     all at once; build time printed), and ptxas's registers and spills of
-     every kernel instance;
+     all at once; build time printed), and ptxas's registers, stack frame
+     and spills of every kernel instance;
   2. kernel vs twin — every mode of every kernel against its plain torch
      twin on the card, in float32 and float64: the 3D kernels (B.1-B.3) at
      p = 1..7, r = 2 and at every level shape of the Q4 r = 6 main path
      (p = 4, r = 1..6: trimmed 8^3 to 256^3, and B.1 on the 1-cell
      level's 4^3, r = 0); the 2D kernel (B.4) at
-     p = 1..7, r = 2 and 3 (partial tiles) and at the Q7 r = 9 fine-level
-     shape (3584^2); bound 1e-5 (f32) / 1e-12 (f64) on the max error
-     relative to the twin's max magnitude;
+     p = 1..7, r = 2 and 3 (partial columns) and at every level shape of
+     the Q7 r = 9 ladder ((512 p)^2, p = 1..7: 512^2 to 3584^2); bound 1e-5
+     (f32) / 1e-12 (f64) on the max error relative to the twin's max
+     magnitude;
   3. golden replay — the ``geometric_3d`` rows (p = 1..7, r = 1..3) and the
      ``polynomial_2d`` rows of tests/golden_convergence.json in float64
      through the kernels: CG counts exact, L2 norms to 1e-10;
@@ -33,7 +34,9 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      place (the smoothers' ``op_cheb2`` set to None; CG count of each), in
      turns, its split by level and the profiler's device-busy share and
      kernel split, the whole solve, and each 3D kernel mode against its
-     twin at r = 6, beside its bound (the larger of its bytes over the HBM
+     twin at r = 6 (and, in the log only, the kernel's device time: 10
+     calls back to back behind a device spin that lets the host enqueue
+     them all, which leaves the host's launch work out), beside its bound (the larger of its bytes over the HBM
      rate and its FMAs over the FP32 rate; B.1's modes summed up on one
      line with their roofline shares), each B.2 mode beside two B.1
      ``cheb`` passes (the work one pair replaces) and, for B.3, beside one
@@ -48,8 +51,12 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      every tensor on the card and the B.4 launch count raised by each
      kernel run;
   7. timing of the second path — the V-cycle (ms, DoF/s), its split by
-     level with the p = 1 coarse solve on its own line, the CG solve, and
-     each B.4 mode against its twin at 3584^2;
+     level with the p = 1 coarse solve on its own line, the profiler's
+     busy share and B.4's device time per V-cycle by degree, the CG solve,
+     each B.4 mode against its twin at 3584^2, and at every level of the
+     ladder its B.4 launches per V-cycle (from the profile) and the device
+     time of its busiest mode against the bound: ``cheb`` on a smoothing
+     level, ``apply`` on the p = 1 level, the 512^2 coarse solve;
   8. elasticity kernel vs twin — every mode of B.5, and of B.3 on [3, ...]
      fields (one launch, the component a grid axis of the kernel),
      against its twin in float32 and float64, with mu = 0.7, lam = 1.3 (at
@@ -77,6 +84,7 @@ last line is the result object.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -345,6 +353,29 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10, warmup: int = 3) -> float:
+    """Device time of one fn() in ms: CUDA events around ``reps`` calls
+    back to back, queued behind a spin of the device long enough for the
+    host to enqueue them all, so that the host's launch work (~60 us a
+    wrapper call) stays out of the time, over ``reps``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # twice the host's time for the batch, in cycles of a clock <= 2 GHz
+    torch.cuda._sleep(int(2 * reps * host * 2e9) + 1000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def tensors_of(obj, seen=None):
     """Every tensor reachable from a level object's dataclass fields."""
     seen = set() if seen is None else seen
@@ -391,28 +422,29 @@ def card_line() -> str:
 
 def ptxas_report(build_log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas -v output: its
-    registers per thread and spill bytes."""
+    registers per thread, stack frame (an array indexed at run time lands
+    there) and spill bytes."""
     rows, name = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"((?:laplace2d|laplace|cheb2|rhs|transfer|"
-                          r"restrict|elasticity)_kernel)I([fd])(?:Li(\d+)E)?",
-                          m.group(1))
+                          r"restrict|prolong|elasticity)_kernel)I([fd])"
+                          r"(?:Li(\d+)E)?", m.group(1))
             name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
                     f"{', ' + k.group(3) if k.group(3) else ''}>"
                     if k else m.group(1))
-            rows[name] = ["?", "?", "?"]
+            rows[name] = ["?", "?", "?", "?"]
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
             rows[name][1:] = m.groups()
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             rows[name][0] = m.group(1)
-    return [f"{n}: {r} registers, spill stores {st} B, loads {ld} B"
-            for n, (r, st, ld) in rows.items()]
+    return [f"{n}: {r} registers, stack {sf} B, spill stores {st} B, "
+            f"loads {ld} B" for n, (r, sf, st, ld) in rows.items()]
 
 
 def phase_build() -> str:
@@ -514,7 +546,7 @@ def phase_timing(card: str, prob, st, device) -> dict:
         what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
         log(f"  level r={k} ({sp.n_dofs} DoFs, {what}): "
             f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
-    device_busy(mg, rhs)
+    device_busy(mg, rhs, statistics.mean(runs["pairs"]))
     t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
                       warmup=1)
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
@@ -589,19 +621,22 @@ def bound(path, name, mode, p, r) -> tuple[float, str]:
 
 def time_modes(path, p, r, device) -> dict:
     """Each kernel mode against its twin (and its library yardstick) at one
-    level shape, in float32, beside its bound and roofline share."""
+    level shape, in float32, beside its bound and roofline share; the
+    kernel's device time back to back is logged beside them."""
     times = {}
     for name, mode, run, twin, lib in level_cases(path, p, r, torch.float32,
                                                   device):
         t_k, t_t = cuda_ms(run), cuda_ms(twin)
         t_l = cuda_ms(lib) if lib else None
+        t_dev = device_ms(run)
         b_ms, by = bound(path, name, mode, p, r)
         times[(name, mode)] = dict(ms=t_k, plain_ms=t_t, library_ms=t_l,
                                    bound_ms=b_ms, bound_by=by)
         library = f"   library {t_l:8.3f} ms" if lib else ""
         log(f"  {name:10s} {mode:19s} kernel {t_k:8.3f} ms   twin {t_t:8.3f} ms"
             f"{library}   bound {b_ms:.4f} ms ({by}, "
-            f"{100 * b_ms / t_k:.1f}% of roofline)")
+            f"{100 * b_ms / t_k:.1f}% of roofline)   device {t_dev:.3f} ms "
+            f"back to back")
     return times
 
 
@@ -690,33 +725,39 @@ def level_times(prob, rhs, reps: int = 10, warmup: int = 3) -> list:
     return [statistics.median(t) for t in own]
 
 
-def device_busy(mg, rhs, reps: int = 3) -> None:
-    """torch.profiler over a few V-cycles: device kernel time against wall
-    time, and the kernels that take most of it."""
+def device_busy(mg, rhs, wall: float, reps: int = 3) -> list:
+    """torch.profiler over a few V-cycles: the device's own time per
+    V-cycle against ``wall``, the V-cycle's ms timed without the profiler
+    (which slows the host), and the kernels that take most of it; returns
+    (ms, launches, name) per V-cycle of every kernel that took device
+    time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     mg.apply(rhs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(reps):
             mg.apply(rhs)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            rows.append((dev / 1e3 / reps, ev.count // reps, ev.key))
+    # the device's own events (kernels, copies, fills): no host-side row is
+    # counted beside the kernel it launched
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per_name[ev.name][0] += ev.time_range.elapsed_us()
+            per_name[ev.name][1] += 1
+    rows = [(us / 1e3 / reps, n // reps, name)
+            for name, (us, n) in per_name.items()]
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log("  profiler: no device time recorded; busy share not measured")
-        return
-    log(f"  profiler: {wall:.3f} ms wall per V-cycle, {busy:.3f} ms device "
-        f"kernel time: busy {100 * busy / wall:.1f}%")
+        return rows
+    log(f"  profiler: {busy:.3f} ms device time per V-cycle of {wall:.3f} "
+        f"ms: busy {100 * busy / wall:.1f}%")
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {ms:9.3f} ms  {count:6d} x  {key[:90]}")
+    return rows
 
 
 def phase_second_timing(card: str, prob, st, device) -> dict:
@@ -733,13 +774,38 @@ def phase_second_timing(card: str, prob, st, device) -> dict:
         what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
         log(f"  level p={sp.degree} ({sp.n_dofs} DoFs, {what}): "
             f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
-    device_busy(mg, rhs)
+    rows = device_busy(mg, rhs, t_vc)
+    b4 = {int(m.group(1)): (ms, count) for ms, count, key in rows
+          for m in [re.search(r"laplace2d_kernel<float, (\d+)>", key)] if m}
+    log(f"  profiler: B.4 {sum(v[0] for v in b4.values()):.3f} ms device time "
+        f"per V-cycle of {t_vc:.3f} ms; by degree: " + ", ".join(
+            f"p={p} {ms:.3f} ms / {n}" for p, (ms, n) in sorted(b4.items())))
     fine_op = prob.levels[-1].op
     t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
                       warmup=1)
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
         f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
     times = time_modes("2d", *KERNELS["laplace2d"]["shape"], device)
+    # every level of the ladder: its B.4 launches per V-cycle from the
+    # profile and its busiest mode (apply in the p = 1 coarse solve at
+    # 512^2, cheb on a smoothing level) against the bound, so that
+    # launches x (ms - bound) reads for the whole ladder
+    r = KERNELS["laplace2d"]["shape"][1]
+    gaps = 0.0
+    for k, sp in enumerate(prob.spaces):
+        p, mode = sp.degree, "apply" if k == 0 else "cheb"
+        run = next(c[2] for c in level_cases("2d", p, r, torch.float32,
+                                             device) if c[1] == mode)
+        t_k = device_ms(run)
+        b_ms, by = bound("2d", "laplace2d", mode, p, r)
+        ms_v, launches = b4.get(p, (0.0, 0))
+        gaps += launches * (t_k - b_ms)
+        log(f"  B.4 level p={p} ({2 ** r * p}^2): {launches} launches per "
+            f"V-cycle, {1e3 * ms_v / max(launches, 1):.2f} us a launch in the "
+            f"profile; {mode} {t_k:.4f} ms back to back, bound {b_ms:.4f} ms "
+            f"({by}, {100 * b_ms / t_k:.1f}%); launches x gap "
+            f"{launches * (t_k - b_ms):.3f} ms")
+    log(f"  B.4 launches x (ms - bound) over the ladder: {gaps:.3f} ms per V-cycle")
     log("phase 7: ok")
     return times
 
@@ -831,7 +897,7 @@ def phase_elasticity_timing(card: str, prob, st, device) -> dict:
         what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
         log(f"  level r={k} ({lvl.op.n_dofs} DoFs, {what}): "
             f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
-    device_busy(mg, rhs)
+    device_busy(mg, rhs, t_vc)
     fine_op = prob.levels[-1].op
     t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
                       warmup=1)
@@ -862,7 +928,8 @@ def main(argv: list[str]) -> int:
     shapes += [("3d", 4, r, dt) for dt in dtypes for r in (0, 1, 3, 4, 5, 6)]
     shapes += [("2d", p, r, dt) for dt in dtypes for r in (2, 3)
                for p in range(1, 8)]
-    shapes += [("2d", 7, 9, dt) for dt in dtypes]
+    # every level shape of the 2D Q7 r=9 ladder, (512 p)^2, p = 1..7
+    shapes += [("2d", p, 9, dt) for dt in dtypes for p in range(1, 8)]
     errs = phase_compare(device, shapes)
     with open("tests/golden_convergence.json") as fh:
         phase_golden(device, json.load(fh))

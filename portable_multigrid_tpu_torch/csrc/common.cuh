@@ -20,21 +20,6 @@ namespace pmg {
 
 constexpr int kThreads = 256;
 
-// The 2P+1 coefficients of row g of the K and M bands (zeros for a row
-// outside [0, N), which makes its outputs zero).
-template <typename T, int P>
-__device__ __forceinline__ void load_bands(const T* __restrict__ kb,
-                                           const T* __restrict__ mb, int64_t N,
-                                           int64_t g, T (&k)[2 * P + 1],
-                                           T (&m)[2 * P + 1]) {
-  const bool in = g >= 0 && g < N;
-#pragma unroll
-  for (int o = 0; o <= 2 * P; ++o) {
-    k[o] = in ? kb[o * N + g] : T(0);
-    m[o] = in ? mb[o * N + g] : T(0);
-  }
-}
-
 // Separable diagonal of A = Kx My Mz + Mx Ky Mz + Mx My Kz from its 1D
 // diagonal factors (raw, unmasked values on constrained entries).
 template <typename T>

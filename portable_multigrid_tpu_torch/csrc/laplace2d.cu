@@ -17,157 +17,205 @@
 // per refinement (3.4% of the solution's L2 norm at Q7 r=9), while the
 // differences of neighbouring values are small and nearly exact.
 //
-// What bounds it on the H100: HBM traffic.  apply reads u and writes one
-// field (8 B/DoF in f32), the cheb modes read d, r, x and write three
-// (24 B/DoF); at 3.35 TB/s the 2D Q7 r=9 fine level (3584^2 trimmed DoFs)
-// is 31 us for apply and 92 us for cheb.  The FLOPs (about 4(2p+1) per DoF
-// plus the halo rows) are far under the f32 peak.
+// What bounds it on the H100: HBM traffic is 8 B/DoF in f32 for apply (u in,
+// one field out) to 24 B/DoF for cheb (u, r, x in; three out), 31-92 us at
+// the 2D Q7 r=9 fine level (3584^2 trimmed DoFs); the two banded products of
+// 2p+1 taps a point (about 95 FP32 lane-slots at p = 7) are ~40 us of FP
+// issue.  So the instructions that feed the products come first: the first,
+// tiled design read its u window 1.75x per point, ran the y stage on its
+// halo rows (1.44 rows a row) and reloaded the x row's 31 band coefficients
+// from global memory at every point, ~88 loads a point at p = 7.
 //
-// Design: one thread block owns a TX x TY output tile.  It loads u with a
-// halo of p on every side into shared memory (zeros outside the grid),
-// contracts y (Ky u and My u share each load), then x (raw = Kx (My u) +
-// Mx (Ky u)): the degree is a template parameter and each thread holds its
-// row's band coefficients in registers.  The bands are the GLOBAL
-// mask-folded trimmed 1D matrices, so every tile reads its own halo;
-// the TPU kernel's carry row (pallas_laplace2d.py:274-285) exists only
-// because a Pallas grid runs in order, and is gone here, as are its lane
-// padding, 8-row DMA frames and bf16 streams.  The host picks the tile from
-// shared memory (laplace2d_tile in ops/cuda_laplace2d.py); at p = 7 a
-// 32 x 64 f32 tile takes 38 KB, so several blocks share an SM.
-#include "common.cuh"
+// Design: an x-marching row engine.  A block of kNW warps owns a column of
+// TY = 32 kNW consecutive y points, one a thread, and marches a chunk of LX
+// output rows along x; the chunk's input rows run from x0 - p to
+// x0 + LX + p - 1, so only its 2p lead-in rows are extra.  For input row
+// x_in = x0 - p + i:
+//   1. the u row (TY + 2p values, zeros off the grid), and at the output
+//      row x_o = x_in - p its x row (K, M, K's row sum, dK, dM) and the
+//      epilogue's inputs (u, r, x at the thread's point) arrive by cp.async
+//      kAhead rows ahead, into one of kStages buffer sets;
+//   2. the y stage (Ky u, My u: 2p+1 taps from shared memory with the
+//      thread's y band in registers for the whole march) runs once per
+//      input row, into a ring of the last 2p+1 (My u, Ky u) pairs.  The ring
+//      holds the thread's own column, so it is thread-private and lives in
+//      registers, shifted by one slot a row (2(2p+1) register moves);
+//   3. the x stage reads the x row in broadcast 16-byte loads and contracts
+//      the ring: raw = Kx (My u) + Mx (Ky u) at x_o, then the epilogue.
+// A row costs one block barrier.  Its buffers are small (9 KB at p = 7 in
+// f32), so kBlocks blocks share an SM; the register cap that follows is the
+// occupancy the host's chunk rule counts (laplace2d_tile in
+// ops/cuda_laplace2d.py).  A march unrolled by 2p+1 rows, which makes the
+// ring's slots static without the moves, was 22-28% slower on an H100 80GB
+// HBM3 at 700 W: it repeats the row's body, epilogue and loads included,
+// 2p+1 times, and spilled at p = 7.
+#include "march.cuh"
 
 using namespace pmg;
 
 namespace {
 
-// shared-memory elements for a tile; must match laplace2d_smem_elems() in
+// warps of a block, one y point a thread; must match NW in
 // ops/cuda_laplace2d.py
-__host__ __device__ inline int64_t smem_elems(int p, int TX, int TY) {
-  const int64_t WX = TX + 2 * p, WY = TY + 2 * p;
-  return WX * WY + 2 * WX * TY;
+constexpr int kNW = 4;
+constexpr int kTY = 32 * kNW;
+// blocks an SM holds at once (the register cap of __launch_bounds__: 128
+// registers a thread in float, 255 in double); laplace2d_blocks() mirrors it
+template <typename T>
+constexpr int kBlocks = sizeof(T) == 4 ? 4 : 2;
+// buffer sets of the cp.async pipeline and the rows in flight ahead of the
+// one computed (STAGES in ops/cuda_laplace2d.py)
+constexpr int kStages = 4;
+constexpr int kAhead = kStages - 1;
+
+// elements of one buffer set: the u row with its halo (rounded up to 16
+// bytes of float), the x row (xrow_elems), the epilogue's u, r, x
+__host__ __device__ constexpr int stage_elems(int p, int ty) {
+  return (ty + 2 * p + 3) / 4 * 4 + xrow_elems(p) + 3 * ty;
 }
 
-// y contraction of the window rows r < R (row length inY, output column c
-// centred at input index c + P):
-//     A[r][c] = (Ky u) in difference form,  B[r][c] = (My u).
-template <typename T, int P>
-__device__ __forceinline__ void stage_y(const T* in, int inY, T* A, T* B,
-                                        int R, int C, int64_t gy0,
-                                        const T* __restrict__ kb,
-                                        const T* __restrict__ ks,
-                                        const T* __restrict__ mb, int64_t N) {
-  const int rows = blockDim.x / C;
-  const int c = threadIdx.x % C, r0 = threadIdx.x / C;
-  if (r0 >= rows) return;
-  T k[2 * P + 1], m[2 * P + 1];
-  load_bands<T, P>(kb, mb, N, gy0 + c, k, m);
-  const T s = (gy0 + c < N) ? ks[gy0 + c] : T(0);
-  for (int r = r0; r < R; r += rows) {
-    const T* src = in + (int64_t)r * inY + c;
-    const T uc = src[P];
-    T ak = s * uc, am = T(0);
-#pragma unroll
-    for (int o = 0; o <= 2 * P; ++o) {
-      const T v = src[o];
-      ak += k[o] * (v - uc);
-      am += m[o] * v;
-    }
-    A[(int64_t)r * C + c] = ak;
-    B[(int64_t)r * C + c] = am;
-  }
-}
-
-// x contraction of the y-stage pair, rows [x][C] for x < WX:
-//     raw[x][c] = (Kx B)[x][c] in difference form + (Mx A)[x][c]
-// for x < TX, handed to epi(x, c, raw).
-template <typename T, int P, typename Epi>
-__device__ __forceinline__ void stage_x(const T* B, const T* A, int TX, int C,
-                                        int64_t gx0, const T* __restrict__ kb,
-                                        const T* __restrict__ ks,
-                                        const T* __restrict__ mb, int64_t N,
-                                        Epi epi) {
-  for (int xc = threadIdx.x; xc < TX * C; xc += blockDim.x) {
-    const int x = xc / C, c = xc % C;
-    T k[2 * P + 1], m[2 * P + 1];
-    load_bands<T, P>(kb, mb, N, gx0 + x, k, m);
-    const int64_t base = (int64_t)x * C + c;
-    const T bc = B[base + P * C];
-    T raw = ((gx0 + x < N) ? ks[gx0 + x] : T(0)) * bc;
-#pragma unroll
-    for (int o = 0; o <= 2 * P; ++o) {
-      raw += k[o] * (B[base + o * C] - bc) + m[o] * A[base + o * C];
-    }
-    epi(x, c, raw);
-  }
+// shared-memory elements of a block; must match laplace2d_smem_elems() in
+// ops/cuda_laplace2d.py
+__host__ __device__ constexpr int64_t smem_elems(int p, int ty) {
+  return (int64_t)kStages * stage_elems(p, ty);
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTY, kBlocks<T>)
 laplace2d_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                  const T* __restrict__ in2, T* __restrict__ out0,
                  T* __restrict__ out1, T* __restrict__ out2,
                  const T* __restrict__ kb, const T* __restrict__ ks,
                  const T* __restrict__ mb, const T* __restrict__ dk,
                  const T* __restrict__ dm, T c0, T c1, int N_, int mode,
-                 int TX, int TY) {
+                 int LX) {
+  constexpr int R = 2 * P + 1, TY = kTY, WY = TY + 2 * P;
+  constexpr int XOFF = (WY + 3) / 4 * 4, EOFF = XOFF + xrow_elems(P);
+  constexpr int SE = stage_elems(P, TY);
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stage = reinterpret_cast<T*>(smem_raw);  // [kStages][SE]
   const int64_t N = N_;
-  const int WX = TX + 2 * P, WY = TY + 2 * P;
-  T* win = reinterpret_cast<T*>(smem_raw);
-  T* A = win + WX * WY;  // Ky u on (WX, TY)
-  T* B = A + WX * TY;    // My u on (WX, TY)
-  const int64_t x0 = (int64_t)blockIdx.y * TX;
-  const int64_t y0 = (int64_t)blockIdx.x * TY;
+  const int t = threadIdx.x;
+  const int64_t y0 = (int64_t)blockIdx.x * TY, x0 = (int64_t)blockIdx.y * LX;
+  const int64_t xend = x0 + LX < N ? x0 + LX : N;
+  const int64_t xs = x0 - P;                  // the first input row
+  const int rows = (int)(xend - x0) + 2 * P;  // input rows of the march
+  const int64_t gy = y0 + t;  // the thread's y point, all march long
+  const bool yok = gy < N;
+  // the epilogue's inputs: u at the output (residual3t and the cheb
+  // family), in1 (every mode but apply), in2 (cheb, chebl)
+  const bool need_u = mode >= kRes3, need_r = mode != kApply,
+             need_x = mode == kCheb || mode == kChebL;
 
-  // u window with a halo of P (zeros outside the grid)
-  const int nwin = WX * WY;
-  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-    const int ly = i % WY, lx = i / WY;
-    const int64_t gx = x0 - P + lx, gy = y0 - P + ly;
-    win[i] = (gx >= 0 && gx < N && gy >= 0 && gy < N) ? u[gx * N + gy] : T(0);
+  Row<T, P> yr;
+  yr.load(kb, mb, ks, N, gy);
+  const T dky = yok ? dk[gy] : T(0), dmy = yok ? dm[gy] : T(0);
+
+  // everything row i of the march reads from global memory, into buffer
+  // set i % kStages: the u row x_in = xs + i, and at an output row
+  // x_o = x_in - P its x row and the epilogue's inputs
+  auto load_row = [&](int i) {
+    if (i < rows) {
+      T* st = stage + (i % kStages) * SE;
+      const int64_t xin = xs + i;
+      const bool xok = xin >= 0 && xin < N;
+      for (int c = t; c < WY; c += TY) {
+        const int64_t yy = y0 - P + c;
+        const bool ok = xok && yy >= 0 && yy < N;
+        cp_async_elem(st + c, ok ? u + xin * N + yy : u, ok);
+      }
+      const int64_t xo = xin - P;
+      if (xo >= x0) {
+        for (int e = t; e < 2 * R + 3; e += TY) {
+          const T* src = e < R        ? kb + e * N
+                         : e < 2 * R  ? mb + (e - R) * N
+                         : e == 2 * R ? ks
+                         : e == 2 * R + 1 ? dk
+                                          : dm;
+          cp_async_elem(st + XOFF + e, src + xo, true);
+        }
+        if (yok) {
+          const int64_t g = xo * N + gy;
+          T* e = st + EOFF + t;
+          if (need_u) cp_async_elem(e, u + g, true);
+          if (need_r) cp_async_elem(e + TY, in1 + g, true);
+          if (need_x) cp_async_elem(e + 2 * TY, in2 + g, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the ring: My u (rb) and Ky u (ra) of the last R input rows at the
+  // thread's point, the newest in slot R - 1
+  T rb[R], ra[R];
+#pragma unroll
+  for (int o = 0; o < R; ++o) rb[o] = ra[o] = T(0);
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) load_row(j);
+  for (int i = 0; i < rows; ++i) {
+    cp_async_wait<kAhead - 1>();
+    __syncthreads();  // row i in; row i - 1's buffer set read by all
+    load_row(i + kAhead);
+    const T* st = stage + (i % kStages) * SE;
+    // ---- y stage of input row i, into the ring's newest slot
+#pragma unroll
+    for (int o = 0; o + 1 < R; ++o) {
+      rb[o] = rb[o + 1];
+      ra[o] = ra[o + 1];
+    }
+    contract_km<T, P>(yr, st + t, ra[R - 1], rb[R - 1]);
+    // ---- x stage and epilogue at x_o = x0 - 2P + i (input row i - 2P + o
+    // in slot o)
+    if (i >= 2 * P && yok) {
+      Row<T, P> xr;
+      T dkx, dmx;
+      xr.load_smem(st + XOFF, dkx, dmx);
+      const T mbc = rb[P];
+      T rk = xr.s * mbc, rm = T(0);
+#pragma unroll
+      for (int o = 0; o < R; ++o) {
+        rk += xr.k[o] * (rb[o] - mbc);
+        rm += xr.m[o] * ra[o];
+      }
+      const T* e = st + EOFF + t;
+      laplace_epilogue(
+          mode, (x0 - 2 * P + i) * N + gy, rk + rm,
+          [&](int k) { return e[k * TY]; }, out0, out1, out2, c0, c1,
+          [&] { return dkx * dmy + dmx * dky; });
+    }
   }
-  __syncthreads();
-
-  // y: a = Ky u, b = My u on (WX, TY)
-  stage_y<T, P>(win, WY, A, B, WX, TY, y0, kb, ks, mb, N);
-  __syncthreads();
-
-  // x: raw = Kx b + Mx a on the tile, then the mode's epilogue
-  stage_x<T, P>(B, A, TX, TY, x0, kb, ks, mb, N, [&](int lx, int ly, T raw) {
-    const int64_t gx = x0 + lx, gy = y0 + ly;
-    if (gx >= N || gy >= N) return;
-    laplace_epilogue(mode, gx * N + gy, raw, u, in1, in2, out0, out1, out2,
-                     c0, c1, [&] { return dk[gx] * dm[gy] + dm[gx] * dk[gy]; });
-  });
 }
 
 template <typename T, int P>
 int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
              T* out2, const T* kb, const T* ks, const T* mb, const T* dk,
-             const T* dm, double c0, double c1, int N, int mode, int TX,
-             int TY, void* stream) {
-  const size_t smem = (size_t)smem_elems(P, TX, TY) * sizeof(T);
+             const T* dm, double c0, double c1, int N, int mode, int LX,
+             int TY, int NW, void* stream) {
+  constexpr size_t smem = (size_t)smem_elems(P, kTY) * sizeof(T);
+  static_assert(smem <= (size_t)kSmemLimit, "B.4 tile exceeds shared memory");
+  // the host's tile must be the one this instance was compiled for
+  if (TY != kTY || NW != kNW || LX < 1 || mode < kApply || mode > kChebDL)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem((const void*)laplace2d_kernel<T, P>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)ceil_div(N, TY), (unsigned)ceil_div(N, TX));
-  laplace2d_kernel<T, P><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)ceil_div(N, kTY), (unsigned)ceil_div(N, LX));
+  laplace2d_kernel<T, P><<<grid, kTY, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, (T)c0, (T)c1, N,
-      mode, TX, TY);
+      mode, LX);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
            const T* kb, const T* ks, const T* mb, const T* dk, const T* dm,
-           double c0, double c1, int N, int p, int mode, int TX, int TY,
-           void* stream) {
-  // stage_y maps one thread to one column of the tile's y extent
-  if (TY > kThreads || kThreads % TY != 0) return (int)cudaErrorInvalidValue;
+           double c0, double c1, int N, int p, int mode, int LX, int TY,
+           int NW, void* stream) {
   switch (p) {
 #define PMG_CASE(PP)                                                        \
   case PP:                                                                  \
     return launch_p<T, PP>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk,  \
-                           dm, c0, c1, N, mode, TX, TY, stream);
+                           dm, c0, c1, N, mode, LX, TY, NW, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -178,15 +226,17 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 
 }  // namespace
 
+// (LX, TY, NW): LX output rows per block along x, TY y points of the
+// block's column and NW warps (the compiled tile of laplace2d_tile).
 extern "C" int pmg_laplace2d_f32(const float* u, const float* in1,
                                  const float* in2, float* out0, float* out1,
                                  float* out2, const float* kb, const float* ks,
                                  const float* mb, const float* dk,
                                  const float* dm, double c0, double c1, int N,
-                                 int p, int mode, int TX, int TY,
+                                 int p, int mode, int LX, int TY, int NW,
                                  void* stream) {
   return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                       c1, N, p, mode, TX, TY, stream);
+                       c1, N, p, mode, LX, TY, NW, stream);
 }
 
 extern "C" int pmg_laplace2d_f64(const double* u, const double* in1,
@@ -194,8 +244,8 @@ extern "C" int pmg_laplace2d_f64(const double* u, const double* in1,
                                  double* out1, double* out2, const double* kb,
                                  const double* ks, const double* mb,
                                  const double* dk, const double* dm, double c0,
-                                 double c1, int N, int p, int mode, int TX,
-                                 int TY, void* stream) {
+                                 double c1, int N, int p, int mode, int LX,
+                                 int TY, int NW, void* stream) {
   return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                        c1, N, p, mode, TX, TY, stream);
+                        c1, N, p, mode, LX, TY, NW, stream);
 }

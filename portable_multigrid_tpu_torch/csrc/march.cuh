@@ -1,7 +1,7 @@
-// Helpers of the x-marching plane engines of the 3D Laplace family
-// (laplace.cu, B.1, and cheb2.cu, B.2).
+// Helpers of the x-marching engines of the Laplace family (laplace.cu, B.1,
+// cheb2.cu, B.2, and the 2D row engine laplace2d.cu, B.4).
 //
-// A block of either engine owns a y-z column whose rows are one warp of 32 z
+// A block of a 3D engine owns a y-z column whose rows are one warp of 32 z
 // lanes and marches along x.  A thread keeps the band coefficients of its z
 // row (its lane) and of its y rows in registers (Row) for the whole march;
 // the x row of the plane being finished comes from shared memory.  The

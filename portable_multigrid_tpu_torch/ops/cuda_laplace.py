@@ -74,15 +74,15 @@ def march_warps(itemsize: int) -> int:
     return 12 if itemsize == 4 else 8
 
 
-def chunk_planes(N: int, columns: int, lead: int) -> int:
+def chunk_planes(N: int, columns: int, lead: int, per_sm: int = 1) -> int:
     """Output planes LX of an x chunk.  A block marches LX + ``lead``
-    planes one after the other and the grid's ``columns`` y-z columns run
-    in waves of one block per SM, so N is cut into k chunks of
+    planes one after the other and the grid's ``columns`` columns run in
+    waves of ``per_sm`` blocks per SM, so N is cut into k chunks of
     LX = ceil(N / k) planes, the k that minimises waves x (LX + lead),
     ties to the larger chunk."""
 
     def cost(lx):
-        return -(-columns * -(-N // lx) // SMS) * (lx + lead)
+        return -(-columns * -(-N // lx) // (SMS * per_sm)) * (lx + lead)
 
     chunks = {-(-N // k) for k in range(1, max(N // 2, 1) + 1)}
     return min(chunks, key=lambda lx: (cost(lx), -lx))

@@ -46,6 +46,7 @@ from .cuda_laplace import (
     SMEM_LIMIT,
     CudaLaplaceOperator,
     banded,
+    chunk_planes,
     cuda_laplace_from_factors,
     twin_epilogue,
 )
@@ -58,23 +59,35 @@ from .laplace import (
 # kernel launches per mode, counted where the wrapper launches the kernel
 LAUNCHES = dict.fromkeys(MODES, 0)
 
-# (TX, TY) candidates; TY divides the 256 threads of a block
-_TILES = ((32, 64), (16, 64), (16, 32))
+NW = 4  # warps of a block, one y point a thread (kNW in laplace2d.cu)
+STAGES = 4  # buffer sets of the row pipeline, STAGES - 1 rows ahead (kStages)
 
 
-def laplace2d_smem_elems(p: int, tx: int, ty: int) -> int:
+def laplace2d_blocks(itemsize: int) -> int:
+    """Blocks an SM holds at once (kBlocks in laplace2d.cu, the register
+    cap of its launch bounds): 4 in float32, 2 in float64."""
+    return 4 if itemsize == 4 else 2
+
+
+def laplace2d_smem_elems(p: int, ty: int) -> int:
     """Shared-memory elements of one block (mirrors smem_elems in
-    laplace2d.cu): the u window and the two y-stage buffers."""
-    wx, wy = tx + 2 * p, ty + 2 * p
-    return wx * wy + 2 * wx * ty
+    laplace2d.cu): STAGES buffer sets of the u row with its halo of p a
+    side (rounded up to a multiple of four), the x row (2(2p+1) + 3 values,
+    rounded likewise) and the epilogue's three inputs on the column."""
+    def up4(n):
+        return -(-n // 4) * 4
+
+    return STAGES * (up4(ty + 2 * p) + up4(4 * p + 5) + 3 * ty)
 
 
-def laplace2d_tile(p: int, itemsize: int) -> tuple[int, int]:
-    """Largest candidate tile whose window and stage buffers fit."""
-    for tile in _TILES:
-        if laplace2d_smem_elems(p, *tile) * itemsize <= SMEM_LIMIT:
-            return tile
-    raise ValueError(f"no laplace2d tile fits shared memory at p={p}")
+def laplace2d_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
+    """(LX, TY, NW) of the B.4 launch for an N^2 grid, as laplace2d.cu
+    compiles it: columns of TY = 32 NW y points and x chunks of LX rows
+    with 2p lead-in rows, cut for :func:`laplace2d_blocks` blocks per SM."""
+    ty, per_sm = 32 * NW, laplace2d_blocks(itemsize)
+    if per_sm * laplace2d_smem_elems(p, ty) * itemsize > SMEM_LIMIT:
+        raise ValueError(f"no laplace2d tile fits shared memory at p={p}")
+    return chunk_planes(N, -(-N // ty), 2 * p, per_sm), ty, NW
 
 
 def apply_trimmed_2d(kband: torch.Tensor, ksum: torch.Tensor,
@@ -88,7 +101,8 @@ def apply_trimmed_2d(kband: torch.Tensor, ksum: torch.Tensor,
 @dataclasses.dataclass
 class CudaLaplace2D(CudaLaplaceOperator):
     """2D Q_p Laplace operator for the kernel path, on one device: the
-    surface of the 3D operator, with ``tile`` = (TX, TY)."""
+    surface of the 3D operator, with ``tile`` = (LX, TY, NW) of
+    :func:`laplace2d_tile`."""
 
     dim: int = 2
     kernel: ClassVar[str] = "pmg_laplace2d"
@@ -105,7 +119,7 @@ class CudaLaplace2D(CudaLaplaceOperator):
 
     @staticmethod
     def pick_tile(p: int, itemsize: int, N: int) -> tuple:
-        return laplace2d_tile(p, itemsize)
+        return laplace2d_tile(p, itemsize, N)
 
 
 def laplace2d_twin(op: CudaLaplace2D, mode: str, u: torch.Tensor, ins=(),

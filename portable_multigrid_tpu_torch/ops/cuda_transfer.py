@@ -11,15 +11,16 @@ applies W (x) W (x) W for W = P_t (prolongation) or W = P_t^T (restriction),
 with W in padded-row form; the twin contracts the dense W along each axis.
 ``coarse_trimmed=False`` pads or trims the (small) coarse side in the
 wrapper, for the hand-off to the full-grid coarsest level.  Restriction runs
-the x-marching ``restrict_kernel``, prolongation the tiled
-``transfer_kernel``.  A field with a leading component axis (elasticity) is
-one launch, the component a grid axis of the kernel; the twin contracts the
-last three axes.
+``restrict_kernel``, a march over the fine x planes, prolongation
+``prolong_kernel``, a march over the coarse x planes.  A field with a
+leading component axis (elasticity) is one launch, the component a grid
+axis of the kernel; the twin contracts the last three axes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -27,18 +28,31 @@ import torch
 from .. import _build
 from ..fem.basis import h_prolongation_matrix_1d
 from ..fem.space import FESpace
-from .cuda_laplace import SMEM_LIMIT, _suffix
+from .cuda_laplace import SMEM_LIMIT, _suffix, chunk_planes
 from .structured import contract
 from .transfer import _weights_1d, pad_last_planes, trim_last_planes
 
 MODES = ("restrict", "prolongate", "prolongate_and_add")
 LAUNCHES = dict.fromkeys(MODES, 0)
 
-SMEM_BUDGET = 96 * 1024  # two blocks per SM
-_TILES = ((8, 8, 32), (4, 4, 32), (4, 4, 16), (2, 2, 16))
 # restrict_kernel's tile: a chunk of 16 coarse x rows and a coarse (8, 32)
 # column of the y-z plane (kChunk, kRY, kRZ in transfer.cu)
 RESTRICT_TILE = (16, 8, 32)
+# prolong_kernel's fine (8, 32) column of the y-z plane and its
+# coarse-plane buffers, PROLONG_STAGES - 1 planes ahead (kPY, kPZ, kPStages
+# in transfer.cu)
+PROLONG_COLUMN = (8, 32)
+PROLONG_STAGES = 4
+
+
+def prolong_blocks(itemsize: int, w: int) -> int:
+    """Blocks of prolong_kernel an SM holds at once (kPBlocks in
+    transfer.cu, the register cap of its launch bounds): in float32 4 (64
+    registers a thread) for rows of w <= 5 taps and 3 (85) for wider
+    ones, in float64 2 (128)."""
+    if itemsize != 4:
+        return 2
+    return 4 if w <= 5 else 3
 
 
 def _axis_matrix_1d(M1: np.ndarray, n_c: int, stride_c: int, stride_f: int,
@@ -87,14 +101,6 @@ def window_length(starts: np.ndarray, w: int, t: int) -> int:
                for i in range(0, n, t))
 
 
-def transfer_smem_elems(tile, lens) -> int:
-    """Per-block shared-memory elements (mirrors smem_elems in transfer.cu);
-    ``lens`` are the y and z input extents a tile reaches."""
-    tx, ty, _ = tile
-    ly, lz = lens
-    return tx * ly * lz + tx * ty * lz
-
-
 def restrict_smem_bytes(w: int, lens, itemsize: int) -> int:
     """Per-block shared memory of restrict_kernel (mirrors
     restrict_smem_elems in transfer.cu): two fine-plane windows, the z
@@ -102,6 +108,27 @@ def restrict_smem_bytes(w: int, lens, itemsize: int) -> int:
     chunk, _, tz = RESTRICT_TILE
     ly, lz = lens
     return (2 * ly * lz + ly * tz + chunk * w) * itemsize + chunk * 4
+
+
+def prolong_smem_bytes(w: int, lx: int, lens, itemsize: int) -> int:
+    """Per-block shared memory of prolong_kernel (mirrors
+    prolong_smem_elems in transfer.cu): PROLONG_STAGES coarse-plane
+    windows, the z stage, the chunk's LX rows of weights, then their int
+    starts."""
+    ly, lz = lens
+    return ((PROLONG_STAGES * ly * lz + ly * PROLONG_COLUMN[1] + lx * w)
+            * itemsize + lx * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def prolong_chunk(n_out: int, w: int, count: int, itemsize: int) -> int:
+    """Fine x rows LX of a prolong_kernel chunk for ``count`` components of
+    n_out^3: a block marches about LX / 2 + w coarse planes, so the chunk
+    minimises waves x (LX + 2w) over the grid's columns
+    (:func:`~.cuda_laplace.chunk_planes`), :func:`prolong_blocks` an SM."""
+    ty, tz = PROLONG_COLUMN
+    columns = count * -(-n_out // ty) * -(-n_out // tz)
+    return chunk_planes(n_out, columns, 2 * w, prolong_blocks(itemsize, w))
 
 
 @dataclasses.dataclass
@@ -113,9 +140,8 @@ class _Direction:
     starts: torch.Tensor  # [n_out] int32
     vals: torch.Tensor  # [n_out, w]
     w: int
-    tile: tuple
-    lens: tuple  # input extents (LY, LZ) a tile reaches
-    march: bool  # restrict_kernel (W = P^T) rather than transfer_kernel
+    lens: tuple  # input extents (LY, LZ) a block's y-z column reaches
+    restrict: bool  # restrict_kernel (W = P^T), else prolong_kernel (W = P)
 
     @property
     def n_out(self) -> int:
@@ -126,27 +152,21 @@ class _Direction:
         return self.dense.shape[1]
 
 
-def _direction(W: np.ndarray, dtype, device, march: bool) -> _Direction:
+def _direction(W: np.ndarray, dtype, device, restrict: bool) -> _Direction:
     starts, vals, w = padded_rows(W)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    fits = []
-    for tile in (RESTRICT_TILE,) if march else _TILES:
-        lens = tuple(window_length(starts, w, t) for t in tile[1:])
-        nbytes = (restrict_smem_bytes(w, lens, itemsize) if march
-                  else transfer_smem_elems(tile, lens) * itemsize)
-        fits.append((nbytes, tile, lens))
-    # the largest tile that leaves room for two blocks per SM, else the
-    # largest that fits one
-    ok = ([f for f in fits if f[0] <= SMEM_BUDGET]
-          or [f for f in fits if f[0] <= SMEM_LIMIT])
-    if not ok:
+    column = RESTRICT_TILE[1:] if restrict else PROLONG_COLUMN
+    lens = tuple(window_length(starts, w, t) for t in column)
+    # a prolongation chunk has at most every output row
+    nbytes = (restrict_smem_bytes(w, lens, itemsize) if restrict
+              else prolong_smem_bytes(w, len(starts), lens, itemsize))
+    if nbytes > SMEM_LIMIT:
         raise ValueError("no transfer tile fits shared memory")
-    _, tile, lens = ok[0]
     return _Direction(
         dense=torch.as_tensor(W, dtype=dtype, device=device),
         starts=torch.as_tensor(starts, device=device),
         vals=torch.as_tensor(vals, dtype=dtype, device=device),
-        w=w, tile=tile, lens=lens, march=march)
+        w=w, lens=lens, restrict=restrict)
 
 
 def transfer_twin(W: torch.Tensor, src: torch.Tensor, add=None) -> torch.Tensor:
@@ -186,15 +206,17 @@ class CudaTransfer:
                           device=src.device)
         count = int(np.prod(lead))  # components: a grid axis of the kernel
         stream = _build.stream_handle(src.device)
-        if W.march:
+        if W.restrict:
             err = lib.fn("pmg_restrict", _suffix(src.dtype))(
                 src.data_ptr(), out.data_ptr(), W.starts.data_ptr(),
                 W.vals.data_ptr(), W.w, n_in, n_out, count, *W.lens, stream)
         else:
-            err = lib.fn("pmg_transfer", _suffix(src.dtype))(
+            err = lib.fn("pmg_prolong", _suffix(src.dtype))(
                 src.data_ptr(), None if add is None else add.data_ptr(),
                 out.data_ptr(), W.starts.data_ptr(), W.vals.data_ptr(), W.w,
-                n_in, n_out, count, *W.tile, *W.lens, stream)
+                n_in, n_out, count,
+                prolong_chunk(n_out, W.w, count, src.element_size()),
+                *W.lens, stream)
         if err:
             raise RuntimeError(f"transfer kernel ({mode}) launch failed: "
                                f"CUDA error {err}")
@@ -224,9 +246,9 @@ def cuda_transfer_from_matrix(P: np.ndarray, dtype=torch.float32, device="cpu",
     weights and masks folded in (:func:`_axis_matrix_1d`)."""
     P_t = np.asarray(P, np.float64)[:-1, :-1]  # trimmed: last planes dropped
     return CudaTransfer(
-        prolong=_direction(P_t, dtype, device, march=False),
+        prolong=_direction(P_t, dtype, device, restrict=False),
         restrict_=_direction(np.ascontiguousarray(P_t.T), dtype, device,
-                             march=True),
+                             restrict=True),
         coarse_trimmed=coarse_trimmed,
     )
 

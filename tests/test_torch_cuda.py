@@ -10,6 +10,7 @@ skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
 
+import dataclasses
 import json
 import os
 
@@ -115,6 +116,28 @@ def test_laplace2d_matches_twin(cuda, p, r, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lx", [None, 11])
+def test_laplace2d_chunks_and_partial_column(cuda, lx, dtype):
+    """B.4 at 448^2 (p = 7, r = 6): four y columns of 128 points, the last
+    one half full, in the x chunks of the launch's rule and in chunks of
+    11 rows, the last one partial."""
+    p = 7
+    rng = np.random.default_rng(p)
+    op = cuda_laplace2d.make_cuda_laplace2d(FESpace(HyperCubeMesh(2, 6), p),
+                                            dtype, cuda)
+    if lx:
+        op = dataclasses.replace(op, tile=(lx,) + op.tile[1:])
+    N = op.n * p
+    assert N % op.tile[1] and -(-N // op.tile[0]) > 1
+    u, r_, x = (_field(N, rng, dtype, cuda, dim=2) for _ in range(3))
+    for mode in cuda_laplace.MODES:
+        ins = tuple({"r": r_, "x": x}[k] for k in _INS.get(mode, ("r", "x")))
+        scal = _SCAL.get(mode, (0.59, 1.26))
+        _close(op.run(mode, u, ins, scal), op.twin(mode, u, ins, scal), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("p", range(1, 8))
 def test_elasticity_matches_twin(cuda, p, dtype):
     """Every B.5 mode against its twin at r = 2 (partial tiles), with
@@ -166,6 +189,35 @@ def test_vector_transfer_is_one_launch(cuda, mode):
     torch.cuda.synchronize()
     assert cuda_transfer.LAUNCHES[mode] == before + 1
     _close([got], [want], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p,lead", [(7, ()), (6, ()), (4, (3,))],
+                         ids=["widest", "scalar", "vector"])
+def test_prolongation_in_chunks(cuda, p, lead, dtype):
+    """B.3's prolongation, plain and with the addend, one refinement up to
+    r = 4 (p = 7: 56^3 to 112^3, rows of w = 8 taps over a partial z tile;
+    p = 6: 96^3 and p = 4: 3 x 64^3, where the launch's last x chunk is
+    partial in both dtypes), in several x chunks; one launch a pass."""
+    rng = np.random.default_rng(p)
+    tr = cuda_transfer.make_cuda_h_transfer(FESpace(HyperCubeMesh(3, 3), p),
+                                            FESpace(HyperCubeMesh(3, 4), p),
+                                            dtype, cuda)
+    W = tr.prolong
+    count = int(np.prod(lead))
+    lx = cuda_transfer.prolong_chunk(W.n_out, W.w, count,
+                                     torch.empty((), dtype=dtype).element_size())
+    assert W.w == p + 1 and -(-W.n_out // lx) > 1 and (p == 7 or W.n_out % lx)
+    c = _field(W.n_in, rng, dtype, cuda, lead=lead)
+    dst = _field(W.n_out, rng, dtype, cuda, lead=lead)
+    before = dict(cuda_transfer.LAUNCHES)
+    _close([tr.prolongate(c)], [cuda_transfer.transfer_twin(W.dense, c)], dtype)
+    _close([tr.prolongate_and_add(dst, c)],
+           [cuda_transfer.transfer_twin(W.dense, c, dst)], dtype)
+    torch.cuda.synchronize()
+    assert cuda_transfer.LAUNCHES["prolongate"] == before["prolongate"] + 1
+    assert (cuda_transfer.LAUNCHES["prolongate_and_add"]
+            == before["prolongate_and_add"] + 1)
 
 
 def test_elasticity_row_through_kernels(cuda):

@@ -29,9 +29,12 @@ from portable_multigrid_tpu.ops.pallas_laplace2d import make_pallas_laplace2d
 from portable_multigrid_tpu_torch import PolynomialMultigridPoisson
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
+from portable_multigrid_tpu_torch.ops.cuda_laplace import SMEM_LIMIT
 from portable_multigrid_tpu_torch.ops.cuda_laplace2d import (
     CudaLaplace2D,
     LAUNCHES,
+    laplace2d_blocks,
+    laplace2d_smem_elems,
     laplace2d_tile,
     make_cuda_laplace2d,
 )
@@ -192,9 +195,16 @@ def test_cpu_tensors_run_the_twin_and_count_nothing():
 
 @pytest.mark.parametrize("p", [1, 4, 7])
 def test_tile_fits_shared_memory(p):
-    for itemsize in (4, 8):
-        tx, ty = laplace2d_tile(p, itemsize)
-        assert 256 % ty == 0 and ty <= 256 and tx >= 1
+    """The operator carries the kernel's (LX, TY, NW) for its own grid:
+    one y point a thread, the blocks an SM holds within shared memory."""
+    for itemsize, dtype in ((4, torch.float32), (8, torch.float64)):
+        op = make_cuda_laplace2d(FESpace(HyperCubeMesh(2, 3), p), dtype)
+        N = op.trimmed_shape[0]
+        lx, ty, nw = op.tile
+        assert op.tile == laplace2d_tile(p, itemsize, N)
+        assert ty == 32 * nw and 1 <= lx <= N
+        assert (laplace2d_blocks(itemsize) * laplace2d_smem_elems(p, ty)
+                * itemsize <= SMEM_LIMIT)
 
 
 def test_levels_share_one_operator():

@@ -6,9 +6,10 @@
   Q4 r3 <-> r2) to 2e-5 in float32, the JAX package's own bound
   (tests/test_pallas_transfer.py), for both coarse representations;
 * restriction is the exact transpose: <P c, f> = <c, R f>;
-* the x-marching restriction of csrc/transfer.cu, emulated in plain torch
-  from the padded rows and the launch geometry, against ``transfer_twin``
-  on scalar and [3, ...] fields.
+* the x-marching restriction and prolongation of csrc/transfer.cu,
+  emulated in plain torch from the padded rows and the launch geometry,
+  against ``transfer_twin`` on scalar and [3, ...] fields, with and without
+  the addend.
 """
 
 import jax.numpy as jnp
@@ -26,8 +27,11 @@ from portable_multigrid_tpu.ops.transfer import (
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
 from portable_multigrid_tpu_torch.ops.cuda_transfer import (
+    PROLONG_COLUMN,
+    PROLONG_STAGES,
     RESTRICT_TILE,
     make_cuda_h_transfer,
+    prolong_chunk,
     transfer_twin,
 )
 from portable_multigrid_tpu_torch.ops.transfer import (
@@ -190,9 +194,113 @@ def test_restrict_schedule_matches_twin(p, r, lead):
     coarse, fine = _pair(p, r)
     tr = make_cuda_h_transfer(coarse, fine, torch.float64)
     W = tr.restrict_
-    assert W.march and W.n_in == 2 * W.n_out
+    assert W.restrict and W.n_in == 2 * W.n_out
     f = torch.as_tensor(np.random.default_rng(p).standard_normal(
         lead + (W.n_in,) * 3))
     want = transfer_twin(W.dense, f)
     assert _rel(want, restrict_emulation(W, f)) < 1e-13
     assert _rel(want, tr.restrict(f)) == 0.0
+
+
+def prolongation_emulation(W, c, add=None, lx=None):
+    """prolong_kernel's schedule in plain torch: per component, fine x
+    chunk of LX rows (``lx`` overrides the launch's) and fine (y, z)
+    column, march over the coarse x planes the chunk reaches, the loads
+    PROLONG_STAGES - 1 planes ahead into rotating buffers; each plane's
+    (LY, LZ) window (zeros past the grid) contracted along z, then y, from
+    the padded rows into a ring of the last w planes; a group of chunk
+    rows that share a window (at most 2w) is emitted, with its addend, when
+    the plane that ends the window arrives."""
+    ty, tz = PROLONG_COLUMN
+    starts = [int(s) for s in W.starts]
+    vals, w, (LY, LZ) = W.vals, W.w, W.lens
+    n_in, n_out = W.n_in, W.n_out
+    lead = c.shape[:-3]
+    fields = c.reshape((-1,) + c.shape[-3:])
+    adds = None if add is None else add.reshape((-1,) + add.shape[-3:])
+    LX = lx or prolong_chunk(n_out, w, fields.shape[0], c.element_size())
+    out = torch.full((fields.shape[0],) + (n_out,) * 3, float("nan"),
+                     dtype=c.dtype)
+
+    def rows(r0, t, s0):
+        """(offsets in the window, [t, w] values) of rows r0..r0+t-1, zero
+        rows past n_out."""
+        off = torch.zeros(t, dtype=torch.long)
+        v = torch.zeros(t, w, dtype=c.dtype)
+        for j in range(min(t, n_out - r0)):
+            off[j] = starts[r0 + j] - s0
+            v[j] = vals[r0 + j]
+        return off, v
+
+    taps = torch.arange(w)
+    for comp, coarse in enumerate(fields):
+        for x0 in range(0, n_out, LX):
+            cn = min(LX, n_out - x0)
+            f0 = starts[x0]
+            n_planes = starts[x0 + cn - 1] + w - f0
+            for y0 in range(0, n_out, ty):
+                for z0 in range(0, n_out, tz):
+                    sy, sz = starts[y0], starts[z0]
+                    oy, vy = rows(y0, ty, sy)
+                    oz, vz = rows(z0, tz, sz)
+                    ny, nz = min(ty, n_out - y0), min(tz, n_out - z0)
+                    buf = [None] * PROLONG_STAGES
+
+                    def load_plane(j):
+                        if j < n_planes:
+                            win = torch.zeros(LY, LZ, dtype=c.dtype)
+                            part = coarse[f0 + j, sy:sy + LY, sz:sz + LZ]
+                            win[:part.shape[0], :part.shape[1]] = part
+                            buf[j % PROLONG_STAGES] = (j, win)
+
+                    ring = [torch.zeros(ty, tz, dtype=c.dtype)] * w
+                    nxt = 0
+                    for j in range(PROLONG_STAGES - 1):
+                        load_plane(j)
+                    for j in range(n_planes):
+                        load_plane(j + PROLONG_STAGES - 1)
+                        jj, win = buf[j % PROLONG_STAGES]
+                        assert jj == j
+                        # z: zb[ly, c] = sum_k vz[c, k] win[ly, oz[c] + k]
+                        zb = (win[:, oz[:, None] + taps] * vz).sum(-1)
+                        # y: v[r, c] = sum_k vy[r, k] zb[oy[r] + k, c]
+                        v = (zb[oy[:, None] + taps] * vy[..., None]).sum(1)
+                        ring = ring[1:] + [v]
+                        while nxt < cn and starts[x0 + nxt] + w - 1 == f0 + j:
+                            # a group: up to 2w rows that share a window
+                            group = [r for r in range(nxt, min(nxt + 2 * w, cn))
+                                     if starts[x0 + r] == starts[x0 + nxt]]
+                            for r in group:
+                                acc = sum(vals[x0 + r, k] * ring[k]
+                                          for k in range(w))[:ny, :nz]
+                                if adds is not None:
+                                    acc = acc + adds[comp, x0 + r,
+                                                     y0:y0 + ny, z0:z0 + nz]
+                                out[comp, x0 + r, y0:y0 + ny, z0:z0 + nz] = acc
+                            nxt += len(group)
+                    assert nxt == cn
+    return out.reshape(lead + (n_out,) * 3)
+
+
+@pytest.mark.parametrize("with_add", [False, True], ids=["plain", "add"])
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["scalar", "vector"])
+@pytest.mark.parametrize("p,r,lx", [(1, 2, None), (2, 3, 5), (3, 4, 20),
+                                     (7, 2, 9)])
+def test_prolongation_schedule_matches_twin(p, r, lx, lead, with_add):
+    """Chunks several and partial or one, cutting coarse cells or not,
+    column tiles partial or several (fine rows: 4 at p = 1, r = 2, rows of
+    one tap, in the launch's chunk; 16 at p = 2, r = 3 in chunks of 5; 48
+    at p = 3, r = 4 in chunks of 20 over six y tiles and two z tiles; 28
+    at p = 7, r = 2, the widest rows, in chunks of 9)."""
+    coarse, fine = _pair(p, r)
+    tr = make_cuda_h_transfer(coarse, fine, torch.float64)
+    W = tr.prolong
+    assert not W.restrict and W.n_out == 2 * W.n_in and W.w <= p + 1
+    rng = np.random.default_rng(p)
+    c = torch.as_tensor(rng.standard_normal(lead + (W.n_in,) * 3))
+    add = (torch.as_tensor(rng.standard_normal(lead + (W.n_out,) * 3))
+           if with_add else None)
+    want = transfer_twin(W.dense, c, add)
+    assert _rel(want, prolongation_emulation(W, c, add, lx)) < 1e-13
+    got = tr.prolongate_and_add(add, c) if with_add else tr.prolongate(c)
+    assert _rel(want, got) == 0.0
