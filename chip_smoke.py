@@ -7,7 +7,8 @@
 alone (for A/B runs of kernel variants, each from its own tree, in one
 call); it prints no result line.
 
-Phases (each raises on failure; nothing is allowed to fall back to the CPU):
+Phases (each raises on failure; nothing is allowed to fall back to the CPU
+or from the CUDA graph to the eager V-cycle):
 
   1. card and build — the card's name and power limit, then the kernels
      built from ``portable_multigrid_tpu_torch/csrc`` (one nvcc per source,
@@ -17,7 +18,8 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      twin on the card, in float32 and float64: the 3D kernels (B.1-B.3) at
      p = 1..7, r = 2 and at every level shape of the Q4 r = 6 main path
      (p = 4, r = 1..6: trimmed 8^3 to 256^3, and B.1 on the 1-cell
-     level's 4^3, r = 0); the 2D kernel (B.4) at
+     level's 4^3, r = 0) and of the p -> h ladder of phase 12 (p = 1,
+     r = 0..6, B.1 alone at r = 0; p = 2, r = 6); the 2D kernel (B.4) at
      p = 1..7, r = 2 and 3 (partial columns) and at every level shape of
      the Q7 r = 9 ladder ((512 p)^2, p = 1..7: 512^2 to 3584^2); bound 1e-5
      (f32) / 1e-12 (f64) on the max error relative to the twin's max
@@ -26,37 +28,43 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
      ``polynomial_2d`` rows of tests/golden_convergence.json in float64
      through the kernels: CG counts exact, L2 norms to 1e-10;
   4. main path — GeometricMultigridPoisson(3, 4, 6, float32, "auto") on the
-     card, solved to rtol 1e-5: converged in <= 4 iterations, L2 norm within
-     1e-5 of 0.0249871331, every tensor on the card, and the launch count of
-     each of its kernels (B.1, B.2, B.3) raised by that run;
+     card, solved to rtol 1e-5 eagerly (``graph=False``), which gives the
+     launch count of each of its kernels (B.1, B.2, B.3), and through the
+     CUDA graph of the V-cycle (the model's default): the same CG count,
+     the solutions within GRAPH_BOUND of each other (bit for bit
+     expected); converged in <= 4 iterations, L2 norm within 1e-5 of
+     0.0249871331, every tensor on the card; the capture's seconds;
   5. timing of the main path — CUDA events, warm-up then the median of 10
-     runs: the V-cycle with B.2 pairs and with B.1 single steps in their
-     place (the smoothers' ``op_cheb2`` set to None; CG count of each), in
-     turns, its split by level and the profiler's device-busy share and
-     kernel split, the whole solve, and each 3D kernel mode against its
-     twin at r = 6 (and, in the log only, the kernel's device time: 10
-     calls back to back behind a device spin that lets the host enqueue
-     them all, which leaves the host's launch work out), beside its bound (the larger of its bytes over the HBM
-     rate and its FMAs over the FP32 rate; B.1's modes summed up on one
-     line with their roofline shares), each B.2 mode beside two B.1
-     ``cheb`` passes (the work one pair replaces) and, for B.3, beside one
-     PyTorch call that computes the same function (``library_ms``: an
-     einsum over the three axes, ``add_`` for ``prolongate_and_add``);
+     runs: the eager and the graphed V-cycle, each with B.2 pairs and with
+     B.1 single steps in their place (the smoothers' ``op_cheb2`` set to
+     None; CG count of each), in turns, the eager one's split by level,
+     the profiler's device-busy share of both against their unprofiled
+     wall times and the kernel split, the whole solve, and each 3D kernel
+     mode against its twin at r = 6 (and, in the log only, the kernel's
+     device time: 10 calls back to back behind a device spin that lets the
+     host enqueue them all, which leaves the host's launch work out),
+     beside its bound (the larger of its bytes over the HBM rate and its
+     FMAs over the FP32 rate; B.1's modes summed up on one line with their
+     roofline shares), each B.2 mode beside two B.1 ``cheb`` passes (the
+     work one pair replaces) and, for B.3, beside one PyTorch call that
+     computes the same function (``library_ms``: an einsum over the three
+     axes, ``add_`` for ``prolongate_and_add``);
   6. second path — the reference's second driver,
      PolynomialMultigridPoisson(2, 7, 9, 7, "auto") on the card (12.8M
      DoFs, p = 7..1 on one mesh): in float64 to rtol 1e-12 (<= 6 CG
      iterations and the count of the plain "kron" path, L2 within 1e-9 of
      that path's and 1e-7 of the mesh-converged 0.0412614897); in float32
      to rtol 1e-5 (<= 4 iterations, L2 within 1e-3 of the float64 value);
-     every tensor on the card and the B.4 launch count raised by each
-     kernel run;
-  7. timing of the second path — the V-cycle (ms, DoF/s), its split by
-     level with the p = 1 coarse solve on its own line, the profiler's
-     busy share and B.4's device time per V-cycle by degree, the CG solve,
-     each B.4 mode against its twin at 3584^2, and at every level of the
-     ladder its B.4 launches per V-cycle (from the profile) and the device
-     time of its busiest mode against the bound: ``cheb`` on a smoothing
-     level, ``apply`` on the p = 1 level, the 512^2 coarse solve;
+     each kernel solve eager and graphed as in phase 4; every tensor on
+     the card and the B.4 launch count raised by each eager run;
+  7. timing of the second path — the eager and the graphed V-cycle in
+     turns (ms, DoF/s), the eager one's split by level with the p = 1
+     coarse solve on its own line, the busy share of both and B.4's
+     device time per V-cycle by degree, the CG solve, each B.4 mode
+     against its twin at 3584^2, and at every level of the ladder its B.4
+     launches per V-cycle (from the profile) and the device time of its
+     busiest mode against the bound: ``cheb`` on a smoothing level,
+     ``apply`` on the p = 1 level, the 512^2 coarse solve;
   8. elasticity kernel vs twin — every mode of B.5, and of B.3 on [3, ...]
      fields (one launch, the component a grid axis of the kernel),
      against its twin in float32 and float64, with mu = 0.7, lam = 1.3 (at
@@ -70,13 +78,34 @@ Phases (each raises on failure; nothing is allowed to fall back to the CPU):
  10. third path — the elasticity solve at full width,
      ElasticityMultigrid(3, 3, 6, float32, "auto") on the card (21,567,171
      DoFs), to rtol 1e-5: converged, every tensor on the card, the B.5 and
-     B.3 launch counts raised by the run; in float64 to rtol 1e-12 through
-     B.5 and on the plain "kron" path: the same CG count, L2 norms within
-     1e-9; the float32 L2 norm within 1e-4 of the float64 one;
- 11. timing of the third path — the V-cycle (ms, DoF/s), its split by
-     level, the device-busy share, the CG solve, and each B.5 and vector
-     B.3 mode against its twin at 3 x 192^3 beside its bound (and B.3's
-     beside its ``library_ms``).
+     B.3 launch counts raised by the eager run; in float64 to rtol 1e-12
+     through B.5 and on the plain "kron" path: the same CG count, L2 norms
+     within 1e-9; the float32 L2 norm within 1e-4 of the float64 one; each
+     kernel solve eager and graphed as in phase 4;
+ 11. timing of the third path — the eager and the graphed V-cycle in turns
+     (ms, DoF/s), the eager one's split by level, the busy share of both,
+     the CG solve, and each B.5 and vector B.3 mode against its twin at
+     3 x 192^3 beside its bound (and B.3's beside its ``library_ms``);
+ 12. config 3 at full width — MixedMultigridPoisson(3, 6, (1, 2, 4),
+     float32, "auto"): 9 levels, p = 1 on 2^3..65^3 points, then p = 2 and
+     p = 4 on the 64^3-cell mesh (16,974,593 DoFs); to rtol 1e-5, eager
+     and graphed as in phase 4: converged, L2 within 1e-5 of 0.0249871331,
+     every tensor on the card, the B.1, B.2 and B.3 launch counts raised
+     by the eager run; in float64 to rtol 1e-12 through the kernels and on
+     "kron": the same CG count, L2 norms within 1e-9; the eager and
+     graphed V-cycle in turns (ms, DoF/s) and the eager one's split by
+     level;
+ 13. config 5 at full width — MixedPrecisionPoisson(3, 4, 6, float32,
+     "auto") to rtol 1e-12 (float64 CG on B.1's float64 apply, a float32
+     graphed V-cycle): CG count within 2 of
+     GeometricMultigridPoisson(3, 4, 6, float64, "auto")'s, L2 within
+     1e-9 relative of it; then ``iterative_refinement`` of the same
+     problem (inner: float32 CG to rtol 1e-6 on B.1 with the graphed
+     V-cycle; outer: B.1's float64 apply): <= 5 cycles, residual <=
+     1e-12 ||b||, x within 1e-10 max|x| of the float64 solve; the
+     whole-solve ms of the three solves with their CG and cycle counts.
+
+Every phase's seconds, and the total, are printed at the end.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object.
@@ -100,6 +129,10 @@ from portable_multigrid_tpu_torch import _build
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
 from portable_multigrid_tpu_torch.models.elasticity import ElasticityMultigrid
+from portable_multigrid_tpu_torch.models.mixed import (
+    MixedMultigridPoisson,
+    MixedPrecisionPoisson,
+)
 from portable_multigrid_tpu_torch.models.poisson import (
     GeometricMultigridPoisson,
     PolynomialMultigridPoisson,
@@ -113,7 +146,8 @@ from portable_multigrid_tpu_torch.ops import (
 )
 from portable_multigrid_tpu_torch.ops.structured import exact_matmuls
 from portable_multigrid_tpu_torch.solvers.cg import cg
-from portable_multigrid_tpu_torch.solvers.vcycle import VCycle
+from portable_multigrid_tpu_torch.solvers.refinement import iterative_refinement
+from portable_multigrid_tpu_torch.solvers.vcycle import GraphedVCycle, VCycle
 
 GOLDEN_L2_Q4_R6 = 0.0249871331
 # bound on the float32 main path's L2 norm against the golden one: B.1, the
@@ -124,6 +158,10 @@ F32_L2_BOUND_3D = 1e-5
 # rows agree to 1e-10
 MESH_L2_2D = 0.0412614897
 BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the graphed solve against the eager one: max |x_graph - x_eager| over the
+# eager solution's max magnitude, by the solution's dtype (bit for bit
+# expected: the graph replays the same kernels in the same order)
+GRAPH_BOUND = {torch.float32: 1e-6, torch.float64: 1e-12}
 # CG bounds of the 2D Q7 r=9 ladder.  The float64 count rises with the mesh
 # as the JAX package's does (the coarse Chebyshev-as-solver is capped at
 # degree 512): 4 at r=4, 5 at r=5 and r=6, 6 at r=9.  The float32 solve
@@ -140,6 +178,7 @@ ELASTICITY_F64 = {(2, 2): (4, 0.027343514900882587),
                   (3, 2): (5, 0.02736279346880834),
                   (3, 3): (6, 0.027367902132579464)}
 MU_LAM = (0.7, 1.3)  # B.5 against its twin: mu != lam
+LADDER_3 = (1, 2, 4)  # config 3's p-ladder, coarse to fine
 F32_L2_BOUND_ELASTICITY = 1e-4
 # the H100 SXM's published HBM rate and FP32 rate outside the tensor cores
 # (dense, at the full 700 W power limit)
@@ -493,6 +532,42 @@ def phase_golden(device, table) -> None:
     log("phase 3: ok")
 
 
+def solve_both(prob, rtol: float, names, what: str):
+    """Solve eagerly (``graph=False``) and through the model's graphed
+    V-cycle: the same CG count and solutions within GRAPH_BOUND, and every
+    kernel in ``names`` launched by both (at capture, for the graph).
+    Returns the graphed solution and stats and the eager run's launches
+    by kernel and mode, counted since the last ``reset_counts``."""
+    t0 = time.perf_counter()
+    xe, se = prob.solve(rtol=rtol, graph=False)
+    synchronize(prob.device)
+    t_eager = time.perf_counter() - t0
+    per_mode = {name: dict(KERNELS[name]["counts"]) for name in names}
+    reset_counts()
+    t0 = time.perf_counter()
+    x, st = prob.solve(rtol=rtol, verbose=True)
+    synchronize(prob.device)
+    t_graph = time.perf_counter() - t0
+    captured = {name: sum(KERNELS[name]["counts"].values()) for name in names}
+    mg = prob.preconditioner()
+    warm, capture = next(iter(mg.capture_seconds.values()))
+    err = rel_err(x, xe)[1]
+    log(f"  {what}: eager {se.iterations} CG iterations in {t_eager:.2f} s, "
+        f"graphed {st.iterations} in {t_graph:.2f} s (warm-up {warm:.3f} s, "
+        f"capture and instantiation {capture:.3f} s); graphed vs eager max "
+        f"rel diff {err:.2e}; launches counted in the graphed solve "
+        f"(capture, warm-up, CG operator) {captured}")
+    if st.iterations != se.iterations or not err <= GRAPH_BOUND[x.dtype]:
+        raise RuntimeError(f"{what}: graphed solve ({st.iterations} "
+                           f"iterations) off the eager one ({se.iterations}) "
+                           f"by {err:.2e}")
+    if not isinstance(mg, GraphedVCycle) or min(captured.values()) == 0:
+        raise RuntimeError(f"{what}: the solve did not run the graphed "
+                           f"V-cycle through every kernel: {captured}")
+    del xe
+    return x, st, per_mode
+
+
 def phase_main(device, r: int, l2_ref: float, max_iterations: int):
     """Phase 4: the main path, counted from construction to solution."""
     log(f"phase 4: main path GeometricMultigridPoisson(3, 4, {r}, float32, auto)")
@@ -502,11 +577,9 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
     prob = GeometricMultigridPoisson(3, 4, r, torch.float32, "auto", device)
     synchronize(device)
     t_setup = time.perf_counter() - t0
-    x, st = prob.solve(rtol=1e-5, verbose=True)
-    synchronize(device)
-    per_mode = {name: dict(KERNELS[name]["counts"])
-                for name in path_kernels("3d")}
-    log(f"  setup {t_setup:.2f} s; launches per mode: {per_mode}")
+    x, st, per_mode = solve_both(prob, 1e-5, path_kernels("3d"), "main path")
+    log(f"  setup {t_setup:.2f} s; launches per mode (construction and the "
+        f"eager solve): {per_mode}")
     l2_rel = abs(st.solution_l2_norm / l2_ref - 1.0)
     log(f"  CG iterations {st.iterations}, residual {st.residual_norm:.3e}, "
         f"L2 {st.solution_l2_norm:.10f}, "
@@ -522,35 +595,86 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
     return prob, st, per_mode
 
 
+def time_turns(vcycles: dict, rhs) -> dict:
+    """The median ms of 10 applies of each V-cycle, taken in turns in the
+    dict's order and back: name -> [first, second]."""
+    runs = {name: [] for name in vcycles}
+    for name in list(vcycles) + list(vcycles)[::-1]:
+        runs[name].append(cuda_ms(lambda v=vcycles[name]: v.apply(rhs)))
+    return runs
+
+
+def log_launches(mg, rhs) -> None:
+    """Each kernel's launches in one eager V-cycle, by mode."""
+    reset_counts()
+    mg.apply(rhs)
+    synchronize(rhs.device)
+    counts = {name: {m: n for m, n in k["counts"].items() if n}
+              for name, k in KERNELS.items()}
+    log(f"  launches per eager V-cycle: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    reset_counts()
+
+
+def graph_report(card: str, prob, rhs, n_dofs: int, vcycles=None):
+    """The eager and the graphed V-cycle of a model (or the named pairs of
+    ``vcycles``) in turns, ms and DoF/s, then the profiler's busy share of
+    the first eager and the first graphed one against their unprofiled
+    wall times.  Returns (mean ms by name, the eager profile's rows)."""
+    if vcycles is None:
+        vcycles = {"eager": prob.preconditioner(graph=False),
+                   "graphed": prob.preconditioner()}
+    runs = time_turns(vcycles, rhs)
+    log_launches(vcycles[next(iter(vcycles))], rhs)
+    for name, ts in runs.items():
+        log(f"  V-cycle {name:16s}: {ts[0]:.3f} / {ts[1]:.3f} ms = "
+            f"{n_dofs / (min(ts) * 1e-3):.4e} DoF/s ({n_dofs} DoFs) [{card}]")
+    wall = {name: statistics.mean(ts) for name, ts in runs.items()}
+    eager, graphed = (next(k for k, v in vcycles.items()
+                           if isinstance(v, GraphedVCycle) == g)
+                      for g in (False, True))
+    rows = device_busy(vcycles[eager], rhs, wall[eager], eager)
+    device_busy(vcycles[graphed], rhs, wall[graphed], graphed)
+    busy = sum(r[0] for r in rows)
+    log(f"  device work of the eager V-cycle over the graphed one's wall: "
+        f"{busy:.3f} / {wall[graphed]:.3f} ms = "
+        f"{100 * busy / wall[graphed]:.1f}%; graphed / eager wall "
+        f"{wall[graphed] / wall[eager]:.3f} [{card}]")
+    return wall, rows
+
+
+def log_levels(prob, rhs, name=lambda k, sp: f"r={k}") -> None:
+    """The eager V-cycle's own time by level (in-run CUDA events)."""
+    own = level_times(prob, rhs)
+    for k, (sp, lvl) in enumerate(zip(prob.spaces, prob.levels)):
+        what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
+        log(f"  level {name(k, sp)} ({lvl.op.n_dofs} DoFs, {what}): "
+            f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
+
+
 def phase_timing(card: str, prob, st, device) -> dict:
     """Phase 5: V-cycle, CG solve and every kernel mode vs its twin."""
     log(f"phase 5: timing on {card} (CUDA events, median of 10)")
-    mg = prob.preconditioner()
     rhs = prob.rhs()
     fine_op = prob.levels[-1].op
     n_dofs = prob.spaces[-1].n_dofs
     singles = singles_vcycle(prob)
-    its = {k: cg(fine_op.apply, rhs, v.apply, rtol=1e-5).iterations
-           for k, v in (("pairs", mg), ("singles", singles))}
-    runs = {"pairs": [], "singles": []}
-    for name in ("pairs", "singles", "singles", "pairs"):
-        v = mg if name == "pairs" else singles
-        runs[name].append(cuda_ms(lambda v=v: v.apply(rhs)))
-    for name, ts in runs.items():
-        log(f"  V-cycle with {name:7s} (B.2 {'pairs' if name == 'pairs' else 'off'}"
-            f"): {ts[0]:.3f} / {ts[1]:.3f} ms = "
-            f"{n_dofs / (min(ts) * 1e-3):.4e} DoF/s ({n_dofs} DoFs; "
-            f"CG {its[name]} iterations to rtol 1e-5)")
-    own = level_times(prob, rhs)
-    for k, sp in enumerate(prob.spaces):
-        what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
-        log(f"  level r={k} ({sp.n_dofs} DoFs, {what}): "
-            f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
-    device_busy(mg, rhs, statistics.mean(runs["pairs"]))
+    vcycles = {"pairs eager": prob.preconditioner(graph=False),
+               "pairs graphed": prob.preconditioner(),
+               "singles eager": singles,
+               "singles graphed": GraphedVCycle(singles)}
+    for name, v in vcycles.items():
+        its = cg(fine_op.apply, rhs, v.apply, rtol=1e-5).iterations
+        log(f"  {name} (B.2 {'pairs' if 'pairs' in name else 'off'}): CG "
+            f"{its} iterations to rtol 1e-5")
+    graph_report(card, prob, rhs, n_dofs, vcycles)
+    log_levels(prob, rhs)
+    mg = vcycles["pairs graphed"]
     t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
                       warmup=1)
-    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
-        f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
+    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations, graphed "
+        f"V-cycle): {t_solve:.3f} ms = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
+    del vcycles, mg
     p, r = KERNELS["laplace"]["shape"]
     t_two = two_single_steps_ms(p, r, device)
     log(f"  two B.1 cheb passes (the work of one B.2 pair): {t_two:.3f} ms")
@@ -660,10 +784,8 @@ def phase_second(device, r: int):
         synchronize(device)
         t_setup = time.perf_counter() - t0
         reset_counts()
-        x, st = prob.solve(rtol=rtol, verbose=True)
-        synchronize(device)
-        per_mode = {name: dict(KERNELS[name]["counts"])
-                    for name in path_kernels("2d")}
+        x, st, per_mode = solve_both(prob, rtol, path_kernels("2d"),
+                                     f"second path {name}")
         rel = abs(st.solution_l2_norm / MESH_L2_2D - 1.0)
         log(f"  {name}: setup {t_setup:.2f} s, CG iterations {st.iterations}, "
             f"residual {st.residual_norm:.3e}, L2 {st.solution_l2_norm!r} "
@@ -725,7 +847,8 @@ def level_times(prob, rhs, reps: int = 10, warmup: int = 3) -> list:
     return [statistics.median(t) for t in own]
 
 
-def device_busy(mg, rhs, wall: float, reps: int = 3) -> list:
+def device_busy(mg, rhs, wall: float, label: str = "",
+                reps: int = 3) -> list:
     """torch.profiler over a few V-cycles: the device's own time per
     V-cycle against ``wall``, the V-cycle's ms timed without the profiler
     (which slows the host), and the kernels that take most of it; returns
@@ -751,10 +874,11 @@ def device_busy(mg, rhs, wall: float, reps: int = 3) -> list:
             for name, (us, n) in per_name.items()]
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        log("  profiler: no device time recorded; busy share not measured")
+        log(f"  profiler ({label}): no device time recorded; busy share not "
+            f"measured")
         return rows
-    log(f"  profiler: {busy:.3f} ms device time per V-cycle of {wall:.3f} "
-        f"ms: busy {100 * busy / wall:.1f}%")
+    log(f"  profiler ({label}): {busy:.3f} ms device time per V-cycle of "
+        f"{wall:.3f} ms: busy {100 * busy / wall:.1f}%")
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {ms:9.3f} ms  {count:6d} x  {key[:90]}")
     return rows
@@ -763,28 +887,21 @@ def device_busy(mg, rhs, wall: float, reps: int = 3) -> list:
 def phase_second_timing(card: str, prob, st, device) -> dict:
     """Phase 7: 2D V-cycle, its split by level, CG solve and B.4 modes."""
     log(f"phase 7: timing on {card} (CUDA events, median of 10)")
-    mg = prob.preconditioner()
     rhs = prob.rhs()
     n_dofs = prob.spaces[-1].n_dofs
-    t_vc = cuda_ms(lambda: mg.apply(rhs))
-    log(f"  V-cycle: {t_vc:.3f} ms = {n_dofs / (t_vc * 1e-3):.4e} DoF/s "
-        f"({n_dofs} DoFs)")
-    own = level_times(prob, rhs)
-    for k, sp in enumerate(prob.spaces):
-        what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
-        log(f"  level p={sp.degree} ({sp.n_dofs} DoFs, {what}): "
-            f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
-    rows = device_busy(mg, rhs, t_vc)
+    wall, rows = graph_report(card, prob, rhs, n_dofs)
+    log_levels(prob, rhs, lambda k, sp: f"p={sp.degree}")
     b4 = {int(m.group(1)): (ms, count) for ms, count, key in rows
           for m in [re.search(r"laplace2d_kernel<float, (\d+)>", key)] if m}
     log(f"  profiler: B.4 {sum(v[0] for v in b4.values()):.3f} ms device time "
-        f"per V-cycle of {t_vc:.3f} ms; by degree: " + ", ".join(
+        f"per eager V-cycle of {wall['eager']:.3f} ms; by degree: " + ", ".join(
             f"p={p} {ms:.3f} ms / {n}" for p, (ms, n) in sorted(b4.items())))
     fine_op = prob.levels[-1].op
+    mg = prob.preconditioner()
     t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
                       warmup=1)
-    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
-        f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
+    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations, graphed "
+        f"V-cycle): {t_solve:.3f} ms = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
     times = time_modes("2d", *KERNELS["laplace2d"]["shape"], device)
     # every level of the ladder: its B.4 launches per V-cycle from the
     # profile and its busiest mode (apply in the p = 1 coarse solve at
@@ -849,14 +966,10 @@ def phase_elasticity(device, r: int):
         synchronize(device)
         t_setup = time.perf_counter() - t0
         reset_counts()
-        t0 = time.perf_counter()
-        x, st = prob.solve(rtol=rtol, verbose=True)
-        synchronize(device)
-        t_solve = time.perf_counter() - t0
-        per_mode = {k: dict(KERNELS[k]["counts"])
-                    for k in ("elasticity", "transfer")}
-        log(f"  {name}: setup {t_setup:.2f} s, solve {t_solve:.2f} s, CG "
-            f"iterations {st.iterations}, residual {st.residual_norm:.3e}, "
+        x, st, per_mode = solve_both(prob, rtol, ("elasticity", "transfer"),
+                                     f"third path {name}")
+        log(f"  {name}: setup {t_setup:.2f} s, CG iterations "
+            f"{st.iterations}, residual {st.residual_norm:.3e}, "
             f"L2 {st.solution_l2_norm!r}; launches {per_mode}")
         check_on_card(prob, x, device, per_mode, f"third path {name}")
         runs[dtype] = prob, st, per_mode
@@ -886,27 +999,140 @@ def phase_elasticity_timing(card: str, prob, st, device) -> dict:
     """Phase 11: elasticity V-cycle, its split by level, the busy share,
     the CG solve and each B.5 mode against its twin at 3 x 192^3."""
     log(f"phase 11: timing on {card} (CUDA events, median of 10)")
-    mg = prob.preconditioner()
     rhs = prob.rhs()
     n_dofs = prob.levels[-1].op.n_dofs
-    t_vc = cuda_ms(lambda: mg.apply(rhs))
-    log(f"  V-cycle: {t_vc:.3f} ms = {n_dofs / (t_vc * 1e-3):.4e} DoF/s "
-        f"({n_dofs} DoFs)")
-    own = level_times(prob, rhs)
-    for k, lvl in enumerate(prob.levels):
-        what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
-        log(f"  level r={k} ({lvl.op.n_dofs} DoFs, {what}): "
-            f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
-    device_busy(mg, rhs, t_vc)
+    graph_report(card, prob, rhs, n_dofs)
+    log_levels(prob, rhs)
     fine_op = prob.levels[-1].op
+    mg = prob.preconditioner()
     t_solve = cuda_ms(lambda: cg(fine_op.apply, rhs, mg.apply, rtol=1e-5),
                       warmup=1)
-    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations): {t_solve:.3f} ms"
-        f" = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
+    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations, graphed "
+        f"V-cycle): {t_solve:.3f} ms = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
     times = time_modes("elasticity", *KERNELS["elasticity"]["shape"], device)
     log("phase 11: ok")
     # B.3's times are reported at the main path's shape (phase 5)
     return {k: v for k, v in times.items() if k[0] == "elasticity"}
+
+
+def solve_ms(prob, rtol: float) -> float:
+    """Median ms of 3 CG solves of a model from its rhs, through its
+    graphed V-cycle (captured before the timing)."""
+    rhs, mg, op = prob.rhs(), prob.preconditioner(), prob.fine_operator
+    return cuda_ms(lambda: cg(op.apply, rhs, mg.apply, rtol=rtol), reps=3,
+                   warmup=1)
+
+
+def phase_mixed(card: str, device, r: int) -> None:
+    """Phase 12: config 3, the p -> h ladder, at full width."""
+    log(f"phase 12: config 3 MixedMultigridPoisson(3, {r}, {LADDER_3}) on "
+        f"{card}")
+    reset_counts()
+    t0 = time.perf_counter()
+    prob = MixedMultigridPoisson(3, r, LADDER_3, torch.float32, "auto", device)
+    synchronize(device)
+    t_setup = time.perf_counter() - t0
+    x, st, per_mode = solve_both(prob, 1e-5, path_kernels("3d"),
+                                 "config 3 float32")
+    l2_rel = abs(st.solution_l2_norm / GOLDEN_L2_Q4_R6 - 1.0)
+    log(f"  float32: setup {t_setup:.2f} s, {len(prob.levels)} levels "
+        f"{st.dofs_per_level} DoFs, CG iterations {st.iterations}, residual "
+        f"{st.residual_norm:.3e}, L2 {st.solution_l2_norm:.10f} (rel diff "
+        f"{l2_rel:.2e} from {GOLDEN_L2_Q4_R6}); launches {per_mode}")
+    if not st.converged or l2_rel > F32_L2_BOUND_3D:
+        raise RuntimeError(f"config 3 float32: converged={st.converged}, L2 "
+                           f"off by {l2_rel:.2e}")
+    check_on_card(prob, x, device, per_mode, "config 3 float32")
+    del x
+    rhs = prob.rhs()
+    graph_report(card, prob, rhs, st.n_dofs)
+    log_levels(prob, rhs, lambda k, sp: f"p={sp.degree} "
+               f"{sp.mesh.cells_per_axis}^3 cells")
+    log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations, graphed "
+        f"V-cycle): {solve_ms(prob, 1e-5):.3f} ms [{card}]")
+    del prob, rhs
+    torch.cuda.empty_cache()
+    f64 = {}
+    for variant in ("auto", "kron"):
+        t0 = time.perf_counter()
+        prob = MixedMultigridPoisson(3, r, LADDER_3, torch.float64, variant,
+                                     device)
+        _, f64[variant] = prob.solve(rtol=1e-12)
+        synchronize(device)
+        log(f"  float64 {variant}: CG iterations {f64[variant].iterations}, "
+            f"L2 {f64[variant].solution_l2_norm!r} (setup and solve "
+            f"{time.perf_counter() - t0:.1f} s)")
+        del prob
+        torch.cuda.empty_cache()
+    rel = abs(f64["auto"].solution_l2_norm / f64["kron"].solution_l2_norm - 1)
+    log(f"  float64 L2 rel diff, kernels vs kron: {rel:.2e}")
+    if not (f64["auto"].converged
+            and f64["auto"].iterations == f64["kron"].iterations
+            and rel <= 1e-9):
+        raise RuntimeError(f"config 3 float64: {f64['auto'].iterations} "
+                           f"iterations through the kernels, "
+                           f"{f64['kron'].iterations} on kron, L2 off by "
+                           f"{rel:.2e}")
+    log("phase 12: ok")
+
+
+def phase_mixed_precision(card: str, device, r: int) -> None:
+    """Phase 13: config 5, the float32 V-cycle under float64 CG, and
+    iterative refinement, at full width."""
+    log(f"phase 13: config 5 MixedPrecisionPoisson(3, 4, {r}, float32) on "
+        f"{card}")
+    prob64 = GeometricMultigridPoisson(3, 4, r, torch.float64, "auto", device)
+    x64, s64 = prob64.solve(rtol=1e-12)
+    t64 = solve_ms(prob64, 1e-12)
+    log(f"  float64 GeometricMultigridPoisson: CG iterations {s64.iterations}, "
+        f"L2 {s64.solution_l2_norm!r}; solve {t64:.3f} ms [{card}]")
+    del prob64
+    torch.cuda.empty_cache()
+    mixed = MixedPrecisionPoisson(3, 4, r, torch.float32, "auto", device)
+    reset_counts()
+    xm, sm = mixed.solve(rtol=1e-12)
+    synchronize(device)
+    counts = {k: dict(KERNELS[k]["counts"]) for k in path_kernels("3d")}
+    check_on_card(mixed, xm, device, counts, "config 5")
+    tm = solve_ms(mixed, 1e-12)
+    rel = abs(sm.solution_l2_norm / s64.solution_l2_norm - 1)
+    log(f"  mixed precision: CG iterations {sm.iterations}, L2 "
+        f"{sm.solution_l2_norm!r} (rel diff {rel:.2e} from float64); solve "
+        f"{tm:.3f} ms [{card}]")
+    if not (sm.converged and abs(sm.iterations - s64.iterations) <= 2
+            and rel <= 1e-9):
+        raise RuntimeError(f"config 5: {sm.iterations} iterations against "
+                           f"{s64.iterations} in float64, L2 off by {rel:.2e}")
+    log_launches(mixed.preconditioner(graph=False), mixed.rhs())
+    del xm
+    # refinement: float32 CG to 1e-6 on B.1 with the graphed float32
+    # V-cycle inside, B.1's float64 apply outside
+    op32, op64 = mixed.levels[-1].op, mixed.fine_op64
+    mg32 = GraphedVCycle(VCycle(levels=mixed.levels,
+                                fine_trimmed=mixed.fine_trimmed))
+    inner_its = []
+
+    def inner(r32):
+        res = cg(op32.apply, r32, mg32.apply, rtol=1e-6)
+        inner_its.append(res.iterations)
+        return res.x
+
+    b = mixed.rhs()
+    x, cycles, res = iterative_refinement(op64.apply, inner, b, rtol=1e-12)
+    synchronize(device)
+    its = list(inner_its)
+    t_ref = cuda_ms(lambda: iterative_refinement(op64.apply, inner, b,
+                                                 rtol=1e-12), reps=3, warmup=1)
+    bnorm = float(torch.linalg.vector_norm(b))
+    err = rel_err(x, x64)[1]
+    log(f"  iterative refinement: {cycles} cycles (inner CG iterations "
+        f"{its}), residual {res:.3e} = {res / bnorm:.2e} ||b||, x "
+        f"{err:.2e} max|x| from the float64 solve; solve {t_ref:.3f} ms "
+        f"[{card}]")
+    if not (cycles <= 5 and res <= 1e-12 * bnorm and err <= 1e-10):
+        raise RuntimeError(f"refinement: {cycles} cycles, residual "
+                           f"{res / bnorm:.2e} ||b||, x off by {err:.2e}")
+    log("phase 13: ok")
 
 
 def main(argv: list[str]) -> int:
@@ -917,28 +1143,40 @@ def main(argv: list[str]) -> int:
     device = torch.device("cuda", 0)
     exact_matmuls()
     t_start = time.perf_counter()
-    card = phase_build()
+    seconds = {}
+
+    def timed(phase: int, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    card = timed(1, phase_build)
     if argv:
-        prob, st, _ = phase_main(device, 6, GOLDEN_L2_Q4_R6, 4)
-        phase_timing(card, prob, st, device)
+        prob, st, _ = timed(4, phase_main, device, 6, GOLDEN_L2_Q4_R6, 4)
+        timed(5, phase_timing, card, prob, st, device)
         return 0
     dtypes = (torch.float32, torch.float64)
     shapes = [("3d", p, 2, dt) for dt in dtypes for p in range(1, 8)]
-    # every level shape of the main path's kernel levels, 4^3 to 256^3
+    # every level shape of the main path's kernel levels, 4^3 to 256^3,
+    # and of config 3's p -> h ladder (p = 1 on 2^3..65^3 points, p = 2 on
+    # 129^3; p = 4 on 257^3 is the main path's)
     shapes += [("3d", 4, r, dt) for dt in dtypes for r in (0, 1, 3, 4, 5, 6)]
+    shapes += [("3d", 1, r, dt) for dt in dtypes for r in (0, 1, 3, 4, 5, 6)]
+    shapes += [("3d", 2, 6, dt) for dt in dtypes]
     shapes += [("2d", p, r, dt) for dt in dtypes for r in (2, 3)
                for p in range(1, 8)]
     # every level shape of the 2D Q7 r=9 ladder, (512 p)^2, p = 1..7
     shapes += [("2d", p, 9, dt) for dt in dtypes for p in range(1, 8)]
-    errs = phase_compare(device, shapes)
+    errs = timed(2, phase_compare, device, shapes)
     with open("tests/golden_convergence.json") as fh:
-        phase_golden(device, json.load(fh))
-    prob, st, per_mode = phase_main(device, 6, GOLDEN_L2_Q4_R6, 4)
-    times = phase_timing(card, prob, st, device)
+        timed(3, phase_golden, device, json.load(fh))
+    prob, st, per_mode = timed(4, phase_main, device, 6, GOLDEN_L2_Q4_R6, 4)
+    times = timed(5, phase_timing, card, prob, st, device)
     del prob
     torch.cuda.empty_cache()
-    prob2, st2, per_mode2 = phase_second(device, 9)
-    times.update(phase_second_timing(card, prob2, st2, device))
+    prob2, st2, per_mode2 = timed(6, phase_second, device, 9)
+    times.update(timed(7, phase_second_timing, card, prob2, st2, device))
     per_mode.update(per_mode2)
     del prob2
     torch.cuda.empty_cache()
@@ -946,12 +1184,20 @@ def main(argv: list[str]) -> int:
               for p in range(1, 8)]
     # every other level shape of the Q3 r=6 solve, the fine one included
     shapes += [("elasticity", 3, r, dt) for dt in dtypes for r in (1, 4, 5, 6)]
-    errs.update(phase_compare(device, shapes, phase=8))
-    phase_elasticity_replay(device)
-    prob3, st3, per_mode3 = phase_elasticity(device, 6)
-    times.update(phase_elasticity_timing(card, prob3, st3, device))
+    errs.update(timed(8, phase_compare, device, shapes, 8))
+    timed(9, phase_elasticity_replay, device)
+    prob3, st3, per_mode3 = timed(10, phase_elasticity, device, 6)
+    times.update(timed(11, phase_elasticity_timing, card, prob3, st3, device))
     # B.3's launches are reported from the main path, where it was ported
     per_mode["elasticity"] = per_mode3["elasticity"]
+    del prob3
+    torch.cuda.empty_cache()
+    timed(12, phase_mixed, card, device, 6)
+    torch.cuda.empty_cache()
+    timed(13, phase_mixed_precision, card, device, 6)
+    torch.cuda.empty_cache()
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in seconds.items()))
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
 

@@ -36,7 +36,6 @@ from ..fem.mesh import HyperCubeMesh, geometric_coarsening_sequence
 from ..fem.space import FESpace
 from ..ops.cuda_elasticity import make_cuda_elasticity
 from ..ops.elasticity import make_elasticity
-from ..ops.transfer import make_h_transfer
 from ..solvers.chebyshev import make_chebyshev
 from .poisson import _MultigridBase
 
@@ -55,9 +54,9 @@ class ElasticityMultigrid(_MultigridBase):
         self.mu, self.lam = float(mu), float(lam)
         self.components = dim
         mesh = HyperCubeMesh(dim, refinements)
-        self._assemble_levels(
-            [FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)],
-            make_h_transfer)
+        meshes = geometric_coarsening_sequence(mesh)
+        self._assemble_levels([FESpace(m, degree) for m in meshes],
+                              "h" * (len(meshes) - 1))
 
     def _build_level(self, space: FESpace, coarse: bool) -> tuple:
         if self.variant == "auto":

@@ -24,6 +24,11 @@ Variants:
     its plain twin.
   * ``"kron"`` — the plain path: the Kronecker operator, plain Chebyshev and
     the windowed ``Transfer`` on full grids.
+
+On a CUDA device :meth:`_MultigridBase.solve` replays the V-cycle from a
+CUDA graph (``solvers/vcycle.py`` ``GraphedVCycle``), the counterpart of the
+JAX package's jitted solve; CG reads the residual norm on the host once an
+iteration.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from ..ops.laplace import make_laplace, reject_variant
 from ..ops.transfer import make_h_transfer, make_p_transfer
 from ..solvers.cg import cg
 from ..solvers.chebyshev import make_chebyshev
-from ..solvers.vcycle import MGLevel, VCycle, wire_trimmed
+from ..solvers.vcycle import GraphedVCycle, MGLevel, VCycle, wire_trimmed
 
 
 @dataclasses.dataclass
@@ -86,48 +91,71 @@ class _MultigridBase:
     :meth:`_build_level` and :meth:`rhs` (``models/elasticity.py``)."""
 
     components = 1  # field components per DoF grid point
+    # dtype of CG's vectors where it differs from the levels'
+    # (models/mixed.py MixedPrecisionPoisson); the V-cycle casts at its ends
+    io_dtype = None
 
     def __init__(self, dtype=torch.float64, variant: str = "auto",
                  device="cuda"):
         self.dtype = dtype
         self.variant = variant
         self.device = torch.device(device)
+        self._graphed = {}  # GraphedVCycle by (pre, post) smoothing steps
 
     def _build_level(self, space: FESpace, coarse: bool) -> tuple:
         return _build_level(space, self.dtype, coarse, self.variant,
                             self.device)
 
-    def _assemble_levels(self, spaces, make_transfer):
+    def _assemble_levels(self, spaces, kinds):
+        """Levels over ``spaces`` (coarse first), ``kinds[i]`` the transfer
+        between spaces i and i+1: "h" (one refinement, equal degree) or
+        "p" (one mesh, higher degree)."""
         levels = []
         for i, sp in enumerate(spaces):
             op, smoother = self._build_level(sp, coarse=(i == 0))
             transfer = None
             if i > 0:
-                if (self.variant == "auto" and sp.dim == 3
-                        and make_transfer is make_h_transfer):
+                kind = kinds[i - 1]
+                if self.variant == "auto" and sp.dim == 3 and kind == "h":
                     # the coarsest level keeps the full grid
                     transfer = make_cuda_h_transfer(
                         spaces[i - 1], sp, self.dtype, self.device,
                         coarse_trimmed=i - 1 > 0)
                 else:
                     # wire_trimmed adapts it to trimmed levels
-                    transfer = make_transfer(spaces[i - 1], sp, self.dtype,
-                                             self.device)
+                    make = {"h": make_h_transfer, "p": make_p_transfer}[kind]
+                    transfer = make(spaces[i - 1], sp, self.dtype, self.device)
             levels.append(MGLevel(op=op, smoother=smoother, transfer=transfer))
         levels, self.fine_trimmed = wire_trimmed(levels)
         self.spaces = list(spaces)
         self.levels = tuple(levels)
 
+    @property
+    def fine_operator(self):
+        """The operator CG runs on."""
+        return self.levels[-1].op
+
     def preconditioner(self, pre_smoothing_steps: int = 2,
-                       post_smoothing_steps: int = 2) -> VCycle:
-        return VCycle(levels=self.levels,
-                      pre_smoothing_steps=pre_smoothing_steps,
-                      post_smoothing_steps=post_smoothing_steps,
-                      fine_trimmed=self.fine_trimmed)
+                       post_smoothing_steps: int = 2, graph: bool = True):
+        """The V-cycle: on a CUDA device the model's
+        :class:`GraphedVCycle` (one per pair of step counts, kept with its
+        graphs for later solves) unless ``graph`` is False; the eager
+        :class:`VCycle` otherwise, and always on the CPU."""
+        mg = VCycle(levels=self.levels,
+                    pre_smoothing_steps=pre_smoothing_steps,
+                    post_smoothing_steps=post_smoothing_steps,
+                    fine_trimmed=self.fine_trimmed, io_dtype=self.io_dtype)
+        if not graph or self.device.type != "cuda":
+            return mg
+        key = (pre_smoothing_steps, post_smoothing_steps)
+        if key not in self._graphed:
+            self._graphed[key] = GraphedVCycle(mg)
+        return self._graphed[key]
 
     def rhs(self, f=None) -> torch.Tensor:
         return torch.as_tensor(assemble_rhs(self.spaces[-1], f=f),
-                               dtype=self.dtype, device=self.device)
+                               dtype=self.io_dtype or self.dtype,
+                               device=self.device)
 
     def solution_l2_norm(self, x: np.ndarray) -> float:
         """L2 norm of a fine-level solution: sqrt(sum_c ||x_c||^2) for a
@@ -139,12 +167,15 @@ class _MultigridBase:
 
     def solve(self, rtol: float = 1e-12, pre_smoothing_steps: int = 2,
               post_smoothing_steps: int = 2, verbose: bool = False,
-              f=None) -> tuple[torch.Tensor, SolveStats]:
+              f=None, graph: bool = True) -> tuple[torch.Tensor, SolveStats]:
         """Solve with right-hand side f (f ≡ 1 when None, as in the
-        reference program)."""
+        reference program); ``graph=False`` runs the V-cycle eagerly on a
+        CUDA device."""
+        mg = self.preconditioner(pre_smoothing_steps, post_smoothing_steps,
+                                 graph)
+        result = cg(self.fine_operator.apply, self.rhs(f), mg.apply,
+                    rtol=rtol)
         fine = self.spaces[-1]
-        mg = self.preconditioner(pre_smoothing_steps, post_smoothing_steps)
-        result = cg(self.levels[-1].op.apply, self.rhs(f), mg.apply, rtol=rtol)
         x = result.x.detach().cpu().numpy().astype(np.float64)
         stats = SolveStats(
             iterations=result.iterations,
@@ -173,7 +204,7 @@ class GeometricMultigridPoisson(_MultigridBase):
         super().__init__(dtype, variant, device)
         mesh = HyperCubeMesh(dim, refinements)
         spaces = [FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)]
-        self._assemble_levels(spaces, make_h_transfer)
+        self._assemble_levels(spaces, "h" * (len(spaces) - 1))
 
 
 class PolynomialMultigridPoisson(_MultigridBase):
@@ -192,4 +223,4 @@ class PolynomialMultigridPoisson(_MultigridBase):
         mesh = HyperCubeMesh(dim, refinements)
         degrees = [degree - (n_levels - 1 - l) for l in range(n_levels)]
         self._assemble_levels([FESpace(mesh, p) for p in degrees],
-                              make_p_transfer)
+                              "p" * (n_levels - 1))

@@ -5,6 +5,7 @@ Counterpart of ``portable_multigrid_tpu/solvers/cg.py:cg`` — deal.II's
 (reference: source/geometric_multigrid/program.cc:345-352: tolerance
 rtol * ||b||, max_iter = vector size).  The loop runs on the host with one
 device-to-host read per iteration, for the stopping test.
+:func:`cg_fixed_iterations` runs a fixed number of steps with no host read.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def cg(
     res = float(norm(r))
     z = M(r)
     rz = _dot(r, z)
-    p = z
+    # a copy: a graphed preconditioner's next call may reuse z's storage
+    p = z.clone()
     it = 0
     while res > threshold and it < max_iter:
         Ap = A(p)
@@ -66,3 +68,46 @@ def cg(
         res = float(res_t)  # the one host sync of the iteration
     return CGResult(x=x, iterations=it, residual_norm=res,
                     converged=res <= threshold)
+
+
+def cg_fixed_iterations(
+    A: Callable,
+    b: torch.Tensor,
+    M: Callable | None = None,
+    *,
+    n_iter: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run exactly ``n_iter`` preconditioned CG steps from x = 0; return
+    (x, history), history the [n_iter] residual norms on b's device.
+
+    Counterpart of ``portable_multigrid_tpu/solvers/cg.py:cg_fixed_iterations``:
+    once a residual is exactly zero every later step is a no-op (alpha and
+    beta zeroed), and the divisions are guarded, with no host read."""
+    if M is None:
+        M = lambda v: v
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    x = torch.zeros_like(b)
+    r = b
+    z = M(r)
+    rz = _dot(r, z)
+    p = z.clone()
+    stop = torch.zeros((), dtype=torch.bool, device=b.device)
+    history = []
+    for _ in range(n_iter):
+        Ap = A(p)
+        pAp = _dot(p, Ap)
+        alpha = torch.where(stop, zero, rz / torch.where(pAp == 0, one, pAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        res = torch.sqrt(_dot(r, r))
+        z = M(r)
+        rz_new = _dot(r, z)
+        beta = torch.where(stop, zero, rz_new / torch.where(rz == 0, one, rz))
+        p = z + beta * p
+        stop = stop | (res == 0)
+        rz = rz_new
+        history.append(res)
+    if not history:
+        return x, zero.new_zeros(0)
+    return x, torch.stack(history)

@@ -10,11 +10,16 @@ include/multigrid/portable_v_cycle_multigrid.h:26-190):
     (:148-154);
   * otherwise pre-smooth, residual, restrict, recurse, prolongate_and_add,
     post-smooth (:156-188).
+
+On a CUDA device :class:`GraphedVCycle` replays the whole V-cycle from one
+CUDA graph, the port's counterpart of the V-cycle traced into the JAX
+package's jitted solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -38,12 +43,15 @@ class VCycle:
     ``fine_trimmed=True`` (from :func:`wire_trimmed`) means the finest
     level runs on trimmed state: :meth:`apply` trims the incoming full-grid
     residual once and pads the result once, and everything in between chains
-    kernel to kernel."""
+    kernel to kernel.  ``io_dtype`` (mixed precision) is the dtype of the
+    caller's vectors where it differs from the levels': :meth:`apply` casts
+    its input to the levels' dtype and its result back."""
 
     levels: tuple = ()
     pre_smoothing_steps: int = 2
     post_smoothing_steps: int = 2
     fine_trimmed: bool = False
+    io_dtype: torch.dtype | None = None
 
     def _smooth(self, level: int, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         lvl = self.levels[level]
@@ -75,12 +83,69 @@ class VCycle:
 
     def apply(self, src: torch.Tensor) -> torch.Tensor:
         """Preconditioner vmult: dst = V-cycle(0, src) from the finest level."""
+        if self.io_dtype is not None:
+            dtype = self.levels[-1].op.dtype
+            return self._apply(src.to(dtype)).to(self.io_dtype)
+        return self._apply(src)
+
+    def _apply(self, src: torch.Tensor) -> torch.Tensor:
         top = len(self.levels) - 1
         if not self.fine_trimmed:
             return self._cycle(top, src)
         op = self.levels[-1].op
         st = trim_last_planes(src.reshape(op.shape), op.dim).contiguous()
         return pad_last_planes(self._cycle(top, st), op.dim)
+
+
+class GraphedVCycle:
+    """A :class:`VCycle` on a CUDA device, replayed from one CUDA graph per
+    input (shape, dtype).
+
+    The first :meth:`apply` for a (shape, dtype) runs one eager V-cycle on a
+    side stream (the warm-up: every kernel instance loads and the allocator
+    fills), captures ``vcycle.apply`` on a static input into a
+    ``torch.cuda.CUDAGraph``, and replays it.  Every call copies its source
+    into the static input, replays, and returns a copy of the static output,
+    which the next replay overwrites.  The kernels launch on the current
+    stream, which under capture is the capture stream; a wrapper's launch
+    count rises at the warm-up and at capture, never at a replay.  A failed capture or replay raises:
+    nothing runs eagerly in its place.  CPU tensors are refused; on the CPU
+    the models run the :class:`VCycle` itself."""
+
+    def __init__(self, vcycle: VCycle):
+        self.vcycle = vcycle
+        self._graphs = {}
+        # seconds of the warm-up and of capture plus instantiation, by key
+        self.capture_seconds = {}
+
+    def apply(self, src: torch.Tensor) -> torch.Tensor:
+        if not src.is_cuda:
+            raise ValueError(f"GraphedVCycle replays on a CUDA device, not "
+                             f"{src.device}; run the VCycle itself there")
+        key = (tuple(src.shape), src.dtype, src.device)
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(src, key)
+        graph, static_in, static_out = self._graphs[key]
+        static_in.copy_(src)
+        graph.replay()
+        return static_out.clone()
+
+    def _capture(self, src: torch.Tensor, key) -> tuple:
+        static_in = src.clone()
+        current = torch.cuda.current_stream(src.device)
+        side = torch.cuda.Stream(src.device)
+        t0 = time.perf_counter()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.vcycle.apply(static_in)
+        current.wait_stream(side)
+        torch.cuda.synchronize(src.device)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(src.device), torch.cuda.graph(graph):
+            static_out = self.vcycle.apply(static_in)
+        self.capture_seconds[key] = (t1 - t0, time.perf_counter() - t1)
+        return graph, static_in, static_out
 
 
 def wire_trimmed(levels):

@@ -5,7 +5,8 @@ in 3D, B.4 in 2D with partial tiles, B.5 at p = 1..7 with mu != lam and
 B.3 on its [3, ...] fields), a 3D
 and a 2D float64 solve through the kernels against the golden table, and a
 float64 elasticity solve through the kernels against the JAX package's
-values pinned in ``chip_smoke.py``.  These
+values pinned in ``chip_smoke.py``, and the CUDA graph of the V-cycle
+(``GraphedVCycle``) against the eager V-cycle on every model.  These
 skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
@@ -22,6 +23,8 @@ import chip_smoke
 from portable_multigrid_tpu_torch import (
     ElasticityMultigrid,
     GeometricMultigridPoisson,
+    MixedMultigridPoisson,
+    MixedPrecisionPoisson,
     PolynomialMultigridPoisson,
 )
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
@@ -33,6 +36,8 @@ from portable_multigrid_tpu_torch.ops import (
     cuda_laplace2d,
     cuda_transfer,
 )
+from portable_multigrid_tpu_torch.solvers.cg import cg
+from portable_multigrid_tpu_torch.solvers.vcycle import GraphedVCycle, VCycle
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -248,3 +253,76 @@ def test_golden_row_through_kernels(cuda):
                                       cuda).solve()
     assert x.is_cuda and st.iterations == want["iterations"]
     assert st.solution_l2_norm == pytest.approx(want["l2_norm"], rel=1e-10)
+
+
+# one small model of each path: (model, args, kwargs)
+GRAPH_MODELS = {
+    "3d": (GeometricMultigridPoisson, (3, 4, 2), {}),
+    "2d": (PolynomialMultigridPoisson, (2, 7, 2, 7), {}),
+    "elasticity": (ElasticityMultigrid, (3, 2, 2), dict(mu=0.7, lam=1.3)),
+    "mixed": (MixedMultigridPoisson, (3, 2, (1, 2, 4)), {}),
+    "mixed_precision": (MixedPrecisionPoisson, (3, 4, 2), {}),
+}
+
+
+def _model(name, dtype, device):
+    model, args, kw = GRAPH_MODELS[name]
+    if model is MixedPrecisionPoisson:
+        return model(*args, mg_dtype=dtype, variant="auto", device=device)
+    return model(*args, dtype=dtype, variant="auto", device=device, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(GRAPH_MODELS))
+def test_graphed_vcycle_equals_eager(cuda, name, dtype):
+    """Replays of the graph give the eager V-cycle bit for bit, and a
+    second replay with a new input gives that input's V-cycle."""
+    prob = _model(name, dtype, cuda)
+    graphed = prob.preconditioner()
+    eager = prob.preconditioner(graph=False)
+    assert isinstance(graphed, GraphedVCycle) and type(eager) is VCycle
+    rng = np.random.default_rng(0)
+    b = prob.rhs()
+    b2 = b * torch.as_tensor(rng.uniform(0.5, 1.5, tuple(b.shape)),
+                             dtype=b.dtype, device=cuda)
+    g1 = graphed.apply(b)
+    g2 = graphed.apply(b2)
+    e1, e2 = eager.apply(b), eager.apply(b2)
+    torch.cuda.synchronize()
+    assert torch.equal(g1, e1) and torch.equal(g2, e2)
+    assert not torch.equal(g1, g2)
+    assert len(graphed._graphs) == 1
+
+
+@pytest.mark.parametrize("name", ["3d", "mixed_precision"])
+def test_cg_through_graph_equals_eager(cuda, name):
+    """CG with the graphed V-cycle: the eager solve's count and x."""
+    prob = _model(name, torch.float32, cuda)
+    runs = [prob.solve(rtol=1e-10, graph=graph) for graph in (True, False)]
+    (xg, sg), (xe, se) = runs
+    assert sg.iterations == se.iterations and sg.converged
+    assert torch.equal(xg, xe)
+
+
+def test_capture_error_raises(cuda):
+    """A V-cycle that reads the device from the host cannot be captured:
+    the capture raises and nothing runs eagerly in its place."""
+    prob = _model("3d", torch.float32, cuda)
+
+    class HostRead(VCycle):
+        def apply(self, src):
+            out = super().apply(src)
+            float(out.sum())  # a host read, refused under capture
+            return out
+
+    graphed = GraphedVCycle(HostRead(levels=prob.levels,
+                                     fine_trimmed=prob.fine_trimmed))
+    with pytest.raises(RuntimeError):
+        graphed.apply(prob.rhs())
+    assert not graphed._graphs
+
+
+def test_graphed_vcycle_refuses_cpu(cuda):
+    prob = _model("3d", torch.float32, cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        prob.preconditioner().apply(prob.rhs().cpu())

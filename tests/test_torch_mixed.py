@@ -1,0 +1,121 @@
+"""BASELINE config 3: the port's MixedMultigridPoisson (a p = 4 -> 2 -> 1
+ladder on the fine mesh over geometric levels at p = 1) against the JAX
+package's, on CPU (the kernel wrappers run their twins).
+
+The JAX solves run once per module, in float64 on its ``"kron"`` variant;
+the port's ``"auto"`` and ``"kron"`` must give their CG counts exactly, the
+same levels, and L2 norms and solutions within 1e-10 relative.  On the CPU
+the models run the eager V-cycle, never the CUDA graph."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from portable_multigrid_tpu.models.mixed import (
+    MixedMultigridPoisson as JMixed,
+)
+from portable_multigrid_tpu_torch import (
+    GeometricMultigridPoisson,
+    MixedMultigridPoisson,
+    PolynomialMultigridPoisson,
+)
+from portable_multigrid_tpu_torch.ops.cuda_transfer import CudaTransfer
+from portable_multigrid_tpu_torch.ops.transfer import TrimmedTransfer, Transfer
+from portable_multigrid_tpu_torch.solvers.vcycle import GraphedVCycle, VCycle
+
+torch.set_num_threads(1)
+
+LADDER = (1, 2, 4)
+# (dim, refinements): the JAX package's float64 kron CG count and L2 norm,
+# pinned here and checked against its live solve below
+PINNED = {(2, 3): (5, 0.04126148965668), (3, 2): (4, 0.02498714802398)}
+_JAX = {}
+
+
+def jax_solve(dim, r):
+    """The JAX package's float64 kron solve of config 3, once per module."""
+    if (dim, r) not in _JAX:
+        x, st = JMixed(dim, r, LADDER, jnp.float64, "kron").solve()
+        _JAX[(dim, r)] = np.asarray(x), st
+    return _JAX[(dim, r)]
+
+
+@pytest.mark.parametrize("variant", ["auto", "kron"])
+@pytest.mark.parametrize("dim,r", sorted(PINNED))
+def test_matches_jax(dim, r, variant):
+    jx, jst = jax_solve(dim, r)
+    assert (jst.iterations, round(jst.solution_l2_norm, 14)) == PINNED[(dim, r)]
+    x, st = MixedMultigridPoisson(dim, r, LADDER, torch.float64, variant,
+                                  device="cpu").solve()
+    assert st.converged and jst.converged
+    assert st.iterations == jst.iterations
+    assert st.n_dofs == jst.n_dofs and st.dofs_per_level == jst.dofs_per_level
+    assert st.solution_l2_norm == pytest.approx(jst.solution_l2_norm,
+                                                rel=1e-10)
+    assert np.abs(x.numpy() - jx).max() <= 1e-10 * np.abs(jx).max()
+
+
+def test_levels_mix_h_and_p_transfers():
+    """Under auto in 3D: B.3 on the h-pairs (the full-grid coarsest level
+    on its coarse side), the plain p-transfer adapted to trimmed state on
+    the p-pairs; degrees 1 on the coarsening sequence, then 2 and 4."""
+    prob = MixedMultigridPoisson(3, 2, LADDER, torch.float64, "auto",
+                                 device="cpu")
+    assert [sp.degree for sp in prob.spaces] == [1, 1, 1, 2, 4]
+    assert [sp.mesh.cells_per_axis for sp in prob.spaces] == [1, 2, 4, 4, 4]
+    tr = [lvl.transfer for lvl in prob.levels]
+    assert tr[0] is None
+    assert all(isinstance(t, CudaTransfer) for t in tr[1:3])
+    assert [t.coarse_trimmed for t in tr[1:3]] == [False, True]
+    for t in tr[3:]:
+        assert isinstance(t, TrimmedTransfer) and isinstance(t.base, Transfer)
+        assert t.fine_trimmed and t.coarse_trimmed
+    assert prob.fine_trimmed
+
+
+def test_every_constrained_coarsest_level():
+    """The 1-cell p = 1 level has no free DoF: its eigenvalue estimate
+    falls back to (1, 1) as the JAX package's does, and its coarse solve
+    returns zero on a zero residual."""
+    prob = MixedMultigridPoisson(3, 1, LADDER, torch.float64, "auto",
+                                 device="cpu")
+    coarse = prob.levels[0]
+    assert float(coarse.op.mask.sum()) == 0.0
+    out = coarse.smoother.apply(torch.zeros(coarse.op.shape,
+                                            dtype=torch.float64))
+    assert float(out.abs().max()) == 0.0
+    _, st = prob.solve()
+    assert st.converged
+
+
+def test_existing_models_keep_their_levels():
+    """With a transfer kind per pair, the geometric model keeps B.3 on every
+    h-pair under auto and the p-ladder the plain p-transfer."""
+    prob = GeometricMultigridPoisson(3, 2, 2, torch.float64, "auto",
+                                     device="cpu")
+    assert all(isinstance(lvl.transfer, CudaTransfer)
+               for lvl in prob.levels[1:])
+    prob = PolynomialMultigridPoisson(3, 3, 1, 3, torch.float64, "auto",
+                                      device="cpu")
+    assert all(isinstance(lvl.transfer, TrimmedTransfer)
+               for lvl in prob.levels[1:])
+
+
+def test_cpu_runs_no_graph():
+    """On the CPU the preconditioner is the eager V-cycle, graph or not,
+    and a GraphedVCycle refuses CPU tensors."""
+    prob = MixedMultigridPoisson(2, 2, LADDER, torch.float64, "auto",
+                                 device="cpu")
+    for graph in (True, False):
+        mg = prob.preconditioner(graph=graph)
+        assert type(mg) is VCycle
+    b = prob.rhs()
+    with pytest.raises(ValueError, match="CUDA device"):
+        GraphedVCycle(prob.preconditioner()).apply(b)
+
+
+def test_sumfac_is_not_ported():
+    with pytest.raises(ValueError, match="not ported yet"):
+        MixedMultigridPoisson(2, 2, LADDER, torch.float64, "sumfac",
+                              device="cpu")

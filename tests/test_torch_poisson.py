@@ -85,6 +85,8 @@ def test_port_never_imports_jax():
         "import portable_multigrid_tpu_torch\n"
         "import portable_multigrid_tpu_torch.convert\n"
         "import portable_multigrid_tpu_torch._build\n"
+        "import portable_multigrid_tpu_torch.models.mixed\n"
+        "import portable_multigrid_tpu_torch.solvers.refinement\n"
         "import portable_multigrid_tpu_torch.programs.geometric_multigrid\n"
         "import portable_multigrid_tpu_torch.programs.polynomial_multigrid\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
