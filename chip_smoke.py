@@ -104,6 +104,28 @@ or from the CUDA graph to the eager V-cycle):
      V-cycle; outer: B.1's float64 apply): <= 5 cycles, residual <=
      1e-12 ||b||, x within 1e-10 max|x| of the float64 solve; the
      whole-solve ms of the three solves with their CG and cycle counts.
+ 14. config 4's variable coefficient at full width —
+     GeometricMultigridPoisson(3, 4, 6, coefficient=c), c(x) = 1 + 0.5
+     sum_d sin(3 x_d), on 64^3 cells (16,974,593 DoFs), every level a plain
+     operator variant on full grids (no kernel of B.1-B.5 launches, which
+     the phase checks): first the JAX package's float64 3D Q4 r=3 solve
+     replayed on ``qdense`` and ``sumfac`` (CG count exact, L2 to 1e-10
+     of the values pinned below); then float64 ``qdense`` and ``sumfac``
+     to rtol 1e-12 (equal CG counts, L2 within 1e-10 relative) and
+     float32 ``qdense``, ``sumfac`` and ``qbanded`` to rtol 1e-5 (each
+     converged, L2 within 1e-5 relative of the float64 solve), through the
+     graphed V-cycle, float32 ``qdense`` eagerly too as in phase 4; the
+     setup seconds, one apply's device ms of each, and for each float32
+     variant the eager and graphed V-cycle in turns (ms, DoF/s), the
+     default ``qdense``'s with its busy share and split by level;
+ 15. the constant-coefficient variants — GeometricMultigridPoisson(3, 4,
+     6, float32) on ``sumfac`` and on ``dense`` to rtol 1e-5 (<= 4 CG
+     iterations, L2 within 1e-5 of 0.0249871331); config 3 as
+     ``bench_all.py`` runs it, MixedMultigridPoisson(3, 6, (1, 2, 4),
+     float32, "sumfac") (L2 within 1e-5 of the same); ElasticityMultigrid(3,
+     3, 5, float64) on ``sumfac`` and ``dense`` to rtol 1e-12 (the
+     ``kron`` solve's CG count, L2 within 1e-9); each solved through the
+     graphed V-cycle, with its eager and graphed V-cycle ms in turns.
 
 Every phase's seconds, and the total, are printed at the end.
 
@@ -116,6 +138,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -179,6 +202,29 @@ ELASTICITY_F64 = {(2, 2): (4, 0.027343514900882587),
                   (3, 3): (6, 0.027367902132579464)}
 MU_LAM = (0.7, 1.3)  # B.5 against its twin: mu != lam
 LADDER_3 = (1, 2, 4)  # config 3's p-ladder, coarse to fine
+
+
+def coefficient(*xs):
+    """c(x) = 1 + 0.5 sum_d sin(3 x_d): BASELINE config 4's variable
+    coefficient, as the JAX package's tests/test_solvers.py:153 has it."""
+    out = 1.0
+    for x in xs:
+        out = out + 0.5 * np.sin(3 * x)
+    return out
+
+
+# The JAX package's float64 3D Q4 r=3 solve with this coefficient, rtol
+# 1e-12, by PMG_VARCOEFF_VARIANT: (CG iterations, L2 norm), as its CPU run
+# prints them from the repo root (and likewise with sumfac):
+#   PMG_VARCOEFF_VARIANT=qdense python -c "import jax
+#   jax.config.update('jax_platforms', 'cpu')
+#   jax.config.update('jax_enable_x64', True)
+#   import chip_smoke
+#   from portable_multigrid_tpu.models.poisson import GeometricMultigridPoisson as G
+#   s = G(3, 4, 3, coefficient=chip_smoke.coefficient).solve()[1]
+#   print(s.iterations, repr(s.solution_l2_norm))"
+VARCOEF_F64_R3 = {"qdense": (5, 0.012412695994480256),
+                  "sumfac": (5, 0.01241269599448026)}
 F32_L2_BOUND_ELASTICITY = 1e-4
 # the H100 SXM's published HBM rate and FP32 rate outside the tensor cores
 # (dense, at the full 700 W power limit)
@@ -561,7 +607,7 @@ def solve_both(prob, rtol: float, names, what: str):
         raise RuntimeError(f"{what}: graphed solve ({st.iterations} "
                            f"iterations) off the eager one ({se.iterations}) "
                            f"by {err:.2e}")
-    if not isinstance(mg, GraphedVCycle) or min(captured.values()) == 0:
+    if not isinstance(mg, GraphedVCycle) or 0 in captured.values():
         raise RuntimeError(f"{what}: the solve did not run the graphed "
                            f"V-cycle through every kernel: {captured}")
     del xe
@@ -595,12 +641,13 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
     return prob, st, per_mode
 
 
-def time_turns(vcycles: dict, rhs) -> dict:
-    """The median ms of 10 applies of each V-cycle, taken in turns in the
-    dict's order and back: name -> [first, second]."""
+def time_turns(vcycles: dict, rhs, reps: int = 10, warmup: int = 3) -> dict:
+    """The median ms of ``reps`` applies of each V-cycle, taken in turns in
+    the dict's order and back: name -> [first, second]."""
     runs = {name: [] for name in vcycles}
     for name in list(vcycles) + list(vcycles)[::-1]:
-        runs[name].append(cuda_ms(lambda v=vcycles[name]: v.apply(rhs)))
+        runs[name].append(cuda_ms(lambda v=vcycles[name]: v.apply(rhs), reps,
+                                  warmup))
     return runs
 
 
@@ -616,15 +663,17 @@ def log_launches(mg, rhs) -> None:
     reset_counts()
 
 
-def graph_report(card: str, prob, rhs, n_dofs: int, vcycles=None):
+def graph_report(card: str, prob, rhs, n_dofs: int, vcycles=None,
+                 reps: int = 10, warmup: int = 3):
     """The eager and the graphed V-cycle of a model (or the named pairs of
-    ``vcycles``) in turns, ms and DoF/s, then the profiler's busy share of
-    the first eager and the first graphed one against their unprofiled
-    wall times.  Returns (mean ms by name, the eager profile's rows)."""
+    ``vcycles``) in turns, ms and DoF/s (median of ``reps``), then the
+    profiler's busy share of the first eager and the first graphed one
+    against their unprofiled wall times.  Returns (mean ms by name, the
+    eager profile's rows)."""
     if vcycles is None:
         vcycles = {"eager": prob.preconditioner(graph=False),
                    "graphed": prob.preconditioner()}
-    runs = time_turns(vcycles, rhs)
+    runs = time_turns(vcycles, rhs, reps, warmup)
     log_launches(vcycles[next(iter(vcycles))], rhs)
     for name, ts in runs.items():
         log(f"  V-cycle {name:16s}: {ts[0]:.3f} / {ts[1]:.3f} ms = "
@@ -1135,6 +1184,191 @@ def phase_mixed_precision(card: str, device, r: int) -> None:
     log("phase 13: ok")
 
 
+def total_launches() -> int:
+    """Launches of every kernel since the last ``reset_counts``."""
+    return sum(sum(k["counts"].values()) for k in KERNELS.values())
+
+
+def varcoef_model(variant: str, r: int, dtype, device):
+    """GeometricMultigridPoisson(3, 4, r, coefficient=c) on one
+    PMG_VARCOEFF_VARIANT, and its setup seconds."""
+    old = os.environ.get("PMG_VARCOEFF_VARIANT")
+    os.environ["PMG_VARCOEFF_VARIANT"] = variant
+    try:
+        t0 = time.perf_counter()
+        prob = GeometricMultigridPoisson(3, 4, r, dtype, "auto", device,
+                                         coefficient=coefficient)
+        synchronize(device)
+        return prob, time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["PMG_VARCOEFF_VARIANT"]
+        else:
+            os.environ["PMG_VARCOEFF_VARIANT"] = old
+
+
+def solve_graphed(prob, rtol: float, what: str):
+    """The model's solve, through its graphed V-cycle, on the card."""
+    t0 = time.perf_counter()
+    x, st = prob.solve(rtol=rtol)
+    synchronize(prob.device)
+    log(f"  {what}: graphed solve {st.iterations} CG iterations in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not prob.preconditioner()._graphs:
+        raise RuntimeError(f"{what}: the solve ran no graphed V-cycle")
+    check_on_card(prob, x, prob.device, {}, what)
+    return st
+
+
+def apply_ms(prob) -> float:
+    """Device ms of one fine-level operator apply, back to back."""
+    op = prob.fine_operator
+    u = torch.ones(op.shape, dtype=op.dtype, device=op.device)
+    return device_ms(lambda: op.apply(u))
+
+
+# V-cycles of 0.03-0.4 s are timed by the median of 3 after 1 warm-up
+SLOW_REPS = dict(reps=3, warmup=1)
+
+
+def vcycle_turns(card: str, prob, n_dofs: int, what: str) -> None:
+    """The eager and the graphed V-cycle of a model in turns: ms, DoF/s."""
+    runs = time_turns({"eager": prob.preconditioner(graph=False),
+                       "graphed": prob.preconditioner()}, prob.rhs(),
+                      **SLOW_REPS)
+    for name, ts in runs.items():
+        log(f"  {what} V-cycle {name:7s}: {ts[0]:.3f} / {ts[1]:.3f} ms = "
+            f"{n_dofs / (min(ts) * 1e-3):.4e} DoF/s ({n_dofs} DoFs) [{card}]")
+
+
+def phase_varcoef(card: str, device, r: int) -> None:
+    """Phase 14: config 4's variable-coefficient solve at full width."""
+    log(f"phase 14: variable coefficient GeometricMultigridPoisson(3, 4, {r}, "
+        f"coefficient=c) on {card}")
+    for variant, (iterations, l2) in VARCOEF_F64_R3.items():
+        prob, _ = varcoef_model(variant, 3, torch.float64, device)
+        _, st = prob.solve()
+        rel = abs(st.solution_l2_norm / l2 - 1.0)
+        log(f"  float64 {variant} r=3: {st.iterations} iterations (JAX "
+            f"{iterations}), L2 {st.solution_l2_norm!r}, rel diff {rel:.2e}")
+        if not st.converged or st.iterations != iterations or rel > 1e-10:
+            raise RuntimeError(f"variable coefficient {variant} r=3 does not "
+                               f"match the JAX package")
+    solves = {}
+    for dtype, rtol, variants in ((torch.float64, 1e-12, ("qdense", "sumfac")),
+                                  (torch.float32, 1e-5,
+                                   ("qdense", "sumfac", "qbanded"))):
+        name = str(dtype).split(".")[-1]
+        for variant in variants:
+            what = f"{variant} {name}"
+            reset_counts()
+            prob, t_setup = varcoef_model(variant, r, dtype, device)
+            if (variant, dtype) == ("qdense", torch.float32):
+                x, st, _ = solve_both(prob, rtol, (), what)
+                check_on_card(prob, x, device, {}, what)
+                del x
+            else:
+                st = solve_graphed(prob, rtol, what)
+            # construction, and the graphed solve's warm-up, capture and
+            # CG operator
+            if total_launches():
+                raise RuntimeError(f"{what}: {total_launches()} kernel "
+                                   f"launches on a path of plain operators")
+            log(f"  {what}: setup {t_setup:.2f} s, CG iterations "
+                f"{st.iterations}, residual {st.residual_norm:.3e}, L2 "
+                f"{st.solution_l2_norm!r}; one apply {apply_ms(prob):.3f} ms "
+                f"device time; kernel launches 0 [{card}]")
+            solves[(variant, dtype)] = st
+            if (variant, dtype) == ("qdense", torch.float32):
+                rhs = prob.rhs()
+                log(f"  {what} V-cycle:")
+                graph_report(card, prob, rhs, st.n_dofs, **SLOW_REPS)
+                log_levels(prob, rhs)
+                del rhs
+            elif dtype == torch.float32:
+                vcycle_turns(card, prob, st.n_dofs, what)
+            del prob
+            torch.cuda.empty_cache()
+    q64, s64 = solves[("qdense", torch.float64)], solves[("sumfac",
+                                                          torch.float64)]
+    rel = abs(s64.solution_l2_norm / q64.solution_l2_norm - 1)
+    log(f"  float64 qdense vs sumfac: {q64.iterations} / {s64.iterations} CG "
+        f"iterations, L2 rel diff {rel:.2e}")
+    if not (q64.converged and s64.converged
+            and q64.iterations == s64.iterations and rel <= 1e-10):
+        raise RuntimeError("variable coefficient float64: qdense and sumfac "
+                           "disagree")
+    for variant in ("qdense", "sumfac", "qbanded"):
+        st = solves[(variant, torch.float32)]
+        rel = abs(st.solution_l2_norm / q64.solution_l2_norm - 1)
+        log(f"  float32 {variant}: L2 rel diff from float64 {rel:.2e}")
+        if not st.converged or rel > 1e-5:
+            raise RuntimeError(f"variable coefficient float32 {variant}: "
+                               f"converged={st.converged}, L2 off by {rel:.2e}")
+    log("phase 14: ok")
+
+
+def phase_variants(card: str, device, r: int, r_elasticity: int) -> None:
+    """Phase 15: the constant-coefficient variants sumfac and dense."""
+    log(f"phase 15: operator variants sumfac and dense on {card}")
+    for variant in ("sumfac", "dense"):
+        what = f"GeometricMultigridPoisson(3, 4, {r}) {variant} float32"
+        t0 = time.perf_counter()
+        prob = GeometricMultigridPoisson(3, 4, r, torch.float32, variant,
+                                         device)
+        synchronize(device)
+        t_setup = time.perf_counter() - t0
+        st = solve_graphed(prob, 1e-5, what)
+        l2_rel = abs(st.solution_l2_norm / GOLDEN_L2_Q4_R6 - 1.0)
+        log(f"  {what}: setup {t_setup:.2f} s, CG iterations "
+            f"{st.iterations}, L2 {st.solution_l2_norm:.10f} (rel diff "
+            f"{l2_rel:.2e} from {GOLDEN_L2_Q4_R6}); one apply "
+            f"{apply_ms(prob):.3f} ms device time [{card}]")
+        if not (st.converged and st.iterations <= 4
+                and l2_rel <= F32_L2_BOUND_3D):
+            raise RuntimeError(f"{what}: {st.iterations} iterations, L2 off "
+                               f"by {l2_rel:.2e}")
+        vcycle_turns(card, prob, st.n_dofs, variant)
+        del prob
+        torch.cuda.empty_cache()
+    what = f"config 3 MixedMultigridPoisson(3, {r}, {LADDER_3}) sumfac float32"
+    prob = MixedMultigridPoisson(3, r, LADDER_3, torch.float32, "sumfac",
+                                 device)
+    st = solve_graphed(prob, 1e-5, what)
+    l2_rel = abs(st.solution_l2_norm / GOLDEN_L2_Q4_R6 - 1.0)
+    log(f"  {what}: CG iterations {st.iterations}, L2 "
+        f"{st.solution_l2_norm:.10f} (rel diff {l2_rel:.2e})")
+    if not st.converged or l2_rel > F32_L2_BOUND_3D:
+        raise RuntimeError(f"{what}: L2 off by {l2_rel:.2e}")
+    vcycle_turns(card, prob, st.n_dofs, "config 3 sumfac")
+    del prob
+    torch.cuda.empty_cache()
+    runs = {}
+    for variant in ("kron", "sumfac", "dense"):
+        what = (f"ElasticityMultigrid(3, 3, {r_elasticity}) {variant} "
+                f"float64")
+        prob = ElasticityMultigrid(3, 3, r_elasticity, dtype=torch.float64,
+                                   variant=variant, device=device)
+        runs[variant] = st = solve_graphed(prob, 1e-12, what)
+        log(f"  {what}: CG iterations {st.iterations}, L2 "
+            f"{st.solution_l2_norm!r}")
+        vcycle_turns(card, prob, st.n_dofs, f"elasticity {variant}")
+        del prob
+        torch.cuda.empty_cache()
+    kron = runs["kron"]
+    for variant in ("sumfac", "dense"):
+        st = runs[variant]
+        rel = abs(st.solution_l2_norm / kron.solution_l2_norm - 1)
+        log(f"  elasticity float64 {variant} vs kron: {st.iterations} / "
+            f"{kron.iterations} CG iterations, L2 rel diff {rel:.2e}")
+        if not (st.converged and st.iterations == kron.iterations
+                and rel <= 1e-9):
+            raise RuntimeError(f"elasticity {variant}: {st.iterations} "
+                               f"iterations, kron {kron.iterations}, L2 off "
+                               f"by {rel:.2e}")
+    log("phase 15: ok")
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--main-path"]):
         raise SystemExit(f"unknown arguments {argv}; see the module docstring")
@@ -1195,6 +1429,10 @@ def main(argv: list[str]) -> int:
     timed(12, phase_mixed, card, device, 6)
     torch.cuda.empty_cache()
     timed(13, phase_mixed_precision, card, device, 6)
+    torch.cuda.empty_cache()
+    timed(14, phase_varcoef, card, device, 6)
+    torch.cuda.empty_cache()
+    timed(15, phase_variants, card, device, 6, 5)
     torch.cuda.empty_cache()
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items()))

@@ -7,7 +7,11 @@ they rebuild the port's objects exactly, so a test can run both packages on
 identical state and identical Chebyshev bounds:
 
   * operator: ``mask1``, ``dK1``, ``dM1`` and the assembled 1D ``K1``/``M1``
-    (and ``G1``, ``mu``, ``lam`` for elasticity);
+    (and ``G1``, ``mu``, ``lam`` for elasticity); for the other variants
+    ``B``, ``Dco``, ``qmetric``, ``coef``, ``inv_diag_full``,
+    ``elem_matrix``, ``Gmat`` and ``wcoef_e`` (``qbanded`` runs on ``B``,
+    ``Dco`` and ``coef``: the JAX package's packed blocks of the same
+    matrices are not carried over);
   * transfer: ``M1``, ``wmask_f`` and ``mask_c1`` of a ``Transfer``;
   * smoother: ``degree``, ``theta`` and ``delta``.
 """
@@ -37,13 +41,26 @@ def _t(a, dtype, device) -> torch.Tensor:
                            device=device)
 
 
-def kron_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, K1, M1,
-                  dtype=torch.float64, device="cpu") -> LaplaceOperator:
-    """The plain Kronecker operator from 1D state (identical on every axis)."""
-    t = lambda a: (_t(a, dtype, device),) * dim
-    return LaplaceOperator(dim=dim, degree=degree, n=(n,) * dim,
-                           mask1=t(mask1), dK1=t(dK1), dM1=t(dM1), Kg=t(K1),
-                           Mg=t(M1))
+def laplace_operator(*, degree: int, n: int, dim: int, mask1,
+                     variant: str = "kron", dK1=None, dM1=None, K1=None,
+                     M1=None, B=None, Dco=None, qmetric=None, coef=None,
+                     inv_diag_full=None, elem_matrix=None, Gmat=None,
+                     wcoef_e=None, dtype=torch.float64,
+                     device="cpu") -> LaplaceOperator:
+    """The plain operator of a variant from its state (1D factors identical
+    on every axis); what the variant does not use stays None."""
+    def t(a):
+        return None if a is None else _t(a, dtype, device)
+
+    def axes(a):
+        return None if a is None else (t(a),) * dim
+
+    return LaplaceOperator(
+        dim=dim, degree=degree, n=(n,) * dim, mask1=axes(mask1),
+        variant=variant, dK1=axes(dK1), dM1=axes(dM1), Kg=axes(K1),
+        Mg=axes(M1), B=t(B), Dco=t(Dco), qmetric=t(qmetric), coef=t(coef),
+        inv_diag_full=t(inv_diag_full), elem_matrix=t(elem_matrix),
+        Gmat=t(Gmat), wcoef_e=t(wcoef_e))
 
 
 def kernel_operator(*, degree: int, n: int, mask1, dK1, dM1, K1, M1,
@@ -55,11 +72,13 @@ def kernel_operator(*, degree: int, n: int, mask1, dK1, dM1, K1, M1,
                                      dtype, device, cls=cls)
 
 
-def elasticity_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, K1,
-                        M1, G1, mu, lam, kernel: bool = False,
-                        dtype=torch.float64, device="cpu"):
-    """The elasticity operator from 1D state: the plain Kronecker one, or
-    B.5 (3D) with ``kernel``."""
+def elasticity_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, mu,
+                        lam, variant: str = "kron", K1=None, M1=None, G1=None,
+                        B=None, Dco=None, qmetric=None, elem_matrix=None,
+                        kernel: bool = False, dtype=torch.float64,
+                        device="cpu"):
+    """The elasticity operator from its state: a plain variant, or B.5 (3D,
+    from the kron state) with ``kernel``."""
     if kernel:
         if dim != 3:
             raise ValueError("B.5 is a 3D operator")
@@ -68,7 +87,9 @@ def elasticity_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, K1,
                                             device)
     return elasticity_from_factors(dim=dim, degree=degree, n=n, mu=float(mu),
                                    lam=float(lam), m1=mask1, gK=dK1, gM=dM1,
-                                   K1=K1, M1=M1, G1=G1, dtype=dtype,
+                                   variant=variant, K1=K1, M1=M1, G1=G1, B=B,
+                                   Dco=Dco, qmetric=qmetric,
+                                   elem_matrix=elem_matrix, dtype=dtype,
                                    device=device)
 
 

@@ -7,8 +7,9 @@ package:
   * :func:`assemble_rhs` and :func:`l2_norm` — the reference driver's RHS
     quadrature loop and ``integrate_difference`` L2 norm (reference:
     source/geometric_multigrid/program.cc:291-334,382-395);
-  * :func:`dense_operator` and :func:`dense_prolongation` — dense golden
-    assemblies that the tests hold the matrix-free operators against.
+  * :func:`dense_operator`, :func:`dense_operator_coefficient` and
+    :func:`dense_prolongation` — dense golden assemblies that the tests hold
+    the matrix-free operators against.
 """
 
 from __future__ import annotations
@@ -79,6 +80,38 @@ def dense_operator(space: FESpace) -> np.ndarray:
     for e in range(l2g.shape[0]):
         idx = l2g[e]
         A[np.ix_(idx, idx)] += A_loc
+    m = space.free_mask().reshape(-1)
+    A = A * m[:, None] * m[None, :]
+    A[np.arange(N), np.arange(N)] += 1.0 - m
+    return A
+
+
+def dense_operator_coefficient(space: FESpace, coefficient) -> np.ndarray:
+    """Dense golden operator for a variable scalar coefficient c(x):
+    a(u,v) = ∫ c grad u . grad v, with the constrained-DoF semantics of
+    :func:`dense_operator`.  Tiny meshes only (a Python cell loop)."""
+    from .basis import gauss_points
+
+    dim, p = space.dim, space.degree
+    h = space.mesh.h
+    n = space.mesh.cells_per_axis
+    G = gradient_matrices(p, dim)
+    qp, qw = gauss_points(p + 1)
+    wq = np.array([1.0])
+    for _ in range(dim):
+        wq = np.kron(wq, qw)
+    l2g = space.local_to_global()
+    N = space.n_dofs
+    A = np.zeros((N, N))
+    for e in range(l2g.shape[0]):
+        cell = np.unravel_index(e, (n,) * dim)
+        # physical coordinates of this cell's quadrature points
+        axes = [space.mesh.a + h * (c + qp) for c in cell]
+        coords = np.meshgrid(*axes, indexing="ij")
+        cq = np.asarray(coefficient(*coords), dtype=np.float64).reshape(-1)
+        W = cq * wq * h ** (dim - 2)
+        idx = l2g[e]
+        A[np.ix_(idx, idx)] += sum((Gk * W[:, None]).T @ Gk for Gk in G)
     m = space.free_mask().reshape(-1)
     A = A * m[:, None] * m[None, :]
     A[np.arange(N), np.arange(N)] += 1.0 - m

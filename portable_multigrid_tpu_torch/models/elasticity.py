@@ -17,16 +17,22 @@ Variants:
     full-grid apply; the h-pairs run B.3 on each component.  One operator
     serves every role of a level.  On CPU tensors each wrapper runs its
     plain twin.
-  * ``"kron"`` — the plain path, 2D and 3D: the Kronecker operator, plain
-    Chebyshev and the windowed ``Transfer`` on full grids.
+  * ``"kron"``, ``"sumfac"``, ``"dense"`` — the plain paths, 2D and 3D: the
+    operator variant of ``ops/elasticity.py``, plain Chebyshev and the
+    windowed ``Transfer`` on full grids.
 
-Not ported: the default variant taken from ``PMG_ELASTICITY_VARIANT`` and
-the bf16 ``mxu`` core that drives the JAX recurrence
+``variant=None`` takes ``PMG_ELASTICITY_VARIANT``, by default ``"auto"``
+for a 3D float32 solve on a CUDA device and ``"kron"`` otherwise, the JAX
+package's rule (its ``"auto"`` falls back to kron outside 3D).
+
+Not ported: the bf16 ``mxu`` core that drives the JAX recurrence
 (``_maybe_mxu_recurrence``; ROADMAP, precision modes).  This path runs the
 exact recurrence.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -46,7 +52,11 @@ class ElasticityMultigrid(_MultigridBase):
 
     def __init__(self, dim: int, degree: int, refinements: int,
                  mu: float = 1.0, lam: float = 1.0, dtype=torch.float64,
-                 variant: str = "auto", device="cuda"):
+                 variant: str | None = None, device="cuda"):
+        if variant is None:
+            default = ("auto" if dtype == torch.float32 and dim == 3
+                       and torch.device(device).type == "cuda" else "kron")
+            variant = os.environ.get("PMG_ELASTICITY_VARIANT", default)
         if variant == "auto" and dim != 3:
             raise ValueError("variant 'auto' (the B.5 kernel) is 3D only; "
                              "use variant 'kron' for 2D elasticity")

@@ -13,11 +13,11 @@ Counterpart of ``portable_multigrid_tpu/models/mixed.py``:
 Variants as in ``models/poisson.py``: ``"auto"`` runs the kernel operator
 on every level (B.1 with B.2 pairs in 3D, B.4 in 2D), B.3 on the 3D h-pairs
 and the plain p-transfer, adapted to trimmed state, on the p-pairs;
-``"kron"`` is the plain path.  The JAX package's default ``"sumfac"`` is
-not ported yet (ROADMAP A.3).  Under ``"auto"`` the float64 outer operator
-of :class:`MixedPrecisionPoisson` is the kernel operator's full-grid
-apply; the JAX package has no such variant and runs config 5 on its XLA
-operators.
+``"kron"``, ``"sumfac"`` (the JAX package's default for both models) and
+``"dense"`` are the plain paths.  Under ``"auto"`` the float64 outer
+operator of :class:`MixedPrecisionPoisson` is the kernel operator's
+full-grid apply; the JAX package has no such variant and runs config 5 on
+its XLA operators.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from ..fem.mesh import HyperCubeMesh, geometric_coarsening_sequence
 from ..fem.space import FESpace
 from ..ops.cuda_laplace import make_cuda_laplace
 from ..ops.cuda_laplace2d import make_cuda_laplace2d
-from ..ops.laplace import make_laplace, reject_variant
+from ..ops.laplace import make_laplace
 from .poisson import _MultigridBase
 
 
@@ -70,11 +70,9 @@ class MixedPrecisionPoisson(_MultigridBase):
         if variant == "auto":
             make_op = {2: make_cuda_laplace2d, 3: make_cuda_laplace}[dim]
             self.fine_op64 = make_op(fine, torch.float64, self.device)
-        elif variant == "kron":
-            self.fine_op64 = make_laplace(fine, torch.float64, "kron",
-                                          self.device)
         else:
-            reject_variant(variant)
+            self.fine_op64 = make_laplace(fine, torch.float64, variant,
+                                          self.device)
 
     @property
     def fine_operator(self):

@@ -22,8 +22,16 @@ Variants:
     kernel, every other pair the plain ``Transfer``.  One exact operator
     serves every role of a level.  On CPU tensors each kernel wrapper runs
     its plain twin.
-  * ``"kron"`` — the plain path: the Kronecker operator, plain Chebyshev and
-    the windowed ``Transfer`` on full grids.
+  * ``"kron"``, ``"sumfac"``, ``"dense"`` — the plain paths: the operator
+    variant of ``ops/laplace.py``, plain Chebyshev and the windowed
+    ``Transfer`` on full grids.
+
+With ``coefficient=`` (:class:`GeometricMultigridPoisson`; a callable c(x)
+of dim coordinate arrays) the problem is -div(c grad u) = f: every level
+rediscretizes the same coefficient on the operator variant that
+``PMG_VARCOEFF_VARIANT`` names (default ``"qdense"``, or ``"sumfac"`` or
+``"qbanded"``), whatever the model's variant, with plain Chebyshev and
+plain transfers on full grids, as in the JAX package.
 
 On a CUDA device :meth:`_MultigridBase.solve` replays the V-cycle from a
 CUDA graph (``solvers/vcycle.py`` ``GraphedVCycle``), the counterpart of the
@@ -34,6 +42,7 @@ iteration.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -42,10 +51,10 @@ from ..fem.assemble import assemble_rhs, l2_norm
 from ..fem.mesh import HyperCubeMesh, geometric_coarsening_sequence
 from ..fem.space import FESpace
 from ..ops.cuda_cheb2 import make_cheb2
-from ..ops.cuda_laplace import make_cuda_laplace
+from ..ops.cuda_laplace import CudaLaplaceOperator, make_cuda_laplace
 from ..ops.cuda_laplace2d import make_cuda_laplace2d
 from ..ops.cuda_transfer import make_cuda_h_transfer
-from ..ops.laplace import make_laplace, reject_variant
+from ..ops.laplace import make_laplace
 from ..ops.transfer import make_h_transfer, make_p_transfer
 from ..solvers.cg import cg
 from ..solvers.chebyshev import make_chebyshev
@@ -63,21 +72,25 @@ class SolveStats:
 
 
 def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
-                 device) -> tuple:
-    if variant == "auto":
+                 device, coefficient=None) -> tuple:
+    if coefficient is not None:
+        # coarse levels rediscretize the same coefficient
+        op = make_laplace(space, dtype,
+                          os.environ.get("PMG_VARCOEFF_VARIANT", "qdense"),
+                          device, coefficient=coefficient)
+    elif variant == "auto":
         make_op = {2: make_cuda_laplace2d, 3: make_cuda_laplace}.get(space.dim)
         if make_op is None:
             raise ValueError("variant 'auto' runs 2D and 3D spaces only")
         op = make_op(space, dtype, device)
-    elif variant == "kron":
-        op = make_laplace(space, dtype, "kron", device)
     else:
-        reject_variant(variant)
+        op = make_laplace(space, dtype, variant, device)
     if coarse:
         smoother = make_chebyshev(op, smoothing_range=1e-3, degree=None,
                                   eig_cg_n_iterations=space.n_dofs)
     else:
-        fused = variant == "auto"
+        # the kernel operators smooth fused, on trimmed state
+        fused = isinstance(op, CudaLaplaceOperator)
         pair = make_cheb2(op) if fused and op.pair_kernel else None
         smoother = make_chebyshev(
             op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
@@ -96,35 +109,39 @@ class _MultigridBase:
     io_dtype = None
 
     def __init__(self, dtype=torch.float64, variant: str = "auto",
-                 device="cuda"):
+                 device="cuda", coefficient=None):
         self.dtype = dtype
         self.variant = variant
         self.device = torch.device(device)
+        self.coefficient = coefficient
         self._graphed = {}  # GraphedVCycle by (pre, post) smoothing steps
 
     def _build_level(self, space: FESpace, coarse: bool) -> tuple:
         return _build_level(space, self.dtype, coarse, self.variant,
-                            self.device)
+                            self.device, self.coefficient)
 
     def _assemble_levels(self, spaces, kinds):
         """Levels over ``spaces`` (coarse first), ``kinds[i]`` the transfer
         between spaces i and i+1: "h" (one refinement, equal degree) or
         "p" (one mesh, higher degree)."""
         levels = []
+        prev_trimmed = False
         for i, sp in enumerate(spaces):
             op, smoother = self._build_level(sp, coarse=(i == 0))
+            # what the level is, not the model's variant, picks the transfer
+            trimmed = bool(getattr(smoother, "trimmed_io", False))
             transfer = None
             if i > 0:
                 kind = kinds[i - 1]
-                if self.variant == "auto" and sp.dim == 3 and kind == "h":
-                    # the coarsest level keeps the full grid
+                if trimmed and sp.dim == 3 and kind == "h":
                     transfer = make_cuda_h_transfer(
                         spaces[i - 1], sp, self.dtype, self.device,
-                        coarse_trimmed=i - 1 > 0)
+                        coarse_trimmed=prev_trimmed)
                 else:
                     # wire_trimmed adapts it to trimmed levels
                     make = {"h": make_h_transfer, "p": make_p_transfer}[kind]
                     transfer = make(spaces[i - 1], sp, self.dtype, self.device)
+            prev_trimmed = trimmed
             levels.append(MGLevel(op=op, smoother=smoother, transfer=transfer))
         levels, self.fine_trimmed = wire_trimmed(levels)
         self.spaces = list(spaces)
@@ -197,11 +214,13 @@ class _MultigridBase:
 
 class GeometricMultigridPoisson(_MultigridBase):
     """h-multigrid Poisson solve; ``refinements`` is the finest level and the
-    hierarchy is the full coarsening sequence down to the 1-cell mesh."""
+    hierarchy is the full coarsening sequence down to the 1-cell mesh.
+    ``coefficient`` (a callable c(x)) makes it -div(c grad u) = f."""
 
     def __init__(self, dim: int, degree: int, refinements: int,
-                 dtype=torch.float64, variant: str = "auto", device="cuda"):
-        super().__init__(dtype, variant, device)
+                 dtype=torch.float64, variant: str = "auto", device="cuda",
+                 coefficient=None):
+        super().__init__(dtype, variant, device, coefficient)
         mesh = HyperCubeMesh(dim, refinements)
         spaces = [FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)]
         self._assemble_levels(spaces, "h" * (len(spaces) - 1))

@@ -1,8 +1,8 @@
-"""Vector-valued linear elasticity operator (plain torch, Kronecker form).
+"""Vector-valued linear elasticity operator (plain torch).
 
-Counterpart of ``portable_multigrid_tpu/ops/elasticity.py`` for the
-``"kron"`` variant (``ElasticityOperator.apply_kron``,
-``element_stiffness_elasticity``, ``assembled_1d_gradient``,
+Counterpart of ``portable_multigrid_tpu/ops/elasticity.py``
+(``ElasticityOperator`` with its ``"kron"``, ``"sumfac"`` and ``"dense"``
+variants, ``element_stiffness_elasticity``, ``assembled_1d_gradient``,
 ``make_elasticity``, and ``_elasticity_diagonal`` and
 ``dense_elasticity_operator`` as test oracles).  Weak form
 
@@ -17,8 +17,13 @@ G[i, j] = ∫ l_i' l_j dx; per output component c
           + sum_{a != c} mu (G@a, G^T@c, M elsewhere) u_a
                        + lam (G@c, G^T@a, M elsewhere) u_a
 
-with alpha_{c,c} = 2 mu + lam and mu otherwise.  Vectors are
-[dim, N, ..., N] (component-major).  The inverse diagonal is built in the
+with alpha_{c,c} = 2 mu + lam and mu otherwise (``"kron"``).  ``"sumfac"``
+evaluates the full gradient tensor at the quadrature points of every
+element and integrates the stress tau = mu (G + G^T) + lam tr(G) I back
+(the reference's q-point stage, portable_laplace_operator.h:300-325);
+``"dense"`` applies the constant vector-valued element matrix as one
+product over all elements.  Vectors are [dim, N, ..., N]
+(component-major).  The inverse diagonal is built in the
 separable closed form of ``pallas_elasticity.py:117-140`` (only the
 diagonal blocks reach the matrix diagonal), never by the element loop.
 """
@@ -37,17 +42,13 @@ from .laplace import (
     assembled_1d_matrices,
     bcast,
     diagonal_1d_factors,
+    element_perm,
+    inverse_perm,
+    quadrature_metric,
     reject_variant,
     separable_mask,
 )
-from .structured import contract
-
-# variants of the JAX package's elasticity operator that the port does not
-# carry yet, with the ROADMAP item that brings each one
-_LATER_VARIANTS = {
-    "sumfac": "ROADMAP A.10 (sum-factorized elasticity apply)",
-    "dense": "ROADMAP A.10 (dense element-matrix elasticity apply)",
-}
+from .structured import contract, matmul, overlap_add_all, split_all
 
 
 def alpha(a: int, c: int, mu: float, lam: float) -> float:
@@ -112,8 +113,8 @@ def elasticity_inv_diag(op) -> torch.Tensor:
 
 @dataclasses.dataclass
 class ElasticityOperator:
-    """Kronecker-form elasticity operator holding its 1D factors as tensors
-    (the same on every axis)."""
+    """Elasticity operator holding its state as tensors (1D factors the
+    same on every axis); the fields a variant does not use stay None."""
 
     dim: int
     degree: int
@@ -123,9 +124,14 @@ class ElasticityOperator:
     mask1: torch.Tensor  # [N] free-DoF mask factor
     dK1: torch.Tensor  # [N] assembled stiffness diagonal (h-folded)
     dM1: torch.Tensor  # [N] assembled mass diagonal
-    Kg: torch.Tensor  # [N, N] assembled 1D stiffness
-    Mg: torch.Tensor  # [N, N] assembled 1D mass
-    Gg: torch.Tensor  # [N, N] assembled 1D gradient (test-derivative rows)
+    variant: str = "kron"
+    Kg: torch.Tensor = None  # [N, N] assembled 1D stiffness
+    Mg: torch.Tensor = None  # [N, N] assembled 1D mass
+    Gg: torch.Tensor = None  # [N, N] assembled 1D gradient (test-derivative rows)
+    B: torch.Tensor = None  # [nq, p+1] shape values at the quadrature points
+    Dco: torch.Tensor = None  # [nq, nq] collocation derivative
+    qmetric: torch.Tensor = None  # [nq]^dim: w_q (x) ... (x) w_q h^(dim-2)
+    elem_matrix: torch.Tensor = None  # [dim (p+1)^dim]^2, component-major
 
     @property
     def grid_shape(self) -> tuple[int, ...]:
@@ -160,12 +166,68 @@ class ElasticityOperator:
         return elasticity_kron(um, self.Kg, self.Mg, self.Gg, self.Gg.T,
                                self.mu, self.lam)
 
+    def apply_sumfac(self, um: torch.Tensor) -> torch.Tensor:
+        """Gather, the gradient tensor G[c][d] at the quadrature points, the
+        stress tau[c][d] = mu (G[c,d] + G[d,c]) + lam delta_cd tr(G) scaled
+        by the q-point weights, the transposed gradients and basis change
+        back, and the scatter, per component."""
+        dim, p = self.dim, self.degree
+        n = (self.n,) * dim
+        nq = self.B.shape[0]
+        qaxes = [2 * d + 1 for d in range(dim)]
+        w = self.qmetric.reshape(tuple(1 if a % 2 == 0 else nq
+                                       for a in range(2 * dim)))
+        vals = []
+        for c in range(dim):
+            v = split_all(um[c], dim, n, p)
+            for ax in qaxes:
+                v = contract(v, self.B, ax)
+            vals.append(v)
+        G = [[contract(vals[c], self.Dco, qaxes[d]) for d in range(dim)]
+             for c in range(dim)]
+        trG = G[0][0]
+        for d in range(1, dim):
+            trG = trG + G[d][d]
+        outs = []
+        for c in range(dim):
+            r = None
+            for d in range(dim):
+                tau = self.mu * (G[c][d] + G[d][c])
+                if c == d:
+                    tau = tau + self.lam * trG
+                g = contract(tau * w, self.Dco.T, qaxes[d])
+                r = g if r is None else r + g
+            for ax in qaxes:
+                r = contract(r, self.B.T, ax)
+            outs.append(overlap_add_all(r, dim, n, p))
+        return torch.stack(outs)
+
+    def apply_dense(self, um: torch.Tensor) -> torch.Tensor:
+        """The element loop, all component couplings included, as one
+        [E, dim (p+1)^dim] @ [dim (p+1)^dim]^2 product with the constant
+        element matrix."""
+        dim, p = self.dim, self.degree
+        n, q = (self.n,) * dim, p + 1
+        perm = element_perm(dim)
+        flat = torch.cat([split_all(um[c], dim, n, p).permute(perm)
+                          .reshape(-1, q ** dim) for c in range(dim)], dim=1)
+        r = matmul(flat, self.elem_matrix)
+        return torch.stack([
+            overlap_add_all(r[:, c * q ** dim:(c + 1) * q ** dim]
+                            .reshape(n + (q,) * dim).permute(inverse_perm(perm)),
+                            dim, n, p)
+            for c in range(dim)])
+
+    def apply_bilinear(self, um: torch.Tensor) -> torch.Tensor:
+        return {"kron": self.apply_kron, "dense": self.apply_dense,
+                "sumfac": self.apply_sumfac}[self.variant](um)
+
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """Full vmult with constrained-DoF semantics, component by component:
         A_eff = M A M + (I - M)."""
         u = u.reshape(self.shape)
         m = self.mask
-        au = self.apply_kron(u * m)
+        au = self.apply_bilinear(u * m)
         return m * au + (1.0 - m) * u
 
 
@@ -245,28 +307,45 @@ def dense_elasticity_operator(space: FESpace, mu: float = 1.0,
 
 
 def elasticity_from_factors(*, dim: int, degree: int, n: int, mu: float,
-                            lam: float, m1, gK, gM, K1, M1, G1,
+                            lam: float, m1, gK, gM, variant: str = "kron",
+                            K1=None, M1=None, G1=None, B=None, Dco=None,
+                            qmetric=None, elem_matrix=None,
                             dtype=torch.float64,
                             device="cpu") -> ElasticityOperator:
-    """Pack the kron operator from its 1D factors (NumPy, float64)."""
+    """Pack an operator from its state (NumPy, float64): the 1D mask and
+    diagonal factors, and the variant's own (``K1``, ``M1``, ``G1`` for
+    kron; ``B``, ``Dco``, ``qmetric`` for sumfac; ``elem_matrix`` for
+    dense)."""
     def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
+        return None if a is None else torch.as_tensor(
+            np.array(a, np.float64), dtype=dtype, device=device)
 
     return ElasticityOperator(dim=dim, degree=degree, n=n, mu=float(mu),
                               lam=float(lam), mask1=t(m1), dK1=t(gK),
-                              dM1=t(gM), Kg=t(K1), Mg=t(M1), Gg=t(G1))
+                              dM1=t(gM), variant=variant, Kg=t(K1), Mg=t(M1),
+                              Gg=t(G1), B=t(B), Dco=t(Dco), qmetric=t(qmetric),
+                              elem_matrix=t(elem_matrix))
 
 
 def make_elasticity(space: FESpace, dtype=torch.float64, mu: float = 1.0,
                     lam: float = 1.0, variant: str = "kron",
                     device="cpu") -> ElasticityOperator:
-    """Build the kron elasticity operator for a space on ``device``."""
-    if variant != "kron":
-        reject_variant(variant, _LATER_VARIANTS)
+    """Build the ``"kron"``, ``"sumfac"`` or ``"dense"`` elasticity operator
+    of a space on ``device``."""
+    state = {}
+    if variant == "kron":
+        K1, M1 = assembled_1d_matrices(space)
+        state.update(K1=K1, M1=M1, G1=assembled_1d_gradient(space))
+    elif variant == "sumfac":
+        b = space.basis
+        state.update(B=b.B, Dco=b.Dco, qmetric=quadrature_metric(space))
+    elif variant == "dense":
+        state["elem_matrix"] = element_stiffness_elasticity(
+            space.degree, space.dim, space.mesh.h, mu, lam)
+    else:
+        reject_variant(variant)
     gK, gM = diagonal_1d_factors(space)
-    K1, M1 = assembled_1d_matrices(space)
     return elasticity_from_factors(
         dim=space.dim, degree=space.degree, n=space.mesh.cells_per_axis,
-        mu=mu, lam=lam, m1=space.free_mask_1d(), gK=gK, gM=gM, K1=K1, M1=M1,
-        G1=assembled_1d_gradient(space), dtype=dtype, device=device)
+        mu=mu, lam=lam, m1=space.free_mask_1d(), gK=gK, gM=gM,
+        variant=variant, dtype=dtype, device=device, **state)

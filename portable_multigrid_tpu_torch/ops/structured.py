@@ -51,3 +51,28 @@ def contract(t: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
         exact_matmuls()
     out = torch.tensordot(t, M, dims=([axis], [1]))
     return torch.movedim(out, -1, axis)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full precision on the card."""
+    if a.is_cuda:
+        exact_matmuls()
+    return torch.matmul(a, b)
+
+
+def split_all(u: torch.Tensor, dim: int, n: tuple, stride: int) -> torch.Tensor:
+    """Split every grid axis: [n_d*s+1]*dim -> interleaved [n_d, s+1] layout.
+
+    Cell axes land at even positions (0, 2, 4), DoF axes at odd ones
+    (1, 3, 5)."""
+    for d in range(dim):
+        u = split_windows(u, 2 * d, n[d], stride)
+    return u
+
+
+def overlap_add_all(v: torch.Tensor, dim: int, n: tuple,
+                    stride: int) -> torch.Tensor:
+    """Transpose of :func:`split_all` (shared points summed)."""
+    for d in reversed(range(dim)):
+        v = overlap_add(v, 2 * d, n[d], stride)
+    return v

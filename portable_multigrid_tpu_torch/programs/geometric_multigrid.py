@@ -10,8 +10,8 @@ source/geometric_multigrid/program.cc:189-199,354-355,395).
 
 Usage:
   python -m portable_multigrid_tpu_torch.programs.geometric_multigrid
-         [--dim 3] [--max-degree 7] [--cycles N] [--variant auto|kron]
-         [--f32] [--rtol R] [--device cuda]
+         [--dim 3] [--max-degree 7] [--cycles N]
+         [--variant auto|kron|sumfac|dense] [--f32] [--rtol R] [--device cuda]
 """
 
 from __future__ import annotations
@@ -27,9 +27,10 @@ def main(argv=None) -> list:
     ap.add_argument("--max-degree", type=int, default=7)
     ap.add_argument("--cycles", type=int, default=None,
                     help="refinement cycles (default: 9 - dim, as the reference)")
-    ap.add_argument("--variant", default="auto", choices=["auto", "kron"],
+    ap.add_argument("--variant", default="auto",
+                    choices=["sumfac", "dense", "kron", "auto"],
                     help="auto: the CUDA kernels (their plain twins on CPU); "
-                         "kron: the plain Kronecker operator")
+                         "sumfac, dense, kron: the plain operator variants")
     ap.add_argument("--f32", action="store_true",
                     help="solve in float32 (default float64)")
     ap.add_argument("--rtol", type=float, default=None)

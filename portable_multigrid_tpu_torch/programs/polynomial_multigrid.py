@@ -11,7 +11,7 @@ solution L2 norms in the format of the JAX driver
 Usage:
   python -m portable_multigrid_tpu_torch.programs.polynomial_multigrid
          [--dim 2] [--degree 7] [--levels 7] [--cycles 7] [--f32]
-         [--rtol R] [--variant auto|kron] [--device cuda]
+         [--rtol R] [--variant auto|kron|sumfac|dense] [--device cuda]
 """
 
 from __future__ import annotations
@@ -29,9 +29,10 @@ def main(argv=None):
     ap.add_argument("--f32", action="store_true",
                     help="solve in float32 (default float64)")
     ap.add_argument("--rtol", type=float, default=None)
-    ap.add_argument("--variant", default="auto", choices=["auto", "kron"],
+    ap.add_argument("--variant", default="auto",
+                    choices=["sumfac", "dense", "kron", "auto"],
                     help="auto: the CUDA kernels (their plain twins on CPU); "
-                         "kron: the plain Kronecker operator")
+                         "sumfac, dense, kron: the plain operator variants")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
     args = ap.parse_args(argv)

@@ -6,7 +6,9 @@ B.3 on its [3, ...] fields), a 3D
 and a 2D float64 solve through the kernels against the golden table, and a
 float64 elasticity solve through the kernels against the JAX package's
 values pinned in ``chip_smoke.py``, and the CUDA graph of the V-cycle
-(``GraphedVCycle``) against the eager V-cycle on every model.  These
+(``GraphedVCycle``) against the eager V-cycle on every model and on the
+variable-coefficient solve, and the operator variants' products in full
+float32 with a caller's TF32 switched on.  These
 skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
@@ -36,6 +38,8 @@ from portable_multigrid_tpu_torch.ops import (
     cuda_laplace2d,
     cuda_transfer,
 )
+from portable_multigrid_tpu_torch.ops.laplace import make_laplace
+from portable_multigrid_tpu_torch.ops.structured import split_all
 from portable_multigrid_tpu_torch.solvers.cg import cg
 from portable_multigrid_tpu_torch.solvers.vcycle import GraphedVCycle, VCycle
 
@@ -326,3 +330,58 @@ def test_graphed_vcycle_refuses_cpu(cuda):
     prob = _model("3d", torch.float32, cuda)
     with pytest.raises(ValueError, match="CUDA device"):
         prob.preconditioner().apply(prob.rhs().cpu())
+
+
+@pytest.mark.parametrize("variant", ["qdense", "sumfac"])
+def test_varcoef_graphed_equals_eager(cuda, monkeypatch, variant):
+    """The variable-coefficient V-cycle (plain operators, no kernel): the
+    graph's replay equals the eager V-cycle bit for bit, and the solve
+    through it gives the eager solve's count and x."""
+    monkeypatch.setenv("PMG_VARCOEFF_VARIANT", variant)
+    prob = GeometricMultigridPoisson(3, 4, 2, torch.float32, device=cuda,
+                                     coefficient=chip_smoke.coefficient)
+    assert {lvl.op.variant for lvl in prob.levels} == {variant}
+    b = prob.rhs()
+    graphed = prob.preconditioner()
+    assert isinstance(graphed, GraphedVCycle)
+    assert torch.equal(graphed.apply(b), prob.preconditioner(
+        graph=False).apply(b))
+    (xg, sg), (xe, se) = (prob.solve(rtol=1e-5, graph=graph)
+                          for graph in (True, False))
+    assert sg.converged and sg.iterations == se.iterations
+    assert torch.equal(xg, xe)
+
+
+def _rel32(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("variant", ["qdense", "qbanded", "sumfac", "dense"])
+def test_matmuls_stay_full_float32(cuda, variant):
+    """TF32 keeps about three digits, far below what CG and the golden
+    counts need: with a caller's TF32 switched on, the variants' products
+    still run in full float32 (``structured.exact_matmuls`` switches it
+    off) and the float32 apply on the card keeps float32's digits against
+    the float64 apply on the CPU."""
+    sp = FESpace(HyperCubeMesh(3, 2), 4)
+    coef = None if variant == "dense" else chip_smoke.coefficient
+    u = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        sp.grid_shape))
+    want = make_laplace(sp, torch.float64, variant,
+                        coefficient=coef).apply(u)
+    op = make_laplace(sp, torch.float32, variant, cuda, coefficient=coef)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        if variant == "qdense":
+            # the first product with TF32 on: about three digits
+            flat = op._to_elements(split_all(u.float().to(cuda), 3, op.n, 4))
+            want_g = op._to_elements(split_all(u, 3, op.n, 4)) @ \
+                make_laplace(sp, torch.float64, variant,
+                             coefficient=coef).Gmat
+            assert _rel32(flat @ op.Gmat, want_g) > 1e-5
+        got = op.apply(u.float().to(cuda))
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert _rel32(got, want) < 1e-5

@@ -329,10 +329,10 @@ def test_variant_errors():
     sp = FESpace(HyperCubeMesh(2, 1), 2)
     with pytest.raises(ValueError, match="'kron'"):
         ElasticityMultigrid(2, 2, 1, variant="auto", device="cpu")
-    with pytest.raises(ValueError, match="not ported yet: ROADMAP A.10"):
-        make_elasticity(sp, variant="sumfac")
-    with pytest.raises(ValueError, match="not ported yet: ROADMAP A.10"):
-        ElasticityMultigrid(3, 2, 1, variant="dense", device="cpu")
+    with pytest.raises(ValueError, match="not ported: .*TPU-only"):
+        make_elasticity(sp, variant="bkron")
+    with pytest.raises(ValueError, match="not ported: .*TPU-only"):
+        ElasticityMultigrid(3, 2, 1, variant="bkron", device="cpu")
     with pytest.raises(ValueError, match="3D"):
         make_cuda_elasticity(sp)
 

@@ -56,9 +56,11 @@ def test_inverse_diagonal_matches_jax():
 
 
 def test_unported_variant_names_its_roadmap_item():
+    """bkron, the one variant the port leaves out, names its ROADMAP item
+    (the ported sumfac is held to the JAX package in test_torch_sumfac.py)."""
     sp = FESpace(HyperCubeMesh(3, 1), 2)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        make_laplace(sp, torch.float64, "sumfac")
+    with pytest.raises(ValueError, match="ROADMAP queue B.*TPU-only"):
+        make_laplace(sp, torch.float64, "bkron")
 
 
 # (p, r, bx = by): Q4 r=2 with 2x2 blocks, Q2 r=3 with 4x4 blocks

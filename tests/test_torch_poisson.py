@@ -74,8 +74,8 @@ def test_float32_solve_converges():
 def test_variant_errors():
     with pytest.raises(ValueError, match="2D and 3D"):
         GeometricMultigridPoisson(1, 2, 1, torch.float64, "auto", device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        GeometricMultigridPoisson(3, 2, 1, torch.float64, "dense",
+    with pytest.raises(ValueError, match="not ported: .*TPU-only"):
+        GeometricMultigridPoisson(3, 2, 1, torch.float64, "bkron",
                                   device="cpu")
 
 

@@ -46,7 +46,7 @@ def _op_state(jop):
 def _ports(jop):
     """Both port operators (plain kron and B.1) built from the JAX state."""
     st = _op_state(jop)
-    return (convert.kron_operator(dim=3, **st),
+    return (convert.laplace_operator(dim=3, **st),
             convert.kernel_operator(**st))
 
 
@@ -172,7 +172,7 @@ def _port_levels(jlevels, kernels: bool):
     for i, jl in enumerate(jlevels):
         st = _op_state(jl.op)
         op = (convert.kernel_operator(**st) if kernels
-              else convert.kron_operator(dim=3, **st))
+              else convert.laplace_operator(dim=3, **st))
         sm = convert.smoother(op, degree=jl.smoother.degree,
                               theta=jl.smoother.theta, delta=jl.smoother.delta,
                               fused=kernels and i > 0)
