@@ -23,21 +23,35 @@ or from the CUDA graph to the eager V-cycle):
      p = 1..7, r = 2 and 3 (partial columns) and at every level shape of
      the Q7 r = 9 ladder ((512 p)^2, p = 1..7: 512^2 to 3584^2); bound 1e-5
      (f32) / 1e-12 (f64) on the max error relative to the twin's max
-     magnitude;
+     magnitude; in float32 at every one of these shapes also the bf16
+     smoother grade of the JAX package's main path: B.1's ``residual3t``
+     with bf16 r0 and d0, B.1's ``"mxu"`` core on the cheb family at bf16
+     state, B.2's six modes at its production grade (made from the mxu
+     operator) and bf16 state, and B.4's ``residual3t`` and cheb family at
+     bf16 state, bound BF16_BOUND (1e-2: a rounding to bf16 may fall on
+     the other side where the kernel's float32 sums differ in order from
+     the twin's);
   3. golden replay — the ``geometric_3d`` rows (p = 1..7, r = 1..3) and the
      ``polynomial_2d`` rows of tests/golden_convergence.json in float64
      through the kernels: CG counts exact, L2 norms to 1e-10;
   4. main path — GeometricMultigridPoisson(3, 4, 6, float32, "auto") on the
      card, solved to rtol 1e-5 eagerly (``graph=False``), which gives the
-     launch count of each of its kernels (B.1, B.2, B.3), and through the
-     CUDA graph of the V-cycle (the model's default): the same CG count,
+     launch count of each of its kernels (B.1, B.2, B.3) by mode and grade
+     (``residual3t/bf16`` and B.2's ``/mxu/bf16`` modes must launch: the
+     default builds the JAX package's bf16 grade on every float32 kernel
+     level), and through the CUDA graph of the V-cycle (the model's
+     default): the same CG count,
      the solutions within GRAPH_BOUND of each other (bit for bit
      expected); converged in <= 4 iterations, L2 norm within 1e-5 of
      0.0249871331, every tensor on the card; the capture's seconds;
   5. timing of the main path — CUDA events, warm-up then the median of 10
      runs: the eager and the graphed V-cycle, each with B.2 pairs and with
      B.1 single steps in their place (the smoothers' ``op_cheb2`` set to
-     None; CG count of each), in turns, the eager one's split by level,
+     None; B.1's mxu core must launch there), each at the bf16 grade (the
+     default) and at the exact float32 grade (the fine levels' smoothers
+     swapped back to the exact operator at float32 state, as the JAX
+     package's tests build it), CG count of each, in turns, the default
+     eager one's split by level,
      the profiler's device-busy share of both against their unprofiled
      wall times and the kernel split, the whole solve, and each 3D kernel
      mode against its twin at r = 6 (and, in the log only, the kernel's
@@ -60,7 +74,8 @@ or from the CUDA graph to the eager V-cycle):
   7. timing of the second path — the eager and the graphed V-cycle in
      turns (ms, DoF/s), the eager one's split by level with the p = 1
      coarse solve on its own line, the busy share of both and B.4's
-     device time per V-cycle by degree, the CG solve, each B.4 mode
+     device time per V-cycle by degree, the V-cycle at the exact float32
+     grade beside the default bf16 state, the CG solve, each B.4 mode
      against its twin at 3584^2, and at every level of the ladder its B.4
      launches per V-cycle (from the profile) and the device time of its
      busiest mode against the bound: ``cheb`` on a smoothing level,
@@ -93,8 +108,8 @@ or from the CUDA graph to the eager V-cycle):
      every tensor on the card, the B.1, B.2 and B.3 launch counts raised
      by the eager run; in float64 to rtol 1e-12 through the kernels and on
      "kron": the same CG count, L2 norms within 1e-9; the eager and
-     graphed V-cycle in turns (ms, DoF/s) and the eager one's split by
-     level;
+     graphed V-cycle at the bf16 and the exact grade in turns (ms, DoF/s)
+     and the eager one's split by level;
  13. config 5 at full width — MixedPrecisionPoisson(3, 4, 6, float32,
      "auto") to rtol 1e-12 (float64 CG on B.1's float64 apply, a float32
      graphed V-cycle): CG count within 2 of
@@ -103,7 +118,9 @@ or from the CUDA graph to the eager V-cycle):
      problem (inner: float32 CG to rtol 1e-6 on B.1 with the graphed
      V-cycle; outer: B.1's float64 apply): <= 5 cycles, residual <=
      1e-12 ||b||, x within 1e-10 max|x| of the float64 solve; the
-     whole-solve ms of the three solves with their CG and cycle counts.
+     whole-solve ms of the three solves with their CG and cycle counts,
+     and the float32 V-cycle eager and graphed at the bf16 and the exact
+     grade in turns;
  14. config 4's variable coefficient at full width —
      GeometricMultigridPoisson(3, 4, 6, coefficient=c), c(x) = 1 + 0.5
      sum_d sin(3 x_d), on 64^3 cells (16,974,593 DoFs), every level a plain
@@ -170,6 +187,7 @@ from portable_multigrid_tpu_torch.ops import (
 from portable_multigrid_tpu_torch.ops.structured import exact_matmuls
 from portable_multigrid_tpu_torch.solvers.cg import cg
 from portable_multigrid_tpu_torch.solvers.refinement import iterative_refinement
+from portable_multigrid_tpu_torch.solvers.chebyshev import FusedChebyshev
 from portable_multigrid_tpu_torch.solvers.vcycle import GraphedVCycle, VCycle
 
 GOLDEN_L2_Q4_R6 = 0.0249871331
@@ -181,6 +199,12 @@ F32_L2_BOUND_3D = 1e-5
 # rows agree to 1e-10
 MESH_L2_2D = 0.0412614897
 BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
+# a kernel mode at the bf16 grade or bf16 state against its twin (mode keys
+# with a "/": "cheb/mxu/bf16", "residual3t/bf16"): each output's max error
+# over its max magnitude; a bf16 rounding may fall on the other side where
+# the kernel's float32 sums differ in order from the twin's
+BF16_BOUND = 1e-2
+BF16 = torch.bfloat16
 # the graphed solve against the eager one: max |x_graph - x_eager| over the
 # eager solution's max magnitude, by the solution's dtype (bit for bit
 # expected: the graph replays the same kernels in the same order)
@@ -315,9 +339,12 @@ SCAL_PAIR = (0.59, 1.26, 0.71, 1.52)
 SCAL_PAIR_F0 = SCAL_PAIR + (1.3,)
 
 
-def laplace_cases(op, rng, dtype, device):
-    """(mode, kernel call, twin call) for every B.1 / B.4 mode on random
-    state."""
+def laplace_cases(op, rng, dtype, device, smooth_op=None):
+    """(mode, kernel call, twin call, None) for every B.1 / B.4 / B.5 mode
+    on random state; in float32 also the bf16 grade's modes of the JAX
+    package's main path (keys as ``cuda_laplace.launch_key`` counts them):
+    ``residual3t`` of ``op`` with bf16 outputs and the cheb family of
+    ``smooth_op`` (B.1's mxu core; ``op`` itself in 2D) at bf16 state."""
     u, r, x = (masked_trimmed(op, rng, dtype, device) for _ in range(3))
     args = {"apply": ((), ()), "residual1t": ((r,), ()),
             "residual3t": ((r,), SCAL_RES3), "cheb": ((r, x), SCAL_CHEB),
@@ -326,19 +353,42 @@ def laplace_cases(op, rng, dtype, device):
     for mode, (ins, scal) in args.items():
         yield (mode, lambda m=mode, i=ins, s=scal: op.run(m, u, i, s),
                lambda m=mode, i=ins, s=scal: op.twin(m, u, i, s), None)
+    if dtype != torch.float32 or not op.bf16_state:
+        return
+    yield ("residual3t/bf16",
+           lambda: op.run("residual3t", u, (r,), SCAL_RES3, sdtype=BF16),
+           lambda: op.twin("residual3t", u, (r,), SCAL_RES3, sdtype=BF16),
+           None)
+    sop = op if smooth_op is None else smooth_op
+    d16, r16 = u.to(BF16), r.to(BF16)
+    for mode in ("cheb", "chebl", "chebd", "chebdl"):
+        ins = (r16, x) if mode in ("cheb", "chebl") else (r16,)
+        key = cuda_laplace.launch_key(mode, sop.core, BF16)
+        yield (key,
+               lambda m=mode, i=ins: sop.run(m, d16, i, SCAL_CHEB,
+                                             sdtype=BF16),
+               lambda m=mode, i=ins: sop.twin(m, d16, i, SCAL_CHEB,
+                                              sdtype=BF16), None)
 
 
-def cheb2_cases(kern, rng, dtype, device):
+def cheb2_cases(kern, rng, dtype, device, sdtype=None):
+    """(mode, kernel call, twin call, None) for the six B.2 modes, with d
+    and r stored in ``sdtype`` (keys as ``launch_key`` counts them)."""
     op = kern.op
     d, r, x = (masked_trimmed(op, rng, dtype, device) for _ in range(3))
+    b = d
+    if sdtype is not None:
+        d, r = d.to(sdtype), r.to(sdtype)
     args = {"cheb2": (d, r, x, SCAL_PAIR), "cheb2l": (d, r, x, SCAL_PAIR),
             "chebd2": (d, r, None, SCAL_PAIR),
             "chebd2l": (d, r, None, SCAL_PAIR),
-            "cheb2f0": (d, None, None, SCAL_PAIR_F0),
-            "cheb2f0l": (d, None, None, SCAL_PAIR_F0)}
+            "cheb2f0": (b, None, None, SCAL_PAIR_F0),
+            "cheb2f0l": (b, None, None, SCAL_PAIR_F0)}
     for mode, a in args.items():
-        yield (mode, lambda m=mode, a=a: kern.steps2(*a, m),
-               lambda m=mode, a=a: cuda_cheb2.cheb2_twin(op, *a, m), None)
+        yield (cuda_laplace.launch_key(mode, op.core, sdtype),
+               lambda m=mode, a=a: kern.steps2(*a, m, sdtype=sdtype),
+               lambda m=mode, a=a: cuda_cheb2.cheb2_twin(op, *a, m, sdtype),
+               None)
 
 
 def einsum3(W: torch.Tensor, src: torch.Tensor, add=None) -> torch.Tensor:
@@ -377,6 +427,7 @@ def level_cases(path, p, r, dtype, device, seed=0):
         for case in laplace_cases(op, rng, dtype, device):
             yield ("laplace2d",) + case
         return
+    mxu = None
     if path == "elasticity":
         op = cuda_elasticity.make_cuda_elasticity(space(p, r), dtype, *MU_LAM,
                                                   device)
@@ -384,7 +435,10 @@ def level_cases(path, p, r, dtype, device, seed=0):
     else:
         op = cuda_laplace.make_cuda_laplace(space(p, r), dtype, device)
         name, lead = "laplace", ()
-    for case in laplace_cases(op, rng, dtype, device):
+        if dtype == torch.float32:
+            mxu = cuda_laplace.make_cuda_laplace(space(p, r), dtype, device,
+                                                 core="mxu")
+    for case in laplace_cases(op, rng, dtype, device, mxu):
         yield (name,) + case
     if r == 0:
         return  # the 1-cell level has no transfer and no pair kernel
@@ -393,6 +447,11 @@ def level_cases(path, p, r, dtype, device, seed=0):
     if path == "3d":
         for case in cheb2_cases(cuda_cheb2.make_cheb2(op), rng, dtype, device):
             yield ("cheb2",) + case
+        if mxu is not None:
+            # the production grade at bf16 state, as the main path runs it
+            for case in cheb2_cases(cuda_cheb2.make_cheb2(mxu), rng, dtype,
+                                    device, BF16):
+                yield ("cheb2",) + case
     for case in transfer_cases(tr, p, r, rng, dtype, device, lead=lead):
         yield ("transfer",) + case
 
@@ -403,22 +462,27 @@ def compare(path, p, r, dtype, device, results) -> None:
         got, want = run(), twin()
         synchronize(device)
         worst = 0.0
+        bound = BF16_BOUND if "/" in mode else BOUND[dtype]
         for g, w in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
-            if not torch.isfinite(g).all():
-                raise RuntimeError(f"{name}/{mode} p={p} r={r}: non-finite")
-            err, rel = rel_err(g, w)
+            if not torch.isfinite(g).all() or g.dtype != w.dtype:
+                raise RuntimeError(f"{name}/{mode} p={p} r={r}: non-finite "
+                                   f"or {g.dtype} where the twin has "
+                                   f"{w.dtype}")
+            # bf16 outputs compared in float32, float64 ones as they are
+            wide = torch.promote_types(g.dtype, torch.float32)
+            err, rel = rel_err(g.to(wide), w.to(wide))
             worst = max(worst, rel)
             key = (name, mode, p, r, str(dtype).split(".")[-1])
             results[key] = max(results.get(key, 0.0), err)
         # the yardstick must compute the same function to be one
         lib_rel = rel_err(lib(), want)[1] if lib else 0.0
         log(f"  {name:10s} {mode:19s} p={p} r={r} {str(dtype)[6:]:8s} "
-            f"max rel err {worst:.3e}")
-        if not (worst <= BOUND[dtype] and lib_rel <= BOUND[dtype]):
+            f"max rel err {worst:.3e} (bound {bound:.0e})")
+        if not (worst <= bound and lib_rel <= bound):
             raise RuntimeError(f"{name}/{mode} p={p} r={r} {dtype}: relative "
                                f"error {worst:.3e} (library {lib_rel:.3e}) "
-                               f"> {BOUND[dtype]:.0e}")
+                               f"> {bound:.0e}")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
@@ -515,9 +579,10 @@ def ptxas_report(build_log: str) -> list[str]:
         if m:
             k = re.search(r"((?:laplace2d|laplace|cheb2|rhs|transfer|"
                           r"restrict|prolong|elasticity)_kernel)I([fd])"
-                          r"(?:Li(\d+)E)?", m.group(1))
+                          r"(?:Li(\d+)E)?(?:Lb([01])E)?", m.group(1))
             name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
-                    f"{', ' + k.group(3) if k.group(3) else ''}>"
+                    f"{', ' + k.group(3) if k.group(3) else ''}"
+                    f"{', bf16 grade' if k.group(4) == '1' else ''}>"
                     if k else m.group(1))
             rows[name] = ["?", "?", "?", "?"]
             continue
@@ -637,6 +702,7 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
     if l2_rel > F32_L2_BOUND_3D:
         raise RuntimeError(f"main path L2 norm off by {l2_rel:.2e}")
     check_on_card(prob, x, device, per_mode, "main path")
+    check_grade(per_mode, "3d", "main path")
     log("phase 4: ok")
     return prob, st, per_mode
 
@@ -707,15 +773,25 @@ def phase_timing(card: str, prob, st, device) -> dict:
     rhs = prob.rhs()
     fine_op = prob.levels[-1].op
     n_dofs = prob.spaces[-1].n_dofs
-    singles = singles_vcycle(prob)
-    vcycles = {"pairs eager": prob.preconditioner(graph=False),
-               "pairs graphed": prob.preconditioner(),
-               "singles eager": singles,
-               "singles graphed": GraphedVCycle(singles)}
+    vcycles = {}
+    for label, exact in (("", False), ("exact ", True)):
+        for pairs in (True, False):
+            v = grade_vcycle(prob, pairs, exact)
+            kind = "pairs" if pairs else "singles"
+            vcycles[f"{label}{kind} eager"] = v
+            vcycles[f"{label}{kind} graphed"] = GraphedVCycle(v)
     for name, v in vcycles.items():
         its = cg(fine_op.apply, rhs, v.apply, rtol=1e-5).iterations
-        log(f"  {name} (B.2 {'pairs' if 'pairs' in name else 'off'}): CG "
+        log(f"  {name} ({'exact float32' if 'exact' in name else 'bf16'} "
+            f"grade, B.2 {'pairs' if 'pairs' in name else 'off'}): CG "
             f"{its} iterations to rtol 1e-5")
+    # B.1's mxu core runs the recurrence's single steps
+    reset_counts()
+    vcycles["singles eager"].apply(rhs)
+    synchronize(device)
+    check_grade({"laplace": dict(cuda_laplace.LAUNCHES)}, "singles",
+                "singles V-cycle")
+    reset_counts()
     graph_report(card, prob, rhs, n_dofs, vcycles)
     log_levels(prob, rhs)
     mg = vcycles["pairs graphed"]
@@ -726,7 +802,9 @@ def phase_timing(card: str, prob, st, device) -> dict:
     del vcycles, mg
     p, r = KERNELS["laplace"]["shape"]
     t_two = two_single_steps_ms(p, r, device)
-    log(f"  two B.1 cheb passes (the work of one B.2 pair): {t_two:.3f} ms")
+    t_two16 = two_single_steps_ms(p, r, device, bf16=True)
+    log(f"  two B.1 cheb passes (the work of one B.2 pair): {t_two:.3f} ms; "
+        f"at the mxu grade and bf16 state {t_two16:.3f} ms")
     times = time_modes("3d", p, r, device)
     log(f"  B.1 at {2 ** r * p}^3: " + ", ".join(
         f"{mode} {t['ms']:.3f} ms (bound {t['bound_ms']:.4f}, "
@@ -734,48 +812,118 @@ def phase_timing(card: str, prob, st, device) -> dict:
         for (name, mode), t in times.items() if name == "laplace"))
     for (name, mode), t in times.items():
         if name == "cheb2":
-            log(f"  cheb2 {mode:9s} {t['ms']:.3f} ms vs two B.1 passes "
-                f"{t_two:.3f} ms ({t_two / t['ms']:.2f}x), bound "
+            two = t_two16 if "/" in mode else t_two
+            log(f"  cheb2 {mode:18s} {t['ms']:.3f} ms vs two B.1 passes "
+                f"{two:.3f} ms ({two / t['ms']:.2f}x), bound "
                 f"{t['bound_ms']:.4f} ms, twin {t['plain_ms']:.3f} ms")
     log("phase 5: ok")
     return times
 
 
-def singles_vcycle(prob) -> VCycle:
-    """The main path's V-cycle with every B.2 pair run as two B.1 single
-    steps (the smoothers' pair kernel removed; nothing else changes)."""
-    levels = tuple(
-        dataclasses.replace(lvl, smoother=dataclasses.replace(
-            lvl.smoother, op_cheb2=None))
-        if getattr(lvl.smoother, "op_cheb2", None) is not None else lvl
-        for lvl in prob.levels)
-    return VCycle(levels=levels, fine_trimmed=prob.fine_trimmed)
+def grade_vcycle(prob, pairs: bool = True, exact: bool = False) -> VCycle:
+    """The model's V-cycle with its fused smoothers changed, nothing else:
+    ``pairs`` False runs every B.2 pair as two B.1 single steps (the
+    smoothers' pair kernel removed); ``exact`` swaps the bf16 grade of the
+    float32 levels back to the exact operator at float32 state, its pairs
+    made from the exact operator, as the JAX package's tests build the
+    exact grade."""
+    def change(sm):
+        if not isinstance(sm, FusedChebyshev):
+            return sm
+        if exact and sm.state_dtype is not None:
+            sm = dataclasses.replace(
+                sm, op_smooth=None, state_dtype=None,
+                op_cheb2=sm.op_cheb2 and cuda_cheb2.make_cheb2(sm.op))
+        return sm if pairs else dataclasses.replace(sm, op_cheb2=None)
+
+    levels = tuple(dataclasses.replace(lvl, smoother=change(lvl.smoother))
+                   for lvl in prob.levels)
+    return VCycle(levels=levels, fine_trimmed=prob.fine_trimmed,
+                  io_dtype=prob.io_dtype)
 
 
-def two_single_steps_ms(p: int, r: int, device) -> float:
+def grade_vcycles(prob, pairs: bool = True) -> dict:
+    """The model's eager and graphed V-cycle at its default (bf16) grade,
+    then at the exact float32 grade, for :func:`graph_report`."""
+    out = {}
+    for label, exact in (("", False), ("exact ", True)):
+        eager = (prob.preconditioner(graph=False) if not exact
+                 else grade_vcycle(prob, pairs, exact))
+        out[f"{label}eager"] = eager
+        out[f"{label}graphed"] = (prob.preconditioner() if not exact
+                                  else GraphedVCycle(eager))
+    return out
+
+
+# the bf16 grade's modes that must launch on a path (a key ending in each
+# suffix, by kernel): the exact residual3t with bf16 outputs and the
+# production pairs in 3D; B.1's mxu core where the single steps run
+# (B.2 pairs take every step of a degree-5 smoother, as in the JAX
+# package); B.4 at bf16 state in 2D
+GRADE_MODES = {"3d": {"laplace": ("residual3t/bf16",),
+                      "cheb2": ("/mxu/bf16",)},
+               "singles": {"laplace": ("residual3t/bf16", "/mxu/bf16")},
+               "2d": {"laplace2d": ("residual3t/bf16", "chebl/bf16")}}
+
+
+def check_grade(counts: dict, path: str, what: str) -> None:
+    """Each mode of GRADE_MODES[path] launched at least once."""
+    for name, suffixes in GRADE_MODES[path].items():
+        got = {k: v for k, v in counts[name].items() if "/" in k and v}
+        log(f"  {what}: {name} launches at the bf16 grade {got}")
+        for suffix in suffixes:
+            if not any(k.endswith(suffix) for k in got):
+                raise RuntimeError(f"{what}: no {name} mode *{suffix} "
+                                   f"launched ({counts[name]})")
+
+
+def two_single_steps_ms(p: int, r: int, device, bf16: bool = False) -> float:
     """Two chained B.1 cheb passes at one level shape, in float32: the
-    yardstick of a B.2 pair."""
-    op = cuda_laplace.make_cuda_laplace(space(p, r), torch.float32, device)
+    yardstick of a B.2 pair (``bf16``: of the production pair, on the mxu
+    core at bf16 state)."""
+    op = cuda_laplace.make_cuda_laplace(space(p, r), torch.float32, device,
+                                        core="mxu" if bf16 else "banded")
+    sd = BF16 if bf16 else None
     rng = np.random.default_rng(1)
     d, r_, x = (masked_trimmed(op, rng, torch.float32, device)
                 for _ in range(3))
+    if bf16:
+        d, r_ = d.to(BF16), r_.to(BF16)
 
     def two():
-        r1, d1, x1 = op.run("cheb", d, (r_, x), SCAL_CHEB)
-        return op.run("cheb", d1, (r1, x1), SCAL_CHEB)
+        r1, d1, x1 = op.run("cheb", d, (r_, x), SCAL_CHEB, sdtype=sd)
+        return op.run("cheb", d1, (r1, x1), SCAL_CHEB, sdtype=sd)
 
     return cuda_ms(two)
 
 
+def mode_bytes(name: str, mode: str) -> int:
+    """Bytes a mode moves per grid point (and component): MODE_FIELDS
+    float32 fields, or at bf16 state the streams as ``io_dtypes`` (B.2:
+    its own table) stores them."""
+    base, _, grade = mode.partition("/")
+    if "bf16" not in grade:
+        return MODE_FIELDS[base] * 4
+    f32 = torch.float32
+    if name == "cheb2":
+        ins = ((f32,) if base.startswith("cheb2f0") else
+               (BF16, BF16) + ((f32,) if base in ("cheb2", "cheb2l") else ()))
+        outs = (f32,) if base.endswith("l") else (BF16, BF16, f32)
+    else:
+        ins, outs = cuda_laplace.io_dtypes(base, f32, BF16)
+    return sum(torch.empty((), dtype=t).element_size() for t in ins + outs)
+
+
 def bound(path, name, mode, p, r) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take
-    for one float32 pass — each input read once and each output written
-    once at the HBM rate, against the FMAs of this shape's operator at the
-    FP32 rate."""
+    for one pass of the mode at this shape — each input read once and each
+    output written once at the HBM rate (float32 fields, bf16 state streams
+    at 2 bytes), against the FMAs of this shape's operator at the FP32
+    rate."""
     dim = 2 if path == "2d" else 3
     N = 2 ** r * p  # the fine level's trimmed extent
     comps = 3 if path == "elasticity" else 1
-    nbytes = MODE_FIELDS[mode] * comps * N ** dim * 4
+    nbytes = mode_bytes(name, mode) * comps * N ** dim
     if name == "transfer":
         # sum-factorised (W (x) W (x) W): the nonzeros of W times the
         # columns each axis's contraction runs over
@@ -840,6 +988,8 @@ def phase_second(device, r: int):
             f"residual {st.residual_norm:.3e}, L2 {st.solution_l2_norm!r} "
             f"(rel diff {rel:.2e} from {MESH_L2_2D}); launches {per_mode}")
         check_on_card(prob, x, device, per_mode, f"second path {name}")
+        if dtype == torch.float32:
+            check_grade(per_mode, "2d", f"second path {name}")
         runs[dtype] = prob, st, per_mode
     (p64, s64, _), (p32, s32, per_mode) = runs[torch.float64], runs[torch.float32]
     if not (s64.converged and s64.iterations == plain.iterations
@@ -938,10 +1088,15 @@ def phase_second_timing(card: str, prob, st, device) -> dict:
     log(f"phase 7: timing on {card} (CUDA events, median of 10)")
     rhs = prob.rhs()
     n_dofs = prob.spaces[-1].n_dofs
-    wall, rows = graph_report(card, prob, rhs, n_dofs)
+    wall, rows = graph_report(card, prob, rhs, n_dofs, grade_vcycles(prob))
     log_levels(prob, rhs, lambda k, sp: f"p={sp.degree}")
-    b4 = {int(m.group(1)): (ms, count) for ms, count, key in rows
-          for m in [re.search(r"laplace2d_kernel<float, (\d+)>", key)] if m}
+    # by degree, over both instances (exact and bf16 state)
+    b4 = collections.defaultdict(lambda: (0.0, 0))
+    for ms, count, key in rows:
+        m = re.search(r"laplace2d_kernel<float, (\d+)[,>]", key)
+        if m:
+            p = int(m.group(1))
+            b4[p] = (b4[p][0] + ms, b4[p][1] + count)
     log(f"  profiler: B.4 {sum(v[0] for v in b4.values()):.3f} ms device time "
         f"per eager V-cycle of {wall['eager']:.3f} ms; by degree: " + ", ".join(
             f"p={p} {ms:.3f} ms / {n}" for p, (ms, n) in sorted(b4.items())))
@@ -1092,9 +1247,10 @@ def phase_mixed(card: str, device, r: int) -> None:
         raise RuntimeError(f"config 3 float32: converged={st.converged}, L2 "
                            f"off by {l2_rel:.2e}")
     check_on_card(prob, x, device, per_mode, "config 3 float32")
+    check_grade(per_mode, "3d", "config 3 float32")
     del x
     rhs = prob.rhs()
-    graph_report(card, prob, rhs, st.n_dofs)
+    graph_report(card, prob, rhs, st.n_dofs, grade_vcycles(prob))
     log_levels(prob, rhs, lambda k, sp: f"p={sp.degree} "
                f"{sp.mesh.cells_per_axis}^3 cells")
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations, graphed "
@@ -1143,6 +1299,7 @@ def phase_mixed_precision(card: str, device, r: int) -> None:
     synchronize(device)
     counts = {k: dict(KERNELS[k]["counts"]) for k in path_kernels("3d")}
     check_on_card(mixed, xm, device, counts, "config 5")
+    check_grade(counts, "3d", "config 5")
     tm = solve_ms(mixed, 1e-12)
     rel = abs(sm.solution_l2_norm / s64.solution_l2_norm - 1)
     log(f"  mixed precision: CG iterations {sm.iterations}, L2 "
@@ -1152,7 +1309,7 @@ def phase_mixed_precision(card: str, device, r: int) -> None:
             and rel <= 1e-9):
         raise RuntimeError(f"config 5: {sm.iterations} iterations against "
                            f"{s64.iterations} in float64, L2 off by {rel:.2e}")
-    log_launches(mixed.preconditioner(graph=False), mixed.rhs())
+    graph_report(card, mixed, mixed.rhs(), sm.n_dofs, grade_vcycles(mixed))
     del xm
     # refinement: float32 CG to 1e-6 on B.1 with the graphed float32
     # V-cycle inside, B.1's float64 apply outside
@@ -1439,16 +1596,25 @@ def main(argv: list[str]) -> int:
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
 
+    # one entry per kernel and grade that its path launched: "laplace"
+    # (exact float32), "laplace/bf16" (bf16 state), "cheb2/mxu/bf16" (the
+    # production grade), ..., each with its busiest mode
     kernels = []
     for name, k in KERNELS.items():
-        counts = per_mode[name]
-        mode = max(counts, key=counts.get)  # its path's busiest mode
-        err = max(v for key, v in errs.items()
-                  if key[0] == name and key[2:] == (*k["shape"], "float32"))
-        kernels.append(dict(name=name, mode=mode, route=k["route"],
-                            source=k["source"], replaces=k["replaces"],
-                            launches=sum(counts.values()), max_abs_err=err,
-                            **times[(name, mode)]))
+        groups = collections.defaultdict(dict)
+        for mode, n in per_mode[name].items():
+            if n:
+                groups[mode.partition("/")[2]][mode] = n
+        for grade, counts in groups.items():
+            mode = max(counts, key=counts.get)
+            err = max(v for key, v in errs.items()
+                      if key[0] == name and key[1] in counts
+                      and key[2:] == (*k["shape"], "float32"))
+            kernels.append(dict(name=f"{name}/{grade}" if grade else name,
+                                mode=mode, route=k["route"],
+                                source=k["source"], replaces=k["replaces"],
+                                launches=sum(counts.values()),
+                                max_abs_err=err, **times[(name, mode)]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

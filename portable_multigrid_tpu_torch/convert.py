@@ -13,7 +13,8 @@ identical state and identical Chebyshev bounds:
     ``Dco`` and ``coef``: the JAX package's packed blocks of the same
     matrices are not carried over);
   * transfer: ``M1``, ``wmask_f`` and ``mask_c1`` of a ``Transfer``;
-  * smoother: ``degree``, ``theta`` and ``delta``.
+  * smoother: ``degree``, ``theta`` and ``delta``, and for a fused one its
+    recurrence operator and ``state_dtype``.
 """
 
 from __future__ import annotations
@@ -64,12 +65,13 @@ def laplace_operator(*, degree: int, n: int, dim: int, mask1,
 
 
 def kernel_operator(*, degree: int, n: int, mask1, dK1, dM1, K1, M1,
-                    dim: int = 3, dtype=torch.float64,
-                    device="cpu") -> CudaLaplaceOperator:
-    """The kernel operator from 1D state: B.1 in 3D, B.4 in 2D."""
+                    dim: int = 3, dtype=torch.float64, device="cpu",
+                    core: str = "banded") -> CudaLaplaceOperator:
+    """The kernel operator from 1D state: B.1 in 3D (``core="mxu"``: its
+    bf16 grade), B.4 in 2D."""
     cls = {2: CudaLaplace2D, 3: CudaLaplaceOperator}[dim]
     return cuda_laplace_from_factors(degree, n, mask1, K1, M1, dK1, dM1,
-                                     dtype, device, cls=cls)
+                                     dtype, device, cls=cls, core=core)
 
 
 def elasticity_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, mu,
@@ -112,14 +114,24 @@ def kernel_transfer(*, n_coarse: int, stride_c: int, stride_f: int, M1,
     return cuda_transfer_from_matrix(P, dtype, device, coarse_trimmed)
 
 
-def smoother(op, *, degree: int, theta, delta, fused: bool = False):
+def smoother(op, *, degree: int, theta, delta, fused: bool = False,
+             op_smooth=None, state_dtype=None):
     """A Chebyshev smoother with the given bounds: plain on the full grid,
     or fused on trimmed state (with the B.2 pair kernel where the operator
-    has one)."""
+    has one, made from ``op_smooth`` when given).  ``op_smooth`` and
+    ``state_dtype`` carry a JAX ``FusedChebyshev``'s recurrence operator
+    (e.g. :func:`kernel_operator` with ``core="mxu"``) and its
+    ``state_dtype`` (``"bf16"`` -> ``torch.bfloat16``)."""
     theta, delta = float(np.asarray(theta)), float(np.asarray(delta))
+    if state_dtype == "bf16":
+        state_dtype = torch.bfloat16
+    elif state_dtype == "f32":
+        state_dtype = None
     if fused:
+        pair_op = op if op_smooth is None else op_smooth
         return FusedChebyshev(degree=int(degree), op=op, theta=theta,
                               delta=delta,
-                              op_cheb2=make_cheb2(op) if op.pair_kernel
-                              else None)
+                              op_cheb2=make_cheb2(pair_op) if op.pair_kernel
+                              else None, op_smooth=op_smooth,
+                              state_dtype=state_dtype)
     return Chebyshev(degree=int(degree), op=op, theta=theta, delta=delta)

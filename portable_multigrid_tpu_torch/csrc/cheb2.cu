@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_cheb2.py
 // Cheb2Kernel.steps2 (modes cheb2, cheb2l, chebd2, chebd2l, cheb2f0,
-// cheb2f0l at its exact=True grade).  On trimmed state it computes
+// cheb2f0l, at its exact=True grade and at its production grade, with the
+// recurrence state in float or bf16).  On trimmed state it computes
 //     r1 = r  - A d      d1 = c0a d  + (c1a / diag) r1
 //     r2 = r1 - A d1     d2 = c0b d1 + (c1b / diag) r2
 //     x2 = x + d1 + d2
@@ -14,6 +15,19 @@
 //     (K u)_i = sum_o K[i, i+o] (u_{i+o} - u_i) + s_i u_i,
 // s_i the row sum of the trimmed mask-folded K (ksum, taken on the host);
 // M stays direct.
+//
+// The production grade (float only; StateFlags in common.cuh), as
+// make_cheb2(..., exact=False): bands rounded to bf16 on the host (the
+// "mxu" operator's, K's row sums from the rounded bands) and every
+// contraction's input rounded to bf16 — the d window (or d0 of cheb2f0*),
+// step two's d1 plane, the z and the y products — with float
+// accumulation; the epilogues take r, d and d1 unrounded.  At bf16 state
+// d and r are read from bf16 streams and r2, d2 written to them (b and
+// the pre-pass's d0 stay float); x and x2 stay float.  A bf16 or rounded
+// element comes by a plain load into a register a plane ahead and goes to
+// shared memory, converted (and rounded), at the top of the next plane
+// (stage_bits and unstage in common.cuh), in a second instance of the
+// kernel (BF).
 //
 // What bounds it on the H100: HBM traffic is 24 B/DoF in f32 for two steps
 // (d, r, x in; r2, d2, x2 out), 0.080-0.120 ms at 256^3; but the 14 banded
@@ -105,15 +119,19 @@ __host__ __device__ constexpr int tile_warps() {
 template <typename T, int P>
 constexpr int kPairThreads = tile_warps<T, P>() * 32;
 
-template <typename T, int P>
+// BF: the instance of the bf16 grade (float only): the window (bf16 or
+// rounded) and the bf16 r, d and x (= d) of the epilogues travel through
+// registers (stage_bits); the other instance moves every stream by
+// cp.async and at most stores r2 and d2 in bf16.
+template <typename T, int P, bool BF>
 __global__ void __launch_bounds__(kPairThreads<T, P>, 1)
-cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
-             const T* __restrict__ x, T* __restrict__ out0,
-             T* __restrict__ out1, T* __restrict__ out2,
+cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
+             const T* __restrict__ x, void* __restrict__ out0,
+             void* __restrict__ out1, T* __restrict__ out2,
              const T* __restrict__ kb, const T* __restrict__ mb,
              const T* __restrict__ ks, const T* __restrict__ dk,
              const T* __restrict__ dm, T c0a, T c1a, T c0b, T c1b, int N_,
-             int mode, int LX) {
+             int mode, int LX, int flags) {
   constexpr int R = 2 * P + 1, TY = tile_ty<T, P>(), NW = tile_warps<T, P>();
   constexpr int WY = TY + 4 * P, WZ = kEZ + 2 * P, EY = TY + 2 * P;
   constexpr int TZ = kEZ - 2 * P;
@@ -140,7 +158,19 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
   const int64_t gz = z0 - P + lane;  // the thread's z row, all march long
   const bool zok = gz >= 0 && gz < N;
   const bool last = mode == kCheb2L || mode == kChebD2L;
-  const T* xsrc = mode == kCheb2 || mode == kCheb2L ? x : d;  // x on entry
+  // d and r stored in bf16; r2 and d2 stored in bf16; the bf16 operator
+  // grade: every contraction's input rounded to bf16 (StateFlags)
+  const bool ibf = BF && (flags & kInBF16), obf = flags & kOutBF16,
+             rnd = BF && (flags & kRoundBF16);
+  // x on entry: x itself (cheb2*), else d, in d's storage
+  const bool x_is_x = mode == kCheb2 || mode == kCheb2L;
+  const void* xsrc = x_is_x ? static_cast<const void*>(x) : d;
+  const bool xbf = !x_is_x && ibf;
+  // the registers of the window (KR rows x KC columns a thread) and of the
+  // epilogues' bf16 r, d (grown rows) and x (interior rows), in flight from
+  // one plane to the next
+  constexpr int KR = (WY + NW - 1) / NW, KC = (WZ + kEZ - 1) / kEZ;
+  uint32_t sw[BF ? KR : 1][BF ? KC : 1], se[BF ? 3 : 1][BF ? R1 : 1];
   // interior lanes P..31-P; the thread's grown row j is an interior row
   // (row P + q of the column, y0 + q on the grid) when q = w + j NW < TY
   const bool lane_in = lane >= P && lane < kEZ - P;
@@ -168,18 +198,35 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
   // step one's x1 = xn - 1 - P on the thread's grown points and x (d, b)
   // at step two's x2 = xn - 2 - 2P on its interior points, into buffer b;
   // the K, M rows, K row sums and diagonal factors of x1 and x2
+  const T* dT = static_cast<const T*>(d);
+  const T* rT = static_cast<const T*>(r);
   auto load_plane = [&](int64_t xn, int b) {
     if (xn < xe) {
       const bool xok = xn >= 0 && xn < N;
-      T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
-      for (int rw = w; rw < WY; rw += NW) {
-        const int64_t yy = y0 - 2 * P + rw;
-        const bool yok = xok && yy >= 0 && yy < N;
-        for (int c = lane; c < WZ; c += kEZ) {
-          const int64_t zz = z0 - 2 * P + c;
-          const bool ok = yok && zz >= 0 && zz < N;
-          cp_async_elem(dst + rw * WZ + c,
-                        ok ? d + (xn * N + yy) * N + zz : d, ok);
+      if constexpr (BF) {
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int rw = w + k * NW;
+          const int64_t yy = y0 - 2 * P + rw;
+          const bool yok = xok && rw < WY && yy >= 0 && yy < N;
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            const int64_t zz = z0 - 2 * P + lane + kc * kEZ;
+            sw[k][kc] = stage_bits(d, (xn * N + yy) * N + zz,
+                                   yok && zz >= 0 && zz < N, ibf);
+          }
+        }
+      } else {
+        T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
+        for (int rw = w; rw < WY; rw += NW) {
+          const int64_t yy = y0 - 2 * P + rw;
+          const bool yok = xok && yy >= 0 && yy < N;
+          for (int c = lane; c < WZ; c += kEZ) {
+            const int64_t zz = z0 - 2 * P + c;
+            const bool ok = yok && zz >= 0 && zz < N;
+            cp_async_elem(dst + rw * WZ + c,
+                          ok ? dT + (xn * N + yy) * N + zz : dT, ok);
+          }
         }
       }
     }
@@ -192,17 +239,31 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
         const bool ok = zok && gy >= 0 && gy < N;
         const int64_t g = (x1 * N + gy) * N + gz;
         const int e = (b * EY + ey[j]) * kEZ + lane;
-        cp_async_elem(rbuf + e, ok ? r + g : r, ok);
-        cp_async_elem(dbuf + e, ok ? d + g : d, ok);
+        // the epilogues' r and d as stored, never rounded
+        if (ibf) {
+          if constexpr (BF) {
+            se[0][j] = stage_bits(r, g, ok, true);
+            se[1][j] = stage_bits(d, g, ok, true);
+          }
+        } else {
+          cp_async_elem(rbuf + e, ok ? rT + g : rT, ok);
+          cp_async_elem(dbuf + e, ok ? dT + g : dT, ok);
+        }
       }
     }
     if (lane_in && zok && x2 >= x0 && x2 < xend) {
 #pragma unroll
       for (int j = 0; j < R1; ++j) {
         const int q = w + j * NW;
-        if (q < TY && y0 + q < N)
-          cp_async_elem(xbuf + (b * TY + q) * kEZ + lane,
-                        xsrc + (x2 * N + y0 + q) * N + gz, true);
+        if (q < TY && y0 + q < N) {
+          const int64_t g = (x2 * N + y0 + q) * N + gz;
+          if (xbf) {
+            if constexpr (BF) se[2][j] = stage_bits(xsrc, g, true, true);
+          } else {
+            cp_async_elem(xbuf + (b * TY + q) * kEZ + lane,
+                          static_cast<const T*>(xsrc) + g, true);
+          }
+        }
       }
     }
     if (w == NW - 1) {
@@ -227,6 +288,43 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
     }
     cp_async_commit();
   };
+  // the staging registers of plane xn into its window and buffer b (the
+  // guards of load_plane)
+  auto put_plane = [&](int64_t xn, int b) {
+    if constexpr (BF) {
+      if (xn < xe) {
+        T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int rw = w + k * NW;
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            const int c = lane + kc * kEZ;
+            if (rw < WY && c < WZ)
+              dst[rw * WZ + c] = unstage(sw[k][kc], ibf, rnd);
+          }
+        }
+      }
+      const int64_t x1 = xn - 1 - P, x2 = xn - 2 - 2 * P;
+      if (ibf && xn <= xe && x1 >= x0 - P && x1 >= 0 && x1 < N) {
+#pragma unroll
+        for (int j = 0; j < R1; ++j) {
+          if (ey[j] < 0) continue;
+          const int e = (b * EY + ey[j]) * kEZ + lane;
+          rbuf[e] = unstage(se[0][j], true, false);
+          dbuf[e] = unstage(se[1][j], true, false);
+        }
+      }
+      if (xbf && lane_in && zok && x2 >= x0 && x2 < xend) {
+#pragma unroll
+        for (int j = 0; j < R1; ++j) {
+          const int q = w + j * NW;
+          if (q < TY && y0 + q < N)
+            xbuf[(b * TY + q) * kEZ + lane] = unstage(se[2][j], true, false);
+        }
+      }
+    }
+  };
   // The march, one block barrier a plane.  Iteration xin runs, on data
   // the last iteration left behind the barrier: step two of d1 plane
   // xin - 2 - P (y stage into ring 2, then r2, d2, x2 at x2 = xin - 2 - 2P);
@@ -235,9 +333,13 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
   // step two's z stage of d1 plane x1.  The windows cycle through three
   // buffers and the z products through two, so that no stage overwrites
   // what a slower warp may still read.
+  // The registers staged for plane xin + 1 land in shared memory at the
+  // top of the next iteration, before its barrier.
   load_plane(xs, 0);
+  put_plane(xs, 0);
   for (int64_t xin = xs; xin <= xe + 1; ++xin) {
     const int i = (int)(xin - xs), b = i & 1;
+    if (xin > xs) put_plane(xin, b);
     const T* xr1 = xrow + (i % 3) * 2 * XH;  // rows of x1 and x2
     if (xin <= xe) {
       load_plane(xin + 1, b ^ 1);
@@ -268,8 +370,8 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
           contract_y<T, P>(&yr[j], zk + q * kEZ + lane,
                            zk + (EY + q) * kEZ + lane, &mbv, &sv);
           T* slot = ring2 + s2 * 2 * TY * kEZ + q * kEZ + lane;
-          slot[0] = mbv;
-          slot[TY * kEZ] = sv;
+          slot[0] = rnd ? round_bf16(mbv) : mbv;
+          slot[TY * kEZ] = rnd ? round_bf16(sv) : sv;
           if (!out_x || y0 + q >= N) continue;
           const T raw = contract_x<T, P>(xr, ring2 + q * kEZ + lane,
                                          2 * TY * kEZ, TY * kEZ, base);
@@ -282,10 +384,10 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
           T xv = xbuf[(b * TY + q) * kEZ + lane];
           const T x2v = xv + d1 + d2;
           if (last) {
-            out0[g] = x2v;
+            static_cast<T*>(out0)[g] = x2v;
           } else {
-            out0[g] = r2;
-            out1[g] = d2;
+            store_state(out0, g, r2, obf);
+            store_state(out1, g, d2, obf);
             out2[g] = x2v;
           }
         }
@@ -302,6 +404,10 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
         if (rw >= WY) break;
         T ak, am;
         contract_km<T, P>(zr, buf + rw * WZ + lane, ak, am);
+        if (rnd) {
+          ak = round_bf16(ak);
+          am = round_bf16(am);
+        }
         zo[rw * kEZ + lane] = ak;
         zo[(WY + rw) * kEZ + lane] = am;
       }
@@ -317,8 +423,8 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
       T mbv, sv;
       contract_y<T, P>(&yr[j], zi + ey[j] * kEZ + lane,
                        zi + (WY + ey[j]) * kEZ + lane, &mbv, &sv);
-      r1slot[ey[j] * kEZ + lane] = mbv;
-      r1slot[(EY + ey[j]) * kEZ + lane] = sv;
+      r1slot[ey[j] * kEZ + lane] = rnd ? round_bf16(mbv) : mbv;
+      r1slot[(EY + ey[j]) * kEZ + lane] = rnd ? round_bf16(sv) : sv;
     }
     const int64_t x1 = xin - 1 - P;
     if (x1 < x0 - P) continue;
@@ -344,7 +450,9 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
         r1 = rE - raw;
         d1 = c0a * dE + (c1a / diag) * r1;
       }
-      d1p[ey[j] * kEZ + lane] = d1;
+      // step two's stencil input (rounded at the bf16 grade); the lag ring
+      // keeps d1 itself for the epilogue
+      d1p[ey[j] * kEZ + lane] = rnd ? round_bf16(d1) : d1;
       const int q = w + j * NW;
       if (q < TY && lane_in) {
         T* lg = lag + lslot * 2 * TY * kEZ + q * kEZ + lane;
@@ -362,6 +470,10 @@ cheb2_kernel(const T* __restrict__ d, const T* __restrict__ r,
         if (ey[j] < 0) continue;
         T ak, am;
         contract_km<T, P>(zr, d1p + ey[j] * kEZ + lane - P, ak, am);
+        if (rnd) {
+          ak = round_bf16(ak);
+          am = round_bf16(am);
+        }
         zo[ey[j] * kEZ + lane] = ak;
         zo[(EY + ey[j]) * kEZ + lane] = am;
       }
@@ -386,43 +498,66 @@ rhs_kernel(const T* __restrict__ b, T* __restrict__ d0,
   }
 }
 
-template <typename T, int P>
-int launch_p(const T* d, const T* r, const T* x, T* out0, T* out1, T* out2,
-             const T* kb, const T* mb, const T* ks, const T* dk, const T* dm,
-             double c0a, double c1a, double c0b, double c1b, int N, int mode,
-             int LX, int TY, int NW, void* stream) {
+template <typename T, int P, bool BF>
+int launch_p(const void* d, const void* r, const T* x, void* out0, void* out1,
+             T* out2, const T* kb, const T* mb, const T* ks, const T* dk,
+             const T* dm, double c0a, double c1a, double c0b, double c1b,
+             int N, int mode, int LX, int TY, int NW, int flags,
+             void* stream) {
   constexpr int kTY = tile_ty<T, P>(), kNW = tile_warps<T, P>();
   static_assert(kTY > 0, "no pair tile fits shared memory");
   // the host's tile must be the one this instance was compiled for
   if (TY != kTY || NW != kNW || LX < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_elems(P, kTY) * sizeof(T);
-  cudaError_t err = allow_smem((const void*)cheb2_kernel<T, P>, smem);
+  cudaError_t err = allow_smem((const void*)cheb2_kernel<T, P, BF>, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute((const void*)cheb2_kernel<T, P>,
+    err = cudaFuncSetAttribute((const void*)cheb2_kernel<T, P, BF>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ceil_div(N, kEZ - 2 * P), (unsigned)ceil_div(N, kTY),
                   (unsigned)ceil_div(N, LX));
-  cheb2_kernel<T, P><<<grid, kPairThreads<T, P>, smem, (cudaStream_t)stream>>>(
+  cheb2_kernel<T, P, BF><<<grid, kPairThreads<T, P>, smem, (cudaStream_t)stream>>>(
       d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, (T)c0a, (T)c1a, (T)c0b,
-      (T)c1b, N, mode, LX);
+      (T)c1b, N, mode, LX, flags);
   return (int)cudaGetLastError();
+}
+
+// the bf16 grade's instance where a stream goes through registers
+template <typename T, int P>
+int launch_grade(const void* d, const void* r, const T* x, void* out0,
+                 void* out1, T* out2, const T* kb, const T* mb, const T* ks,
+                 const T* dk, const T* dm, double c0a, double c1a,
+                 double c0b, double c1b, int N, int mode, int LX, int TY,
+                 int NW, int flags, void* stream) {
+  if constexpr (sizeof(T) == 4) {
+    if (flags & (kInBF16 | kRoundBF16))
+      return launch_p<T, P, true>(d, r, x, out0, out1, out2, kb, mb, ks, dk,
+                                  dm, c0a, c1a, c0b, c1b, N, mode, LX, TY,
+                                  NW, flags, stream);
+  }
+  return launch_p<T, P, false>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm,
+                               c0a, c1a, c0b, c1b, N, mode, LX, TY, NW, flags,
+                               stream);
 }
 
 // cheb2f0* is chebd2* on d = b / (theta diag) (the pre-pass, into
 // scratch) and r = b
 template <typename T>
-int launch(const T* d, const T* r, const T* x, T* out0, T* out1, T* out2,
-           const T* kb, const T* mb, const T* ks, const T* dk, const T* dm,
-           T* scratch, double c0a, double c1a, double c0b, double c1b,
-           double theta, int N, int p, int mode, int LX, int TY, int NW,
-           void* stream) {
-  if (mode < kCheb2 || mode > kF0L) return (int)cudaErrorInvalidValue;
+int launch(const void* d, const void* r, const T* x, void* out0, void* out1,
+           T* out2, const T* kb, const T* mb, const T* ks, const T* dk,
+           const T* dm, T* scratch, double c0a, double c1a, double c0b,
+           double c1b, double theta, int N, int p, int mode, int LX, int TY,
+           int NW, int flags, void* stream) {
+  if (mode < kCheb2 || mode > kF0L || (flags && sizeof(T) != 4))
+    return (int)cudaErrorInvalidValue;
   if (mode == kF0 || mode == kF0L) {
-    if (!scratch) return (int)cudaErrorInvalidValue;
+    // b comes in T, and the pre-pass writes d0 in T: the pair's inputs
+    // (d0, b) are never bf16
+    if (!scratch || (flags & kInBF16)) return (int)cudaErrorInvalidValue;
     rhs_kernel<T><<<(unsigned)((int64_t)N * N), kThreads, 0,
-                    (cudaStream_t)stream>>>(d, scratch, dk, dm, (T)theta, N);
+                    (cudaStream_t)stream>>>(static_cast<const T*>(d), scratch,
+                                            dk, dm, (T)theta, N);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     r = d;
@@ -433,8 +568,9 @@ int launch(const T* d, const T* r, const T* x, T* out0, T* out1, T* out2,
   switch (p) {
 #define PMG_CASE(PP)                                                          \
   case PP:                                                                    \
-    return launch_p<T, PP>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm,    \
-                           c0a, c1a, c0b, c1b, N, mode, LX, TY, NW, stream);
+    return launch_grade<T, PP>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, \
+                               c0a, c1a, c0b, c1b, N, mode, LX, TY, NW,      \
+                               flags, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -447,28 +583,30 @@ int launch(const T* d, const T* r, const T* x, T* out0, T* out1, T* out2,
 
 // (LX, TY, NW): LX output planes per block along x, TY interior rows of the
 // block's y-z column and NW warps (the compiled tile of cheb2_tile);
-// scratch: a trimmed field for the cheb2f0 modes' d0, else unused.
-extern "C" int pmg_cheb2_f32(const float* d, const float* r, const float* x,
-                             float* out0, float* out1, float* out2,
+// scratch: a trimmed field for the cheb2f0 modes' d0, else unused; flags:
+// the StateFlags of the launch (float only).  d, r, out0 and out1 are
+// float or bf16 as the flags say.
+extern "C" int pmg_cheb2_f32(const void* d, const void* r, const float* x,
+                             void* out0, void* out1, float* out2,
                              const float* kb, const float* mb, const float* ks,
                              const float* dk, const float* dm, float* scratch,
                              double c0a, double c1a, double c0b, double c1b,
                              double theta, int N, int p, int mode, int LX,
-                             int TY, int NW, void* stream) {
+                             int TY, int NW, int flags, void* stream) {
   return launch<float>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, scratch,
                        c0a, c1a, c0b, c1b, theta, N, p, mode, LX, TY, NW,
-                       stream);
+                       flags, stream);
 }
 
-extern "C" int pmg_cheb2_f64(const double* d, const double* r,
-                             const double* x, double* out0, double* out1,
-                             double* out2, const double* kb, const double* mb,
+extern "C" int pmg_cheb2_f64(const void* d, const void* r, const double* x,
+                             void* out0, void* out1, double* out2,
+                             const double* kb, const double* mb,
                              const double* ks, const double* dk,
                              const double* dm, double* scratch, double c0a,
                              double c1a, double c0b, double c1b, double theta,
                              int N, int p, int mode, int LX, int TY, int NW,
-                             void* stream) {
+                             int flags, void* stream) {
   return launch<double>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, scratch,
                         c0a, c1a, c0b, c1b, theta, N, p, mode, LX, TY, NW,
-                        stream);
+                        flags, stream);
 }

@@ -13,6 +13,7 @@
 // across a warp.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,6 +35,34 @@ __device__ __forceinline__ T diag_at(const T* __restrict__ dk,
 enum LaplaceMode { kApply = 0, kRes1 = 1, kRes3 = 2, kCheb = 3, kChebL = 4,
                    kChebD = 5, kChebDL = 6 };
 
+// Storage of the state streams.  The Chebyshev recurrence's r and d may
+// live in bf16 between passes while every kernel computes in T (JAX's
+// sdtype="bf16"): a stream is read through stage_bits and unstage (below)
+// and written through store_state, which rounds to nearest even
+// (__float2bfloat16_rn, as JAX's astype and torch's .to(torch.bfloat16)
+// round).  A flag says which storage a stream has; a double kernel never
+// gets a bf16 flag (the wrappers refuse it).
+template <typename T>
+__device__ __forceinline__ void store_state(void* p, int64_t g, T v, bool bf) {
+  if (bf)
+    static_cast<__nv_bfloat16*>(p)[g] = __float2bfloat16_rn(float(v));
+  else
+    static_cast<T*>(p)[g] = v;
+}
+
+// v rounded to bf16 and back: the rounding points of the bf16 operator
+// grade (the JAX package's "mxu" core and B.2's production grade)
+template <typename T>
+__device__ __forceinline__ T round_bf16(T v) {
+  return T(__bfloat162float(__float2bfloat16_rn(float(v))));
+}
+
+// Launch flags of the Laplace family (laplace.cu, cheb2.cu, laplace2d.cu):
+// the stencil input and the first epilogue input (u and r, or d and r) are
+// bf16; the two recurrence outputs (r', d') are bf16; the operator rounds
+// at the bf16 grade.
+enum StateFlags { kInBF16 = 1, kOutBF16 = 2, kRoundBF16 = 4 };
+
 // The mode's elementwise epilogue at flat index g of the outputs, given
 // raw = (M A M u)[g] (pallas_laplace.py:631-682):
 //     apply       out = A u
@@ -41,29 +70,33 @@ enum LaplaceMode { kApply = 0, kRes1 = 1, kRes3 = 2, kCheb = 3, kChebL = 4,
 //     residual3t  r0 = rhs - A u, d0 = r0 / (theta diag), x0 = u + d0
 //     cheb        r' = r - A d, d' = c0 d + (c1 / diag) r', x' = x + d'
 //     chebl       x' only;  chebd / chebdl: x == d on entry.
-// in(k) gives the inputs at the point: u (k = 0), in1 (rhs / r) and in2
-// (x); diag() the diagonal.  Only the modes that need an input or the
-// diagonal call for it.
+// in(k) gives the inputs at the point in T: u (k = 0), in1 (rhs / r) and
+// in2 (x); diag() the diagonal.  Only the modes that need an input or the
+// diagonal call for it.  With obf the recurrence outputs (r0 and d0, r'
+// and d') are stored in bf16; x0 and x' take the unrounded d0 and d', as
+// the TPU kernel's out_dtypes do, and stay in T with every other output.
 template <typename T, typename In, typename Diag>
 __device__ __forceinline__ void laplace_epilogue(int mode, int64_t g, T raw,
-                                                 In in, T* __restrict__ out0,
-                                                 T* __restrict__ out1,
+                                                 In in, void* __restrict__ out0,
+                                                 void* __restrict__ out1,
                                                  T* __restrict__ out2, T c0,
-                                                 T c1, Diag diag) {
+                                                 T c1, Diag diag,
+                                                 bool obf = false) {
+  T* o0 = static_cast<T*>(out0);
   if (mode == kApply) {
-    out0[g] = raw;
+    o0[g] = raw;
     return;
   }
   if (mode == kRes1) {
-    out0[g] = in(1) - raw;
+    o0[g] = in(1) - raw;
     return;
   }
   const T dg = diag();
   if (mode == kRes3) {
     const T r0 = in(1) - raw;
     const T d0 = r0 / (c0 * dg);
-    out0[g] = r0;
-    out1[g] = d0;
+    store_state(out0, g, r0, obf);
+    store_state(out1, g, d0, obf);
     out2[g] = in(0) + d0;
     return;
   }
@@ -72,10 +105,10 @@ __device__ __forceinline__ void laplace_epilogue(int mode, int64_t g, T raw,
   const T rn = in(1) - raw;
   const T dn = c0 * d + (c1 / dg) * rn;
   if (mode == kChebL || mode == kChebDL) {
-    out0[g] = x + dn;
+    o0[g] = x + dn;
   } else {
-    out0[g] = rn;
-    out1[g] = dn;
+    store_state(out0, g, rn, obf);
+    store_state(out1, g, dn, obf);
     out2[g] = x + dn;
   }
 }
@@ -101,6 +134,30 @@ __device__ __forceinline__ void cp_async_elem(T* dst, const T* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
                "l"(src), "n"(sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
                : "memory");
+}
+
+// A float element of a state stream on its way to shared memory through a
+// register, for the streams cp.async cannot move: cp.async copies 4, 8 or
+// 16 bytes, never a 2-byte bf16, and a window of bf16 pairs would be
+// misaligned wherever it starts at an odd element (z0 - p with p odd); and
+// it cannot round.  stage_bits issues the load (the raw bits: bf16 in the
+// low half, or a float) a plane ahead of its use, as cp.async would;
+// nothing waits for it until unstage, at the top of the next plane,
+// converts it (a bf16 is the top half of a float) and with rnd rounds it
+// to bf16.  With valid false the bits are zero; base need only be a valid
+// global address.
+__device__ __forceinline__ uint32_t stage_bits(const void* base, int64_t g,
+                                               bool valid, bool bf) {
+  uint32_t bits = 0;
+  if (valid)
+    bits = bf ? (uint32_t) static_cast<const unsigned short*>(base)[g]
+              : __float_as_uint(static_cast<const float*>(base)[g]);
+  return bits;
+}
+
+__device__ __forceinline__ float unstage(uint32_t bits, bool bf, bool rnd) {
+  const float v = __uint_as_float(bf ? bits << 16 : bits);
+  return rnd ? round_bf16(v) : v;
 }
 
 __device__ __forceinline__ void cp_async_commit() {

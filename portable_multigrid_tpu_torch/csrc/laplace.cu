@@ -1,9 +1,10 @@
 // B.1 — fused banded Laplace operator with single-step Chebyshev epilogues.
 //
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_laplace.py
-// PallasLaplaceOperator._run (exact "banded" core; modes apply, residual1t,
-// residual3t, cheb, chebl, chebd, chebdl).  It computes M A M u on trimmed
-// state with
+// PallasLaplaceOperator._run (the exact "banded" core and the bf16 "mxu"
+// core; modes apply, residual1t, residual3t, cheb, chebl, chebd, chebdl, at
+// float or bf16 recurrence state).  It computes M A M u on trimmed state
+// with
 //     A = Kx (x) My (x) Mz + Mx (x) Ky (x) Mz + Mx (x) My (x) Kz,
 // each 1D factor (2p+1)-banded with the Dirichlet mask folded in, followed by
 // the mode's elementwise epilogue (laplace_epilogue in common.cuh).  Every K
@@ -12,6 +13,25 @@
 // kernel sums K directly, which leaves the f32 Q4 r=6 solve 6.6e-5 off its
 // golden L2 norm.  The diagonal is rebuilt from its 1D factors instead of
 // being streamed.
+//
+// The JAX package's smoother grade (float only; StateFlags in common.cuh):
+//   * bf16 state: in the cheb family u (= d) and in1 (= r) are stored in
+//     bf16, and r' and d' (r0 and d0 of residual3t) are written in bf16;
+//     x and every other field stay float (the TPU kernel's out_dtypes);
+//   * the bf16 operator grade (the "mxu" core): the window values u, the
+//     z products Kz u and Mz u and the y products My Mz u and
+//     (Ky Mz + My Kz) u are rounded to bf16 where they are stored, the
+//     products accumulate in float, and the host passes bands rounded to
+//     bf16 with K's row sums taken from the rounded bands, so that the
+//     difference form is the TPU core's direct sum up to float rounding.
+// A bf16 or rounded window, and a bf16 epilogue u and r, come by plain
+// loads into registers a plane ahead, as cp.async would bring them, and go
+// to shared memory, converted (and rounded), at the top of the next plane
+// (stage_bits and unstage in common.cuh): cp.async moves 4 bytes at
+// least, bf16 pairs starting at z0 - p are misaligned for odd p, and it
+// cannot round.  The window stays float in shared memory.  That route is a
+// second instance of the kernel (BF), so that the registers it holds do
+// not weigh on the exact instance.
 //
 // What bounds it on the H100: HBM traffic is 8 B/DoF in f32 for apply (u in,
 // one field out) to 24 B/DoF for cheb (u, r, x in; three out), 0.040-0.120
@@ -71,15 +91,19 @@ __host__ __device__ constexpr int64_t smem_elems(int p, int ty) {
          3 * xrow_elems(p);
 }
 
-template <typename T, int P>
+// BF: the instance of the bf16 grade (float only): the window (bf16 or
+// rounded) and a bf16 epilogue u and r travel through registers
+// (stage_bits); the other instance moves every stream by cp.async and at
+// most stores r' and d' in bf16.
+template <typename T, int P, bool BF>
 __global__ void __launch_bounds__(kWarps<T> * 32, 1)
-laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
-               const T* __restrict__ in2, T* __restrict__ out0,
-               T* __restrict__ out1, T* __restrict__ out2,
+laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
+               const T* __restrict__ in2, void* __restrict__ out0,
+               void* __restrict__ out1, T* __restrict__ out2,
                const T* __restrict__ kb, const T* __restrict__ ks,
                const T* __restrict__ mb, const T* __restrict__ dk,
                const T* __restrict__ dm, T c0, T c1, int N_, int mode,
-               int LX) {
+               int LX, int flags) {
   constexpr int R = 2 * P + 1, NW = kWarps<T>, TY = kTY<T>, RW = TY / NW;
   constexpr int WY = TY + 2 * P, WZ = kEZ + 2 * P, XH = xrow_elems(P);
   constexpr int TP = TY * kEZ;  // one plane of the column
@@ -101,6 +125,14 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   // family), in1 (every mode but apply), in2 (cheb, chebl)
   const bool need_u = mode >= kRes3, need_r = mode != kApply,
              need_x = mode == kCheb || mode == kChebL;
+  // u and in1 stored in bf16; r' and d' (r0 and d0) stored in bf16; the
+  // bf16 operator grade (StateFlags)
+  const bool ibf = BF && (flags & kInBF16), obf = flags & kOutBF16,
+             rnd = BF && (flags & kRoundBF16);
+  // the registers of the window (KR rows x KC columns a thread) and of
+  // the epilogue's bf16 u and r, in flight from one plane to the next
+  constexpr int KR = (WY + NW - 1) / NW, KC = (WZ + kEZ - 1) / kEZ;
+  uint32_t sw[BF ? KR : 1][BF ? KC : 1], se[BF ? 2 : 1][BF ? RW : 1];
 
   // the thread's rows q = qw + j of the column, their bands and the
   // diagonal's y-z factors: diag = dK_x ay + dM_x by
@@ -118,21 +150,38 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   Row<T, P> zr;
   zr.load(kb, mb, ks, N, gz);
   // everything the iteration of input plane xn reads from global memory,
-  // by cp.async (zeros off the grid): the u window of xn; the epilogue's
-  // inputs at x_o = xn - 1 - P on the thread's points, into buffer b; the
-  // x row of x_o
+  // by cp.async (zeros off the grid), or into the staging registers: the u
+  // window of xn; the epilogue's inputs at x_o = xn - 1 - P on the
+  // thread's points, into buffer b; the x row of x_o
   auto load_plane = [&](int64_t xn, int b) {
     if (xn < xe) {
       const bool xok = xn >= 0 && xn < N;
-      T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
-      for (int rw = w; rw < WY; rw += NW) {
-        const int64_t yy = y0 - P + rw;
-        const bool yok = xok && yy >= 0 && yy < N;
-        for (int c = lane; c < WZ; c += kEZ) {
-          const int64_t zz = z0 - P + c;
-          const bool ok = yok && zz >= 0 && zz < N;
-          cp_async_elem(dst + rw * WZ + c,
-                        ok ? u + (xn * N + yy) * N + zz : u, ok);
+      if constexpr (BF) {
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int rw = w + k * NW;
+          const int64_t yy = y0 - P + rw;
+          const bool yok = xok && rw < WY && yy >= 0 && yy < N;
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            const int64_t zz = z0 - P + lane + kc * kEZ;
+            sw[k][kc] = stage_bits(u, (xn * N + yy) * N + zz,
+                                   yok && zz >= 0 && zz < N, ibf);
+          }
+        }
+      } else {
+        T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
+        for (int rw = w; rw < WY; rw += NW) {
+          const int64_t yy = y0 - P + rw;
+          const bool yok = xok && yy >= 0 && yy < N;
+          for (int c = lane; c < WZ; c += kEZ) {
+            const int64_t zz = z0 - P + c;
+            const bool ok = yok && zz >= 0 && zz < N;
+            cp_async_elem(dst + rw * WZ + c,
+                          ok ? static_cast<const T*>(u) + (xn * N + yy) * N + zz
+                             : static_cast<const T*>(u),
+                          ok);
+          }
         }
       }
     }
@@ -145,8 +194,17 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
           if (y0 + q >= N) continue;
           const int64_t g = (xo * N + y0 + q) * N + gz;
           T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
-          if (need_u) cp_async_elem(e, u + g, true);
-          if (need_r) cp_async_elem(e + TP, in1 + g, true);
+          // the epilogue's u and r as stored, never rounded
+          if (ibf) {
+            if constexpr (BF) {
+              se[0][j] = stage_bits(u, g, need_u, true);
+              se[1][j] = stage_bits(in1, g, need_r, true);
+            }
+          } else {
+            if (need_u) cp_async_elem(e, static_cast<const T*>(u) + g, true);
+            if (need_r)
+              cp_async_elem(e + TP, static_cast<const T*>(in1) + g, true);
+          }
           if (need_x) cp_async_elem(e + 2 * TP, in2 + g, true);
         }
       }
@@ -164,15 +222,49 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
     }
     cp_async_commit();
   };
+  // the staging registers of plane xn into its window and buffer b (the
+  // guards of load_plane)
+  auto put_plane = [&](int64_t xn, int b) {
+    if constexpr (BF) {
+      if (xn < xe) {
+        T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int rw = w + k * NW;
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            const int c = lane + kc * kEZ;
+            if (rw < WY && c < WZ)
+              dst[rw * WZ + c] = unstage(sw[k][kc], ibf, rnd);
+          }
+        }
+      }
+      const int64_t xo = xn - 1 - P;
+      if (ibf && xo >= x0 && xo < xend && zok) {
+#pragma unroll
+        for (int j = 0; j < RW; ++j) {
+          const int q = qw + j;
+          if (y0 + q >= N) continue;
+          T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
+          if (need_u) e[0] = unstage(se[0][j], true, false);
+          if (need_r) e[TP] = unstage(se[1][j], true, false);
+        }
+      }
+    }
+  };
   // The march, one block barrier a plane.  Iteration xin runs, on data the
   // last iteration left behind the barrier: the z stage of input plane
   // xin; the y stage of plane xin - 1 into the ring; the x stage and the
   // epilogue at x_o = xin - 1 - P.  The windows cycle through three
   // buffers, the x rows through three sets and the z products through two,
   // so that no stage overwrites what a slower warp may still read.
+  // The registers staged for plane xin + 1 land in shared memory at the
+  // top of the next iteration, before its barrier.
   load_plane(xs, 0);
+  put_plane(xs, 0);
   for (int64_t xin = xs; xin <= xe; ++xin) {
     const int i = (int)(xin - xs), b = i & 1;
+    if (xin > xs) put_plane(xin, b);
     if (xin < xe) {
       load_plane(xin + 1, b ^ 1);
       cp_async_wait<1>();
@@ -191,6 +283,10 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
         if (rw >= WY) break;
         T ak, am;
         contract_km<T, P>(zr, buf + rw * WZ + lane, ak, am);
+        if (rnd) {
+          ak = round_bf16(ak);
+          am = round_bf16(am);
+        }
         zo[rw * kEZ + lane] = ak;
         zo[(WY + rw) * kEZ + lane] = am;
       }
@@ -206,8 +302,8 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                            zi + (WY + qw) * kEZ + lane, mbv, sv);
 #pragma unroll
       for (int j = 0; j < RW; ++j) {
-        slot[j * kEZ] = mbv[j];
-        slot[TP + j * kEZ] = sv[j];
+        slot[j * kEZ] = rnd ? round_bf16(mbv[j]) : mbv[j];
+        slot[TP + j * kEZ] = rnd ? round_bf16(sv[j]) : sv[j];
       }
     }
 
@@ -228,47 +324,64 @@ laplace_kernel(const T* __restrict__ u, const T* __restrict__ in1,
       laplace_epilogue(
           mode, (xo * N + y0 + q) * N + gz, raw,
           [&](int k) { return e[k * TP]; }, out0, out1, out2, c0, c1,
-          [&] { return dkx * ay[j] + dmx * by[j]; });
+          [&] { return dkx * ay[j] + dmx * by[j]; }, obf);
     }
   }
 }
 
-template <typename T, int P>
-int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
-             T* out2, const T* kb, const T* ks, const T* mb, const T* dk,
-             const T* dm, double c0, double c1, int N, int mode, int LX,
-             int TY, int NW, void* stream) {
+template <typename T, int P, bool BF>
+int launch_p(const void* u, const void* in1, const T* in2, void* out0,
+             void* out1, T* out2, const T* kb, const T* ks, const T* mb,
+             const T* dk, const T* dm, double c0, double c1, int N, int mode,
+             int LX, int TY, int NW, int flags, void* stream) {
   constexpr int kNW = kWarps<T>, kRows = kTY<T>;
   constexpr size_t smem = (size_t)smem_elems(P, kRows) * sizeof(T);
   static_assert(smem <= (size_t)kSmemLimit, "B.1 tile exceeds shared memory");
   // the host's tile must be the one this instance was compiled for
   if (TY != kRows || NW != kNW || LX < 1 || mode < kApply ||
-      mode > kChebDL)
+      mode > kChebDL || (flags && sizeof(T) != 4))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem((const void*)laplace_kernel<T, P>, smem);
+  cudaError_t err = allow_smem((const void*)laplace_kernel<T, P, BF>, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute((const void*)laplace_kernel<T, P>,
+    err = cudaFuncSetAttribute((const void*)laplace_kernel<T, P, BF>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ceil_div(N, kEZ), (unsigned)ceil_div(N, kRows),
                   (unsigned)ceil_div(N, LX));
-  laplace_kernel<T, P><<<grid, kNW * 32, smem, (cudaStream_t)stream>>>(
+  laplace_kernel<T, P, BF><<<grid, kNW * 32, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, (T)c0, (T)c1, N,
-      mode, LX);
+      mode, LX, flags);
   return (int)cudaGetLastError();
 }
 
+// the bf16 grade's instance where a stream goes through registers
+template <typename T, int P>
+int launch_grade(const void* u, const void* in1, const T* in2, void* out0,
+                 void* out1, T* out2, const T* kb, const T* ks, const T* mb,
+                 const T* dk, const T* dm, double c0, double c1, int N,
+                 int mode, int LX, int TY, int NW, int flags, void* stream) {
+  if constexpr (sizeof(T) == 4) {
+    if (flags & (kInBF16 | kRoundBF16))
+      return launch_p<T, P, true>(u, in1, in2, out0, out1, out2, kb, ks, mb,
+                                  dk, dm, c0, c1, N, mode, LX, TY, NW, flags,
+                                  stream);
+  }
+  return launch_p<T, P, false>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk,
+                               dm, c0, c1, N, mode, LX, TY, NW, flags, stream);
+}
+
 template <typename T>
-int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
-           const T* kb, const T* ks, const T* mb, const T* dk, const T* dm,
-           double c0, double c1, int N, int p, int mode, int LX, int TY,
-           int NW, void* stream) {
+int launch(const void* u, const void* in1, const T* in2, void* out0,
+           void* out1, T* out2, const T* kb, const T* ks, const T* mb,
+           const T* dk, const T* dm, double c0, double c1, int N, int p,
+           int mode, int LX, int TY, int NW, int flags, void* stream) {
   switch (p) {
 #define PMG_CASE(PP)                                                        \
   case PP:                                                                  \
-    return launch_p<T, PP>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk,  \
-                           dm, c0, c1, N, mode, LX, TY, NW, stream);
+    return launch_grade<T, PP>(u, in1, in2, out0, out1, out2, kb, ks, mb,  \
+                               dk, dm, c0, c1, N, mode, LX, TY, NW, flags, \
+                               stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -280,25 +393,27 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 }  // namespace
 
 // (LX, TY, NW): LX output planes per block along x, TY rows of the block's
-// y-z column and NW warps (the compiled tile of laplace_tile).
-extern "C" int pmg_laplace_f32(const float* u, const float* in1,
-                               const float* in2, float* out0, float* out1,
+// y-z column and NW warps (the compiled tile of laplace_tile); flags: the
+// StateFlags of the launch (float only).  u, in1, out0 and out1 are float
+// or bf16 as the flags say.
+extern "C" int pmg_laplace_f32(const void* u, const void* in1,
+                               const float* in2, void* out0, void* out1,
                                float* out2, const float* kb, const float* ks,
                                const float* mb, const float* dk,
                                const float* dm, double c0, double c1, int N,
                                int p, int mode, int LX, int TY, int NW,
-                               void* stream) {
+                               int flags, void* stream) {
   return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                       c1, N, p, mode, LX, TY, NW, stream);
+                       c1, N, p, mode, LX, TY, NW, flags, stream);
 }
 
-extern "C" int pmg_laplace_f64(const double* u, const double* in1,
-                               const double* in2, double* out0, double* out1,
+extern "C" int pmg_laplace_f64(const void* u, const void* in1,
+                               const double* in2, void* out0, void* out1,
                                double* out2, const double* kb,
                                const double* ks, const double* mb,
                                const double* dk, const double* dm, double c0,
                                double c1, int N, int p, int mode, int LX,
-                               int TY, int NW, void* stream) {
+                               int TY, int NW, int flags, void* stream) {
   return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                        c1, N, p, mode, LX, TY, NW, stream);
+                        c1, N, p, mode, LX, TY, NW, flags, stream);
 }

@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_laplace2d.py
 // PallasLaplace2D._run (modes apply, residual1t, residual3t, cheb, chebl,
-// chebd, chebdl).  It computes M A M u on trimmed state — an N x N grid
+// chebd, chebdl; the recurrence state in float or bf16, with the operator
+// exact, as the TPU kernel has it: u and r of the cheb family read from
+// bf16 by plain loads into registers a row ahead, stored to shared memory
+// at the top of the next row (stage_bits and unstage of common.cuh, in a
+// second instance, BF); r' and d' (r0, d0) written in bf16 by store_state).  It computes M A M u on trimmed state — an N x N grid
 // [x, y], N = n p, C order with y contiguous — with
 //     A = Kx (x) My + Mx (x) Ky,
 // each 1D factor (2p+1)-banded with the Dirichlet mask folded in, followed by
@@ -80,15 +84,19 @@ __host__ __device__ constexpr int64_t smem_elems(int p, int ty) {
   return (int64_t)kStages * stage_elems(p, ty);
 }
 
-template <typename T, int P>
+// BF: the instance of bf16 state (float only): the bf16 u row and the
+// epilogue's bf16 u and r travel through registers (stage_bits); the other
+// instance moves every stream by cp.async and at most stores r' and d' in
+// bf16.
+template <typename T, int P, bool BF>
 __global__ void __launch_bounds__(kTY, kBlocks<T>)
-laplace2d_kernel(const T* __restrict__ u, const T* __restrict__ in1,
-                 const T* __restrict__ in2, T* __restrict__ out0,
-                 T* __restrict__ out1, T* __restrict__ out2,
+laplace2d_kernel(const void* __restrict__ u, const void* __restrict__ in1,
+                 const T* __restrict__ in2, void* __restrict__ out0,
+                 void* __restrict__ out1, T* __restrict__ out2,
                  const T* __restrict__ kb, const T* __restrict__ ks,
                  const T* __restrict__ mb, const T* __restrict__ dk,
                  const T* __restrict__ dm, T c0, T c1, int N_, int mode,
-                 int LX) {
+                 int LX, int flags) {
   constexpr int R = 2 * P + 1, TY = kTY, WY = TY + 2 * P;
   constexpr int XOFF = (WY + 3) / 4 * 4, EOFF = XOFF + xrow_elems(P);
   constexpr int SE = stage_elems(P, TY);
@@ -106,6 +114,13 @@ laplace2d_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   // family), in1 (every mode but apply), in2 (cheb, chebl)
   const bool need_u = mode >= kRes3, need_r = mode != kApply,
              need_x = mode == kCheb || mode == kChebL;
+  // u and in1 stored in bf16; r' and d' (r0 and d0) stored in bf16
+  // (StateFlags; the 2D operator has no bf16 grade, as in the JAX package)
+  const bool ibf = BF && (flags & kInBF16), obf = flags & kOutBF16;
+  // the registers of one row's bf16 u values (KC a thread) and of the
+  // epilogue's u and r, in flight from one row to the next
+  constexpr int KC = (WY + TY - 1) / TY;
+  uint32_t su[BF ? KC : 1], se[BF ? 2 : 1];
 
   Row<T, P> yr;
   yr.load(kb, mb, ks, N, gy);
@@ -119,10 +134,23 @@ laplace2d_kernel(const T* __restrict__ u, const T* __restrict__ in1,
       T* st = stage + (i % kStages) * SE;
       const int64_t xin = xs + i;
       const bool xok = xin >= 0 && xin < N;
-      for (int c = t; c < WY; c += TY) {
-        const int64_t yy = y0 - P + c;
-        const bool ok = xok && yy >= 0 && yy < N;
-        cp_async_elem(st + c, ok ? u + xin * N + yy : u, ok);
+      if constexpr (BF) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          const int64_t yy = y0 - P + t + kc * TY;
+          su[kc] = stage_bits(u, xin * N + yy,
+                              xok && t + kc * TY < WY && yy >= 0 && yy < N,
+                              true);
+        }
+      } else {
+        for (int c = t; c < WY; c += TY) {
+          const int64_t yy = y0 - P + c;
+          const bool ok = xok && yy >= 0 && yy < N;
+          cp_async_elem(st + c,
+                        ok ? static_cast<const T*>(u) + xin * N + yy
+                           : static_cast<const T*>(u),
+                        ok);
+        }
       }
       const int64_t xo = xin - P;
       if (xo >= x0) {
@@ -137,13 +165,36 @@ laplace2d_kernel(const T* __restrict__ u, const T* __restrict__ in1,
         if (yok) {
           const int64_t g = xo * N + gy;
           T* e = st + EOFF + t;
-          if (need_u) cp_async_elem(e, u + g, true);
-          if (need_r) cp_async_elem(e + TY, in1 + g, true);
+          if constexpr (BF) {
+            se[0] = stage_bits(u, g, need_u, true);
+            se[1] = stage_bits(in1, g, need_r, true);
+          } else {
+            if (need_u) cp_async_elem(e, static_cast<const T*>(u) + g, true);
+            if (need_r)
+              cp_async_elem(e + TY, static_cast<const T*>(in1) + g, true);
+          }
           if (need_x) cp_async_elem(e + 2 * TY, in2 + g, true);
         }
       }
     }
     cp_async_commit();
+  };
+
+  // the staging registers of row i into its buffer set (the guards of
+  // load_row)
+  auto put_row = [&](int i) {
+    if constexpr (BF) {
+      if (i < rows) {
+        T* st = stage + (i % kStages) * SE;
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc)
+          if (t + kc * TY < WY) st[t + kc * TY] = unstage(su[kc], true, false);
+        if (xs + i - P >= x0 && yok) {
+          if (need_u) st[EOFF + t] = unstage(se[0], true, false);
+          if (need_r) st[EOFF + TY + t] = unstage(se[1], true, false);
+        }
+      }
+    }
   };
 
   // the ring: My u (rb) and Ky u (ra) of the last R input rows at the
@@ -152,8 +203,14 @@ laplace2d_kernel(const T* __restrict__ u, const T* __restrict__ in1,
 #pragma unroll
   for (int o = 0; o < R; ++o) rb[o] = ra[o] = T(0);
 #pragma unroll
-  for (int j = 0; j < kAhead; ++j) load_row(j);
+  for (int j = 0; j < kAhead; ++j) {
+    load_row(j);
+    put_row(j);
+  }
+  // the registers staged for row i + kAhead land in shared memory at the
+  // top of the next iteration, before its barrier
   for (int i = 0; i < rows; ++i) {
+    if (i > 0) put_row(i - 1 + kAhead);
     cp_async_wait<kAhead - 1>();
     __syncthreads();  // row i in; row i - 1's buffer set read by all
     load_row(i + kAhead);
@@ -182,40 +239,48 @@ laplace2d_kernel(const T* __restrict__ u, const T* __restrict__ in1,
       laplace_epilogue(
           mode, (x0 - 2 * P + i) * N + gy, rk + rm,
           [&](int k) { return e[k * TY]; }, out0, out1, out2, c0, c1,
-          [&] { return dkx * dmy + dmx * dky; });
+          [&] { return dkx * dmy + dmx * dky; }, obf);
     }
   }
 }
 
-template <typename T, int P>
-int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
-             T* out2, const T* kb, const T* ks, const T* mb, const T* dk,
-             const T* dm, double c0, double c1, int N, int mode, int LX,
-             int TY, int NW, void* stream) {
+template <typename T, int P, bool BF>
+int launch_p(const void* u, const void* in1, const T* in2, void* out0,
+             void* out1, T* out2, const T* kb, const T* ks, const T* mb,
+             const T* dk, const T* dm, double c0, double c1, int N, int mode,
+             int LX, int TY, int NW, int flags, void* stream) {
   constexpr size_t smem = (size_t)smem_elems(P, kTY) * sizeof(T);
   static_assert(smem <= (size_t)kSmemLimit, "B.4 tile exceeds shared memory");
   // the host's tile must be the one this instance was compiled for
-  if (TY != kTY || NW != kNW || LX < 1 || mode < kApply || mode > kChebDL)
+  if (TY != kTY || NW != kNW || LX < 1 || mode < kApply || mode > kChebDL ||
+      (flags & kRoundBF16) || (flags && sizeof(T) != 4))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem((const void*)laplace2d_kernel<T, P>, smem);
+  cudaError_t err = allow_smem((const void*)laplace2d_kernel<T, P, BF>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ceil_div(N, kTY), (unsigned)ceil_div(N, LX));
-  laplace2d_kernel<T, P><<<grid, kTY, smem, (cudaStream_t)stream>>>(
+  laplace2d_kernel<T, P, BF><<<grid, kTY, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, (T)c0, (T)c1, N,
-      mode, LX);
+      mode, LX, flags);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
-           const T* kb, const T* ks, const T* mb, const T* dk, const T* dm,
-           double c0, double c1, int N, int p, int mode, int LX, int TY,
-           int NW, void* stream) {
+int launch(const void* u, const void* in1, const T* in2, void* out0,
+           void* out1, T* out2, const T* kb, const T* ks, const T* mb,
+           const T* dk, const T* dm, double c0, double c1, int N, int p,
+           int mode, int LX, int TY, int NW, int flags, void* stream) {
   switch (p) {
 #define PMG_CASE(PP)                                                        \
   case PP:                                                                  \
-    return launch_p<T, PP>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk,  \
-                           dm, c0, c1, N, mode, LX, TY, NW, stream);
+    if constexpr (sizeof(T) == 4) {                                         \
+      if (flags & kInBF16)                                                  \
+        return launch_p<T, PP, true>(u, in1, in2, out0, out1, out2, kb, ks, \
+                                     mb, dk, dm, c0, c1, N, mode, LX, TY,   \
+                                     NW, flags, stream);                    \
+    }                                                                       \
+    return launch_p<T, PP, false>(u, in1, in2, out0, out1, out2, kb, ks,   \
+                                  mb, dk, dm, c0, c1, N, mode, LX, TY, NW, \
+                                  flags, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -227,25 +292,27 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 }  // namespace
 
 // (LX, TY, NW): LX output rows per block along x, TY y points of the
-// block's column and NW warps (the compiled tile of laplace2d_tile).
-extern "C" int pmg_laplace2d_f32(const float* u, const float* in1,
-                                 const float* in2, float* out0, float* out1,
+// block's column and NW warps (the compiled tile of laplace2d_tile); flags:
+// kInBF16 and kOutBF16 of StateFlags (float only).  u, in1, out0 and out1
+// are float or bf16 as the flags say.
+extern "C" int pmg_laplace2d_f32(const void* u, const void* in1,
+                                 const float* in2, void* out0, void* out1,
                                  float* out2, const float* kb, const float* ks,
                                  const float* mb, const float* dk,
                                  const float* dm, double c0, double c1, int N,
                                  int p, int mode, int LX, int TY, int NW,
-                                 void* stream) {
+                                 int flags, void* stream) {
   return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                       c1, N, p, mode, LX, TY, NW, stream);
+                       c1, N, p, mode, LX, TY, NW, flags, stream);
 }
 
-extern "C" int pmg_laplace2d_f64(const double* u, const double* in1,
-                                 const double* in2, double* out0,
-                                 double* out1, double* out2, const double* kb,
+extern "C" int pmg_laplace2d_f64(const void* u, const void* in1,
+                                 const double* in2, void* out0, void* out1,
+                                 double* out2, const double* kb,
                                  const double* ks, const double* mb,
                                  const double* dk, const double* dm, double c0,
                                  double c1, int N, int p, int mode, int LX,
-                                 int TY, int NW, void* stream) {
+                                 int TY, int NW, int flags, void* stream) {
   return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                        c1, N, p, mode, LX, TY, NW, stream);
+                        c1, N, p, mode, LX, TY, NW, flags, stream);
 }

@@ -11,12 +11,16 @@ skeleton of the Poisson solves on vector-valued fields.
 
 Variants:
 
-  * ``"auto"`` — the kernel path, 3D only: every level above the coarsest
-    runs B.5 (``ops/cuda_elasticity.py``) with the fused smoother on
-    trimmed state; the coarsest runs plain Chebyshev-as-solver on B.5's
-    full-grid apply; the h-pairs run B.3 on each component.  One operator
-    serves every role of a level.  On CPU tensors each wrapper runs its
-    plain twin.
+  * ``"auto"`` — the kernel path where B.5 applies, 3D: every level above
+    the coarsest runs B.5 (``ops/cuda_elasticity.py``) with the fused
+    smoother on trimmed state; the coarsest runs plain Chebyshev-as-solver
+    on B.5's full-grid apply; the h-pairs run B.3 on each component.  One
+    operator serves every role of a level.  In 2D, where B.5 does not
+    apply, every level falls back to ``"kron"``, as the JAX package's
+    ``make_elasticity_auto`` does.  (The JAX package also falls back for
+    float64, which its kernel does not take; the port's B.5 has float64
+    instances, so a float64 3D ``"auto"`` solve runs them.)  On CPU
+    tensors each wrapper runs its plain twin.
   * ``"kron"``, ``"sumfac"``, ``"dense"`` — the plain paths, 2D and 3D: the
     operator variant of ``ops/elasticity.py``, plain Chebyshev and the
     windowed ``Transfer`` on full grids.
@@ -57,9 +61,6 @@ class ElasticityMultigrid(_MultigridBase):
             default = ("auto" if dtype == torch.float32 and dim == 3
                        and torch.device(device).type == "cuda" else "kron")
             variant = os.environ.get("PMG_ELASTICITY_VARIANT", default)
-        if variant == "auto" and dim != 3:
-            raise ValueError("variant 'auto' (the B.5 kernel) is 3D only; "
-                             "use variant 'kron' for 2D elasticity")
         super().__init__(dtype, variant, device)
         self.mu, self.lam = float(mu), float(lam)
         self.components = dim
@@ -69,19 +70,22 @@ class ElasticityMultigrid(_MultigridBase):
                               "h" * (len(meshes) - 1))
 
     def _build_level(self, space: FESpace, coarse: bool) -> tuple:
-        if self.variant == "auto":
+        kernel = self.variant == "auto" and space.dim == 3
+        if kernel:
             op = make_cuda_elasticity(space, self.dtype, self.mu, self.lam,
                                       self.device)
         else:
+            # "auto" falls back to kron where B.5 does not apply (2D)
+            variant = "kron" if self.variant == "auto" else self.variant
             op = make_elasticity(space, self.dtype, self.mu, self.lam,
-                                 self.variant, self.device)
+                                 variant, self.device)
         if coarse:
             smoother = make_chebyshev(op, smoothing_range=1e-3, degree=None,
                                       eig_cg_n_iterations=op.n_dofs)
         else:
             smoother = make_chebyshev(
                 op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
-                fused=self.variant == "auto")
+                fused=kernel)
         return op, smoother
 
     def rhs(self, f=None) -> torch.Tensor:

@@ -11,8 +11,10 @@ Counterpart of ``portable_multigrid_tpu/models/mixed.py``:
     float64 on the fine operator in float64.
 
 Variants as in ``models/poisson.py``: ``"auto"`` runs the kernel operator
-on every level (B.1 with B.2 pairs in 3D, B.4 in 2D), B.3 on the 3D h-pairs
-and the plain p-transfer, adapted to trimmed state, on the p-pairs;
+on every level (B.1 with B.2 pairs in 3D, B.4 in 2D; on float32 levels the
+recurrence at the JAX package's bf16 grade, ``models/poisson.py``
+``_build_level``), B.3 on the 3D h-pairs and the plain p-transfer, adapted
+to trimmed state, on the p-pairs;
 ``"kron"``, ``"sumfac"`` (the JAX package's default for both models) and
 ``"dense"`` are the plain paths.  Under ``"auto"`` the float64 outer
 operator of :class:`MixedPrecisionPoisson` is the kernel operator's

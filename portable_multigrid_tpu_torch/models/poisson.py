@@ -19,9 +19,14 @@ Variants:
     on trimmed state, plus the B.2 pair kernel in 3D (the JAX package has
     none in 2D); the coarsest level runs plain Chebyshev-as-solver on the
     kernel operator's full-grid apply; 3D h-pairs run the B.3 transfer
-    kernel, every other pair the plain ``Transfer``.  One exact operator
-    serves every role of a level.  On CPU tensors each kernel wrapper runs
-    its plain twin.
+    kernel, every other pair the plain ``Transfer``.  On a float32 kernel
+    level the smoother runs the JAX package's production grade
+    (``portable_multigrid_tpu/models/poisson.py:46-131``): the exact
+    operator for CG, the eigenvalue estimate and the level residuals, the
+    recurrence on a bf16-grade operator (B.1's ``"mxu"`` core and B.2 at
+    its production grade in 3D; the exact B.4 in 2D), with r and d stored
+    in bfloat16 between passes.  float64 levels run the exact operator in
+    every role.  On CPU tensors each kernel wrapper runs its plain twin.
   * ``"kron"``, ``"sumfac"``, ``"dense"`` — the plain paths: the operator
     variant of ``ops/laplace.py``, plain Chebyshev and the windowed
     ``Transfer`` on full grids.
@@ -89,12 +94,20 @@ def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
         smoother = make_chebyshev(op, smoothing_range=1e-3, degree=None,
                                   eig_cg_n_iterations=space.n_dofs)
     else:
-        # the kernel operators smooth fused, on trimmed state
+        # the kernel operators smooth fused, on trimmed state; in float32
+        # the recurrence runs at the JAX package's bf16 grade
         fused = isinstance(op, CudaLaplaceOperator)
-        pair = make_cheb2(op) if fused and op.pair_kernel else None
+        grade = fused and dtype == torch.float32
+        smooth_op = None
+        if grade:
+            smooth_op = (make_cuda_laplace(space, dtype, device, core="mxu")
+                         if space.dim == 3 else op)
+        pair = (make_cheb2(op if smooth_op is None else smooth_op)
+                if fused and op.pair_kernel else None)
         smoother = make_chebyshev(
             op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
-            fused=fused, cheb2=pair)
+            fused=fused, cheb2=pair, fused_smoother_op=smooth_op,
+            state_dtype=torch.bfloat16 if grade else None)
     return op, smoother
 
 

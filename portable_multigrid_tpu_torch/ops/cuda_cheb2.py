@@ -1,8 +1,7 @@
 """B.2: two Chebyshev steps per pass (``csrc/cheb2.cu``) and its twin.
 
 Counterpart of ``portable_multigrid_tpu/ops/pallas_cheb2.py``
-(``Cheb2Kernel.steps2`` / ``make_cheb2`` at ``exact=True`` grade).  On
-trimmed state:
+(``Cheb2Kernel.steps2`` / ``make_cheb2``).  On trimmed state:
 
     r1 = r  - M A M d      d1 = c0a d  + (c1a / diag) r1
     r2 = r1 - M A M d1     d2 = c0b d1 + (c1b / diag) r2
@@ -17,6 +16,16 @@ kernel shares the operator's band arrays, the row sums of K (it contracts
 K in difference form) and the diagonal factors
 (:class:`~.cuda_laplace.CudaLaplaceOperator`); the twin contracts the
 bands with the same difference form.
+
+The grade comes from the operator the kernel is made from: on an exact
+(``"banded"``) operator it is the TPU kernel's ``exact=True`` grade; on the
+bf16-grade ``"mxu"`` operator it is the production grade of
+``make_cheb2(..., exact=False)`` — bf16 coefficients and every
+contraction's input rounded to bf16 (``cvt`` and ``mdt``,
+pallas_cheb2.py:336-338, :533), with float32 accumulation.  ``sdtype``
+stores the recurrence streams: with bfloat16 every mode reads d and r in
+bf16 (the ``cheb2f0`` modes read b in float32, and their pre-pass writes
+d0 in float32) and writes r2 and d2 in bf16; x and x2 stay float32.
 """
 
 from __future__ import annotations
@@ -28,16 +37,23 @@ import torch
 from .. import _build
 from .cuda_laplace import (
     EZ,
+    IN_BF16,
+    OUT_BF16,
+    ROUND_BF16,
     SMEM_LIMIT,
     CudaLaplaceOperator,
     _check,
     _suffix,
     apply_trimmed,
     chunk_planes,
+    launch_key,
     march_warps,
+    state_dtype,
 )
 
 MODES = ("cheb2", "cheb2l", "chebd2", "chebd2l", "cheb2f0", "cheb2f0l")
+# launches per mode (cuda_laplace.launch_key), counted where the wrapper
+# launches the kernel
 LAUNCHES = dict.fromkeys(MODES, 0)
 
 _TY = (16, 8, 6, 4, 2, 1)  # candidate interior rows of a block's column
@@ -88,8 +104,10 @@ class Cheb2Kernel:
     op: CudaLaplaceOperator
     tile: tuple  # (LX, TY, NW) of cheb2_tile
 
-    def steps2(self, d, r, x, scal, mode: str = "cheb2"):
-        """One pass of ``mode``; returns (r2, d2, x2) or (x2,) for "l" modes."""
+    def steps2(self, d, r, x, scal, mode: str = "cheb2", sdtype=None):
+        """One pass of ``mode``; returns (r2, d2, x2) or (x2,) for "l"
+        modes, with r and d (r2 and d2) stored in ``sdtype`` (None: the
+        operator's dtype)."""
         if mode not in MODES:
             raise ValueError(f"unknown cheb2 mode {mode!r}")
         from_rhs = mode in ("cheb2f0", "cheb2f0l")
@@ -99,21 +117,29 @@ class Cheb2Kernel:
             raise ValueError(f"mode {mode!r}: x must be given iff cheb2/cheb2l")
         if len(scal) != (5 if from_rhs else 4):
             raise ValueError(f"mode {mode!r}: wrong number of scalars")
+        op = self.op
+        sdtype = state_dtype(op, sdtype)
+        for name, t, dt in (("d", d, op.dtype if from_rhs else sdtype),
+                            ("r", r, sdtype), ("x", x, op.dtype)):
+            if t is not None:
+                _check(op, t, name, dt)
         if d.device.type == "cpu":
-            return cheb2_twin(self.op, d, r, x, scal, mode)
+            return cheb2_twin(op, d, r, x, scal, mode, sdtype)
         if not d.is_cuda:
             raise ValueError(f"unsupported device {d.device}")
-        return self._launch(d, r, x, scal, mode)
+        return self._launch(d, r, x, scal, mode, sdtype)
 
-    def _launch(self, d, r, x, scal, mode):
+    def _launch(self, d, r, x, scal, mode, sdtype):
         op = self.op
-        _check(op, d, "d")
-        for name, t in (("r", r), ("x", x)):
-            if t is not None:
-                _check(op, t, name)
-        fn = _build.build().fn("pmg_cheb2", _suffix(d.dtype))
+        fn = _build.build().fn("pmg_cheb2", _suffix(op.dtype))
         last = mode.endswith("l")
-        outs = [torch.empty_like(d) for _ in range(1 if last else 3)]
+        out_dt = _out_dtypes(op, mode, sdtype)
+        outs = [torch.empty(d.shape, dtype=dt, device=d.device)
+                for dt in out_dt]
+        bf = sdtype == torch.bfloat16
+        flags = ((IN_BF16 if bf and r is not None else 0)
+                 | (OUT_BF16 if bf and not last else 0)
+                 | (ROUND_BF16 if op.core == "mxu" else 0))
         optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
         sc = [float(s) for s in scal] + [0.0] * (5 - len(scal))
         # cheb2f0*: the kernel's pre-pass writes d0 = b / (theta diag) here
@@ -124,16 +150,28 @@ class Cheb2Kernel:
                  op.dK1.data_ptr(), op.dM1.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), *sc,
                  op.n * op.degree, op.degree, MODES.index(mode), *self.tile,
-                 _build.stream_handle(d.device))
+                 flags, _build.stream_handle(d.device))
         if err:
             raise RuntimeError(f"cheb2 kernel ({mode}) launch failed: "
                                f"CUDA error {err}")
-        LAUNCHES[mode] += 1
+        key = launch_key(mode, op.core, sdtype)
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
         return tuple(outs)
 
 
-def cheb2_twin(op: CudaLaplaceOperator, d, r, x, scal, mode: str):
-    """Plain torch version of every pair mode (same inputs and outputs)."""
+def _out_dtypes(op, mode: str, sdtype) -> tuple:
+    """x2 in the operator's dtype; r2 and d2 in the state dtype."""
+    return (op.dtype,) if mode.endswith("l") else (sdtype, sdtype, op.dtype)
+
+
+def cheb2_twin(op: CudaLaplaceOperator, d, r, x, scal, mode: str,
+               sdtype=None):
+    """Plain torch version of every pair mode: the inputs taken in the
+    operator's dtype, the grade of the operator (bf16 contractions on an
+    ``"mxu"`` operator), the outputs stored as the kernel stores them."""
+    T = op.dtype
+    out_dt = _out_dtypes(op, mode, state_dtype(op, sdtype))
+    d, r, x = (None if t is None else t.to(T) for t in (d, r, x))
     c0a, c1a, c0b, c1b = scal[:4]
     diag = op.diag_trimmed()
     if mode in ("cheb2f0", "cheb2f0l"):
@@ -142,18 +180,19 @@ def cheb2_twin(op: CudaLaplaceOperator, d, r, x, scal, mode: str):
         x = d
     elif mode in ("chebd2", "chebd2l"):
         x = d
-    bands = op.kband, op.ksum, op.mband
-    r1 = r - apply_trimmed(*bands, d)
+    bands, bf16_grade = (op.kband, op.ksum, op.mband), op.core == "mxu"
+    r1 = r - apply_trimmed(*bands, d, bf16_grade)
     d1 = c0a * d + (c1a / diag) * r1
-    r2 = r1 - apply_trimmed(*bands, d1)
+    r2 = r1 - apply_trimmed(*bands, d1, bf16_grade)
     d2 = c0b * d1 + (c1b / diag) * r2
     x2 = x + d1 + d2
-    if mode.endswith("l"):
-        return (x2,)
-    return r2, d2, x2
+    outs = (x2,) if mode.endswith("l") else (r2, d2, x2)
+    return tuple(o.to(dt) for o, dt in zip(outs, out_dt))
 
 
 def make_cheb2(op: CudaLaplaceOperator) -> Cheb2Kernel:
+    """The pair kernel on ``op``'s level, at ``op``'s grade (the production
+    bf16 grade on an ``"mxu"`` operator)."""
     if op.dim != 3:
         # as in the JAX package (pallas_cheb2.py:59-69)
         raise ValueError("the pair kernel B.2 is 3D only")

@@ -112,6 +112,8 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     kernel: ClassVar[str] = "pmg_elasticity"
     launches: ClassVar[dict] = LAUNCHES
     pair_kernel: ClassVar[bool] = False
+    # B.5 stores every stream in its dtype (its bf16 core is not ported)
+    bf16_state: ClassVar[bool] = False
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -131,7 +133,7 @@ class CudaElasticityOperator(CudaLaplaceOperator):
         return separable_elasticity_diagonal(self.dKt, self.dMt, self.mu,
                                              self.lam, self.dim)
 
-    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
+    def raw_twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
         return elasticity_twin(self, mode, u, ins, scal)
 
     def kernel_state(self) -> tuple:

@@ -20,6 +20,27 @@ its golden L2 norm.  On a CUDA tensor :meth:`CudaLaplaceOperator.run`
 launches the hand-written kernel; on a CPU tensor it runs
 :func:`laplace_twin`, the plain torch banded form of the same modes and
 outputs.
+
+Two precision options of the TPU kernel are ported, for float32 only:
+
+  * the state dtype (``sdtype``, JAX's ``sdtype="bf16"``): the recurrence
+    streams r and d of ``residual3t`` and the cheb family are stored in
+    ``torch.bfloat16`` (:func:`io_dtypes`, JAX's ``out_dtypes``), while the
+    kernel computes in float32 and x and every residual stay float32;
+  * the ``"mxu"`` core (:func:`make_cuda_laplace` with ``core="mxu"``): the
+    bf16-grade operator of the Chebyshev recurrence, the function the TPU
+    kernel's bf16 matrix core computes (``pallas_laplace.py:532-541``).
+    The band coefficients are rounded to bf16, and so are u, Mz u and
+    Kz u, My Mz u and (Ky Mz + My Kz) u, each accumulated in float32.  The
+    TPU core's dense matrices only feed its matrix unit, and their zeros
+    add nothing, so the band gives the same products.  It keeps the
+    difference form of K with the row sums of the ROUNDED bands (``ksum``),
+    so that it is the direct banded sum of the TPU core up to float32
+    rounding: at bf16 grade the input's rounding, not the cancellation that
+    the difference form avoids, sets the error.  The TPU core assembles x
+    and y per block and adds the boundary rows of two blocks after rounding
+    each half; the global bands round the whole entry, so the two agree at
+    bf16 grade, not bit for bit.
 """
 
 from __future__ import annotations
@@ -42,13 +63,58 @@ from .transfer import pad_last_planes, trim_last_planes
 
 MODES = ("apply", "residual1t", "residual3t", "cheb", "chebl", "chebd",
          "chebdl")
-_N_OUT = {"apply": 1, "residual1t": 1, "residual3t": 3, "cheb": 3,
-          "chebl": 1, "chebd": 3, "chebdl": 1}
-# inputs besides u (the stencil input): rhs / r, then x
-_N_IN = {"apply": 0, "residual1t": 1, "residual3t": 1, "cheb": 2, "chebl": 2,
-         "chebd": 1, "chebdl": 1}
+CORES = ("banded", "mxu")
 # kernel launches per mode, counted where the wrapper launches the kernel
+# (launch_key: a mode at the mxu grade or at bf16 state has its own key)
 LAUNCHES = dict.fromkeys(MODES, 0)
+# StateFlags of csrc/common.cuh: the stencil input and the first epilogue
+# input are bf16; the recurrence outputs are bf16; the bf16 operator grade
+IN_BF16, OUT_BF16, ROUND_BF16 = 1, 2, 4
+
+
+def io_dtypes(mode: str, dtype, sdtype) -> tuple[tuple, tuple]:
+    """(input dtypes, output dtypes) of a mode, the stencil input first,
+    with the recurrence streams r and d stored in ``sdtype`` (the TPU
+    kernel's ``out_dtypes``, pallas_laplace.py:287-292): residual3t reads
+    u and rhs in ``dtype`` and writes r0, d0 in ``sdtype`` and x0 in
+    ``dtype``; the cheb family reads d and r in ``sdtype`` and x in
+    ``dtype``, and writes r', d' in ``sdtype`` and x' in ``dtype``."""
+    T, S = dtype, sdtype
+    ins = {"apply": (T,), "residual1t": (T, T), "residual3t": (T, T),
+           "cheb": (S, S, T), "chebl": (S, S, T), "chebd": (S, S),
+           "chebdl": (S, S)}[mode]
+    outs = {"apply": (T,), "residual1t": (T,), "residual3t": (S, S, T),
+            "cheb": (S, S, T), "chebl": (T,), "chebd": (S, S, T),
+            "chebdl": (T,)}[mode]
+    return ins, outs
+
+
+def launch_key(mode: str, core: str, sdtype) -> str:
+    """The launch counters' key of a mode: "cheb" at the exact grade and
+    the operator's state dtype, "cheb/mxu/bf16" at the mxu grade and
+    bfloat16 state, "residual3t/bf16", ..."""
+    return (mode + ("/mxu" if core == "mxu" else "")
+            + ("/bf16" if sdtype == torch.bfloat16 else ""))
+
+
+def state_dtype(op, sdtype):
+    """The storage dtype of the recurrence streams: the operator's dtype
+    for None; bfloat16 only on a float32 operator whose kernel takes it."""
+    if sdtype is None or sdtype == op.dtype:
+        return op.dtype
+    if sdtype != torch.bfloat16:
+        raise ValueError(f"state dtype {sdtype}: the kernels store the "
+                         f"recurrence in the operator's dtype or bfloat16")
+    if op.dtype != torch.float32 or not op.bf16_state:
+        raise ValueError(f"bfloat16 state needs a float32 operator whose "
+                         f"kernel stores it, not {type(op).__name__} in "
+                         f"{op.dtype}")
+    return sdtype
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest even) and back to its dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
 SMS = 132  # streaming multiprocessors of the H100 SXM
@@ -132,14 +198,18 @@ def banded(u: torch.Tensor, bands: torch.Tensor, axis: int,
 
 
 def apply_trimmed(kband: torch.Tensor, ksum: torch.Tensor,
-                  mband: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+                  mband: torch.Tensor, u: torch.Tensor,
+                  bf16_grade: bool = False) -> torch.Tensor:
     """M A M u on trimmed 3D state in the kernels' order, z, then y, then
     x: Kx (My Mz u) + Mx (Ky Mz u + My Kz u), every K contraction in
-    difference form."""
-    b = banded(u, mband, 2)
-    a = banded(u, kband, 2, ksum)
-    mb = banded(b, mband, 1)
-    s = banded(b, kband, 1, ksum) + banded(a, mband, 1)
+    difference form.  ``bf16_grade`` rounds each contraction's input to
+    bf16, as the ``"mxu"`` core and B.2's production grade do."""
+    rnd = round_bf16 if bf16_grade else (lambda t: t)
+    u = rnd(u)
+    b = rnd(banded(u, mband, 2))
+    a = rnd(banded(u, kband, 2, ksum))
+    mb = rnd(banded(b, mband, 1))
+    s = rnd(banded(b, kband, 1, ksum) + banded(a, mband, 1))
     return banded(mb, kband, 0, ksum) + banded(s, mband, 0)
 
 
@@ -172,11 +242,15 @@ class CudaLaplaceOperator:
     mband: torch.Tensor  # [2p+1, N-1] bands of the trimmed mask-folded M
     tile: tuple  # the kernel's launch tile: (LX, TY, NW) of laplace_tile
     dim: int = 3
+    # "banded" (exact) or "mxu" (the bf16 grade of the recurrence, float32)
+    core: str = "banded"
     kernel: ClassVar[str] = "pmg_laplace"  # C entry point (without dtype)
     launches: ClassVar[dict] = LAUNCHES
     # B.2 runs two Chebyshev steps of this operator per pass (3D Laplace
     # only, as in the JAX package)
     pair_kernel: ClassVar[bool] = True
+    # the kernel takes StateFlags: bf16 recurrence streams
+    bf16_state: ClassVar[bool] = True
 
     @property
     def grid_shape(self) -> tuple[int, ...]:
@@ -233,27 +307,45 @@ class CudaLaplaceOperator:
         m = self.mask
         return m * au + (1.0 - m) * u
 
-    def run(self, mode: str, u: torch.Tensor, ins=(), scal=()):
+    def run(self, mode: str, u: torch.Tensor, ins=(), scal=(),
+            sdtype=None):
         """One pass of ``mode`` on trimmed state; returns the output tuple.
 
         ``ins``: (rhs,) for residual1t/residual3t, (r, x) for cheb/chebl,
         (r,) for chebd/chebdl.  ``scal``: (theta,) for residual3t, (c0, c1)
-        for the cheb family."""
+        for the cheb family.  ``sdtype``: the storage dtype of the
+        recurrence streams (:func:`io_dtypes`; None: the operator's)."""
         if mode not in MODES:
             raise ValueError(f"unknown laplace mode {mode!r}: the kernels "
                              f"take trimmed state, in modes {MODES}")
-        if len(ins) != _N_IN[mode]:
-            raise ValueError(f"mode {mode!r} takes {_N_IN[mode]} inputs")
-        _check(self, u, "u")
-        for k, t in enumerate(ins):
-            _check(self, t, f"input {k}")
+        sdtype = state_dtype(self, sdtype)
+        in_dt, out_dt = io_dtypes(mode, self.dtype, sdtype)
+        if len(ins) != len(in_dt) - 1:
+            raise ValueError(f"mode {mode!r} takes {len(in_dt) - 1} inputs")
+        for k, (t, dt) in enumerate(zip((u,) + tuple(ins), in_dt)):
+            _check(self, t, "u" if k == 0 else f"input {k - 1}", dt)
         if u.device.type == "cpu":
-            return self.twin(mode, u, ins, scal)
+            return self.twin(mode, u, ins, scal, sdtype)
         if not u.is_cuda:
             raise ValueError(f"unsupported device {u.device}")
-        return _launch(self, mode, u, ins, scal)
+        flags = ((IN_BF16 if in_dt[0] == torch.bfloat16 else 0)
+                 | (OUT_BF16 if len(out_dt) == 3
+                    and out_dt[0] == torch.bfloat16 else 0)
+                 | (ROUND_BF16 if self.core == "mxu" else 0))
+        return _launch(self, mode, u, ins, scal, out_dt, flags,
+                       launch_key(mode, self.core, sdtype))
 
-    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
+    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(),
+             sdtype=None):
+        """The mode in plain torch on any device: the inputs taken in the
+        operator's dtype, the outputs stored as the kernel stores them."""
+        T = self.dtype
+        _, out_dt = io_dtypes(mode, T, state_dtype(self, sdtype))
+        outs = self.raw_twin(mode, u.to(T), tuple(t.to(T) for t in ins),
+                             scal)
+        return tuple(o.to(dt) for o, dt in zip(outs, out_dt))
+
+    def raw_twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
         return laplace_twin(self, mode, u, ins, scal)
 
     @staticmethod
@@ -271,10 +363,9 @@ class CudaLaplaceOperator:
 
 def laplace_twin(op: CudaLaplaceOperator, mode: str, u: torch.Tensor,
                  ins=(), scal=()):
-    """Plain torch version of every kernel mode (same inputs and outputs)."""
-    return twin_epilogue(op, mode,
-                         apply_trimmed(op.kband, op.ksum, op.mband, u), u,
-                         ins, scal)
+    """Plain torch version of every kernel mode, in the operator's dtype."""
+    raw = apply_trimmed(op.kband, op.ksum, op.mband, u, op.core == "mxu")
+    return twin_epilogue(op, mode, raw, u, ins, scal)
 
 
 def twin_epilogue(op, mode: str, raw: torch.Tensor, u: torch.Tensor, ins=(),
@@ -300,11 +391,16 @@ def twin_epilogue(op, mode: str, raw: torch.Tensor, u: torch.Tensor, ins=(),
     return rn, dn, x + dn
 
 
-def _check(op: CudaLaplaceOperator, t: torch.Tensor, what: str) -> None:
+def _check(op: CudaLaplaceOperator, t: torch.Tensor, what: str,
+           dtype=None) -> None:
+    """t on the operator's device, of the trimmed shape, contiguous and of
+    ``dtype`` (the operator's by default)."""
+    dtype = op.dtype if dtype is None else dtype
     if t.device != op.device:
         raise ValueError(f"{what} on {t.device}, operator on {op.device}")
-    if t.dtype != op.dtype:
-        raise ValueError(f"{what} has dtype {t.dtype}, operator {op.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype} "
+                         f"(operator {op.dtype})")
     if tuple(t.shape) != op.trimmed_shape:
         raise ValueError(f"{what} has shape {tuple(t.shape)}, "
                          f"expected trimmed {op.trimmed_shape}")
@@ -320,9 +416,11 @@ def _suffix(dtype) -> str:
     raise ValueError(f"kernels take float32 or float64, not {dtype}")
 
 
-def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal):
-    fn = _build.build().fn(op.kernel, _suffix(u.dtype))
-    outs = [torch.empty_like(u) for _ in range(_N_OUT[mode])]
+def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal,
+            out_dtypes, flags: int, key: str):
+    fn = _build.build().fn(op.kernel, _suffix(op.dtype))
+    outs = [torch.empty(u.shape, dtype=dt, device=u.device)
+            for dt in out_dtypes]
     ptrs = [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
     optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
     c0, c1 = (list(map(float, scal)) + [0.0, 0.0])[:2]
@@ -331,11 +429,12 @@ def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal):
              *(t.data_ptr() for t in op.kernel_state()),
              *op.kernel_scalars(), c0, c1,
              N, op.degree, MODES.index(mode), *op.tile,
+             *((flags,) if op.bf16_state else ()),
              _build.stream_handle(u.device))
     if err:
         raise RuntimeError(f"{op.kernel} kernel ({mode}) launch failed: "
                            f"CUDA error {err}")
-    op.launches[mode] += 1
+    op.launches[key] = op.launches.get(key, 0) + 1
     return tuple(outs)
 
 
@@ -349,12 +448,18 @@ def row_sums(W1: np.ndarray, m1: np.ndarray) -> np.ndarray:
 
 def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
                               dtype=torch.float32, device="cpu",
-                              cls=CudaLaplaceOperator) -> CudaLaplaceOperator:
+                              cls=CudaLaplaceOperator,
+                              core: str = "banded") -> CudaLaplaceOperator:
     """Pack the operator from its 1D factors (NumPy, float64): the free-DoF
     mask ``m1``, the assembled 1D matrices ``K1``/``M1`` and the diagonal
     factors ``gK`` (h-folded) / ``gM``, all of length n*degree + 1.
     ``cls`` is the operator class; its ``pick_tile`` chooses the launch
-    tile."""
+    tile.  ``core="mxu"`` (3D float32) rounds the bands to bf16 and takes
+    K's row sums from the rounded bands."""
+    if core not in CORES:
+        raise ValueError(f"unknown core {core!r}; the port has {CORES}")
+    if core == "mxu" and (dtype != torch.float32 or cls.dim != 3):
+        raise ValueError("the mxu core is the 3D float32 bf16 grade")
     m1, K1, M1 = (np.asarray(a, np.float64) for a in (m1, K1, M1))
     Kt = (m1[:, None] * K1 * m1[None, :])[:-1, :-1]
     Mt = (m1[:, None] * M1 * m1[None, :])[:-1, :-1]
@@ -363,6 +468,13 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
         return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
                                device=device)
 
+    kband, mband = to_bands(Kt, degree), to_bands(Mt, degree)
+    ksum = row_sums(K1, m1)
+    if core == "mxu":
+        # rounded from float64 at once, as the TPU core's bf16 matrices are
+        kband, mband = (torch.as_tensor(b).to(torch.bfloat16).double().numpy()
+                        for b in (kband, mband))
+        ksum = kband.sum(axis=0)
     itemsize = torch.empty((), dtype=dtype).element_size()
     return cls(
         degree=degree,
@@ -370,16 +482,19 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
         mask1=t(m1),
         dK1=t(gK),
         dM1=t(gM),
-        kband=t(to_bands(Kt, degree)),
-        mband=t(to_bands(Mt, degree)),
+        kband=t(kband),
+        mband=t(mband),
         tile=cls.pick_tile(degree, itemsize, n * degree),
-        ksum=t(row_sums(K1, m1)),
+        ksum=t(ksum),
+        core=core,
     )
 
 
-def make_cuda_laplace(space: FESpace, dtype=torch.float32,
-                      device="cpu") -> CudaLaplaceOperator:
-    """Host packing (NumPy, f64) of the 1D factors, shipped once to ``device``."""
+def make_cuda_laplace(space: FESpace, dtype=torch.float32, device="cpu",
+                      core: str = "banded") -> CudaLaplaceOperator:
+    """Host packing (NumPy, f64) of the 1D factors, shipped once to
+    ``device``; ``core="mxu"`` builds the bf16-grade recurrence operator
+    (float32 only)."""
     if space.dim != 3:
         raise ValueError("B.1 is the 3D operator; make_cuda_laplace2d "
                          "builds the 2D one")
@@ -387,4 +502,4 @@ def make_cuda_laplace(space: FESpace, dtype=torch.float32,
     gK, gM = diagonal_1d_factors(space)
     return cuda_laplace_from_factors(space.degree, space.mesh.cells_per_axis,
                                      space.free_mask_1d(), K1, M1, gK, gM,
-                                     dtype, device)
+                                     dtype, device, core=core)

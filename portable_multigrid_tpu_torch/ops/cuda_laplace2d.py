@@ -25,6 +25,10 @@ u to cancellation, an error that grows 4x per refinement (3.4% of the L2
 norm at Q7 r=9), while the differences of neighbouring values are small
 and nearly exact.
 
+The recurrence streams may be stored in bfloat16 (``sdtype``, the TPU
+kernel's ``sdtype="bf16"``, ``pallas_laplace2d.py:30-32``): the operator
+stays exact, as in the JAX package, which has no bf16 core in 2D.
+
 Every mode takes trimmed state, "apply" included (the TPU kernel took the
 full grid there; :meth:`CudaLaplace2D.apply` trims and pads around it).
 There is no untrimmed "residual" mode, as in the TPU kernel; asking for it
@@ -114,7 +118,7 @@ class CudaLaplace2D(CudaLaplaceOperator):
         entries, as the kernel rebuilds it)."""
         return separable_diagonal((self.dKt,) * 2, (self.dMt,) * 2)
 
-    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
+    def raw_twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
         return laplace2d_twin(self, mode, u, ins, scal)
 
     @staticmethod
@@ -124,7 +128,7 @@ class CudaLaplace2D(CudaLaplaceOperator):
 
 def laplace2d_twin(op: CudaLaplace2D, mode: str, u: torch.Tensor, ins=(),
                    scal=()):
-    """Plain torch version of every kernel mode (same inputs and outputs)."""
+    """Plain torch version of every kernel mode, in the operator's dtype."""
     return twin_epilogue(op, mode,
                          apply_trimmed_2d(op.kband, op.ksum, op.mband, u),
                          u, ins, scal)

@@ -76,7 +76,13 @@ class FusedChebyshev:
     elasticity; modes cheb/chebl/chebd/chebdl), or two steps are one pass
     of the B.2 pair kernel when ``op_cheb2`` is set (3D Laplace only); the
     smoothing step's residual seeds the recurrence inside the operator
-    kernel (residual3t).  ``op`` is the one exact operator for every role.
+    kernel (residual3t).  ``op`` is the exact operator of the residuals;
+    the recurrence's single steps run on ``op_smooth`` (the bf16-grade
+    ``"mxu"`` B.1 of the JAX package's production levels; ``op`` when
+    None), and ``state_dtype`` (bfloat16 there; the operator's dtype when
+    None) stores the recurrence streams r and d between passes, as in the
+    JAX package's ``FusedChebyshev``.  x and every level residual stay in
+    the operator's dtype.
 
     On B.5 this is the counterpart of the JAX package's
     ``FusedVectorChebyshev``: the state is a [3, ...] trimmed field and
@@ -89,6 +95,8 @@ class FusedChebyshev:
     theta: float
     delta: float
     op_cheb2: object = None  # ops.cuda_cheb2.Cheb2Kernel
+    op_smooth: object = None  # the recurrence's operator; None: op
+    state_dtype: torch.dtype | None = None  # r and d between passes
     trimmed_io: ClassVar[bool] = True
 
     def _scalars(self, dtype):
@@ -96,7 +104,13 @@ class FusedChebyshev:
         return dt(self.theta), dt(self.delta), dt(1), dt(2)
 
     def _steps(self, r, d, x, x_is_d: bool = False, k0: int = 0, rho=None):
-        theta, delta, one, two = self._scalars(r.dtype)
+        theta, delta, one, two = self._scalars(x.dtype)
+        sd = self.state_dtype
+        if sd is not None:
+            # the streams enter in the state dtype (a no-op after residual3t
+            # and the pair kernel, which store them so)
+            r, d = r.to(sd), d.to(sd)
+        op = self.op if self.op_smooth is None else self.op_smooth
         sigma1 = theta / delta
         n = self.degree - 1
         if rho is None:
@@ -116,7 +130,7 @@ class FusedChebyshev:
                         (True, False): "chebd2", (True, True): "chebd2l"
                         }[(first_d, last)]
                 outs = self.op_cheb2.steps2(d, r, None if first_d else x,
-                                            scal, mode)
+                                            scal, mode, sdtype=sd)
                 if last:
                     return outs[0]
                 r, d, x = outs
@@ -129,7 +143,7 @@ class FusedChebyshev:
                     (True, False): "chebd", (True, True): "chebdl"}[
                 (first_d, last)]
             ins = (r,) if first_d else (r, x)
-            outs = self.op.run(mode, d, ins, scal)
+            outs = op.run(mode, d, ins, scal, sdtype=sd)
             if last:
                 return outs[0]  # only x' is written on the last step
             r, d, x = outs
@@ -150,7 +164,8 @@ class FusedChebyshev:
                                      rho2 * rho1, two * rho2 / delta, theta)))
             n = self.degree - 1
             mode = "cheb2f0l" if n == 2 else "cheb2f0"
-            outs = self.op_cheb2.steps2(bt, None, None, scal, mode)
+            outs = self.op_cheb2.steps2(bt, None, None, scal, mode,
+                                        sdtype=self.state_dtype)
             if n == 2:
                 return outs[0]
             r, d, x = outs
@@ -166,7 +181,8 @@ class FusedChebyshev:
         """u + Cheb(rhs - A u), the V-cycle smoothing step: the residual,
         d0 and x0 = u + d0 come from one B.1 pass (residual3t)."""
         theta = float(np_dtype(u.dtype)(self.theta))
-        r0, d0, x0 = self.op.run("residual3t", u, (rhs,), (theta,))
+        r0, d0, x0 = self.op.run("residual3t", u, (rhs,), (theta,),
+                                 sdtype=self.state_dtype)
         return self._steps(r0, d0, x0)
 
     def residual(self, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -341,6 +357,8 @@ def make_chebyshev(
     eig_cg_n_iterations: int = 10,
     fused: bool = False,
     cheb2=None,
+    fused_smoother_op=None,
+    state_dtype=None,
 ):
     """Set up the smoother for a level operator (eig-CG on the op's device).
 
@@ -349,9 +367,11 @@ def make_chebyshev(
     the coarse-level Chebyshev-as-solver configuration.  The environment's
     ``PMG_EIG_MAX_ITERS`` (default 256, as in the JAX package) caps the
     Lanczos length (eig iterations = m() is an upper bound; the extremes
-    settle after tens of steps).  ``fused`` builds a
-    :class:`FusedChebyshev` on trimmed state, with ``cheb2`` its optional
-    pair kernel."""
+    settle after tens of steps).  ``fused`` (or a ``fused_smoother_op``)
+    builds a :class:`FusedChebyshev` on trimmed state, with ``cheb2`` its
+    optional pair kernel, ``fused_smoother_op`` the recurrence's operator
+    and ``state_dtype`` the storage of its streams; the eigenvalue
+    estimate runs on the exact ``op``."""
     # one draw over the whole field, components included, times the grid
     # mask broadcast over them — the JAX package's start vector: NumPy's on
     # the host, or above DEVICE_DRAW_POINTS jax.random's on the device
@@ -369,7 +389,8 @@ def make_chebyshev(
     dt = np_dtype(op.dtype)
     theta = float(dt((beta + alpha) / 2.0))
     delta = float(dt((beta - alpha) / 2.0))
-    if fused:
+    if fused or fused_smoother_op is not None:
         return FusedChebyshev(degree=deg, op=op, theta=theta, delta=delta,
-                              op_cheb2=cheb2)
+                              op_cheb2=cheb2, op_smooth=fused_smoother_op,
+                              state_dtype=state_dtype)
     return Chebyshev(degree=deg, op=op, theta=theta, delta=delta)

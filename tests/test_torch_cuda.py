@@ -8,7 +8,9 @@ float64 elasticity solve through the kernels against the JAX package's
 values pinned in ``chip_smoke.py``, and the CUDA graph of the V-cycle
 (``GraphedVCycle``) against the eager V-cycle on every model and on the
 variable-coefficient solve, and the operator variants' products in full
-float32 with a caller's TF32 switched on.  These
+float32 with a caller's TF32 switched on; and the bf16 smoother grade
+(B.1's mxu core and bf16 state, B.2's production grade, B.4 at bf16
+state) against the twins.  These
 skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
@@ -104,6 +106,73 @@ def test_kernels_match_twins(cuda, p, dtype):
     _close([tr.restrict(u)], [twin(tr.restrict_.dense, u)], dtype)
     _close([tr.prolongate_and_add(x, c)], [twin(tr.prolong.dense, c, x)], dtype)
     torch.cuda.synchronize()
+
+
+# kernel against twin at the bf16 grade or bf16 state: a rounding to bf16
+# may fall on the other side where the float32 sums differ in order
+BF16_BOUND = 1e-2
+BF16 = torch.bfloat16
+
+
+def _close_bf16(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all()
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BF16_BOUND * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 7])
+def test_bf16_grade_matches_twins(cuda, p):
+    """B.1's mxu core at bf16 state (the cheb family), the exact B.1's
+    residual3t with bf16 outputs, B.2's six modes at the production grade
+    and bf16 state, each launched under its own counter."""
+    rng = np.random.default_rng(p)
+    sp = FESpace(HyperCubeMesh(3, 2), p)
+    exact = cuda_laplace.make_cuda_laplace(sp, torch.float32, cuda)
+    mxu = cuda_laplace.make_cuda_laplace(sp, torch.float32, cuda, core="mxu")
+    u, r, x = (_field(4 * p, rng, torch.float32, cuda) for _ in range(3))
+    d16, r16 = u.to(BF16), r.to(BF16)
+    before = dict(cuda_laplace.LAUNCHES)
+    _close_bf16(exact.run("residual3t", u, (r,), (1.3,), sdtype=BF16),
+                exact.twin("residual3t", u, (r,), (1.3,), sdtype=BF16))
+    for mode in ("cheb", "chebl", "chebd", "chebdl"):
+        ins = (r16, x) if mode in ("cheb", "chebl") else (r16,)
+        _close_bf16(mxu.run(mode, d16, ins, (0.59, 1.26), sdtype=BF16),
+                    mxu.twin(mode, d16, ins, (0.59, 1.26), sdtype=BF16))
+    kern = cuda_cheb2.make_cheb2(mxu)
+    for mode in cuda_cheb2.MODES:
+        f0 = mode.startswith("cheb2f0")
+        args = ((r, None, None, (0.59, 1.26, 0.71, 1.52, 1.3)) if f0 else
+                (d16, r16, x if mode in ("cheb2", "cheb2l") else None,
+                 (0.59, 1.26, 0.71, 1.52)))
+        _close_bf16(kern.steps2(*args, mode, sdtype=BF16),
+                    cuda_cheb2.cheb2_twin(mxu, *args, mode, sdtype=BF16))
+    torch.cuda.synchronize()
+    after = cuda_laplace.LAUNCHES
+    assert after.get("residual3t/bf16", 0) == before.get("residual3t/bf16",
+                                                          0) + 1
+    assert after.get("cheb/mxu/bf16", 0) == before.get("cheb/mxu/bf16", 0) + 1
+    assert cuda_cheb2.LAUNCHES.get("cheb2f0/mxu/bf16", 0) >= 1
+
+
+@pytest.mark.parametrize("p,r", [(1, 2), (3, 3), (7, 3)])
+def test_laplace2d_bf16_state_matches_twin(cuda, p, r):
+    """B.4 at bf16 state: residual3t writes r0, d0 in bf16, the cheb
+    family reads d and r in bf16 (partial tiles)."""
+    rng = np.random.default_rng(p)
+    op = cuda_laplace2d.make_cuda_laplace2d(FESpace(HyperCubeMesh(2, r), p),
+                                            torch.float32, cuda)
+    u, r_, x = (_field(op.n * p, rng, torch.float32, cuda, dim=2)
+                for _ in range(3))
+    d16, r16 = u.to(BF16), r_.to(BF16)
+    _close_bf16(op.run("residual3t", u, (r_,), (1.3,), sdtype=BF16),
+                op.twin("residual3t", u, (r_,), (1.3,), sdtype=BF16))
+    for mode in ("cheb", "chebl", "chebd", "chebdl"):
+        ins = (r16, x) if mode in ("cheb", "chebl") else (r16,)
+        _close_bf16(op.run(mode, d16, ins, (0.59, 1.26), sdtype=BF16),
+                    op.twin(mode, d16, ins, (0.59, 1.26), sdtype=BF16))
+    torch.cuda.synchronize()
+    assert cuda_laplace2d.LAUNCHES.get("chebdl/bf16", 0) >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

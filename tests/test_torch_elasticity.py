@@ -327,8 +327,12 @@ def test_wrapper_checks_layout_on_every_device():
 
 def test_variant_errors():
     sp = FESpace(HyperCubeMesh(2, 1), 2)
-    with pytest.raises(ValueError, match="'kron'"):
-        ElasticityMultigrid(2, 2, 1, variant="auto", device="cpu")
+    # 2D "auto" falls back to kron on every level, as the JAX package's
+    # make_elasticity_auto does (no B.5 there, so nothing is fused)
+    prob = ElasticityMultigrid(2, 2, 1, variant="auto", device="cpu")
+    assert all(lvl.op.variant == "kron" for lvl in prob.levels)
+    assert not any(getattr(lvl.smoother, "trimmed_io", False)
+                   for lvl in prob.levels)
     with pytest.raises(ValueError, match="not ported: .*TPU-only"):
         make_elasticity(sp, variant="bkron")
     with pytest.raises(ValueError, match="not ported: .*TPU-only"):
