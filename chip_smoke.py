@@ -26,11 +26,20 @@ or from the CUDA graph to the eager V-cycle):
      magnitude; in float32 at every one of these shapes also the bf16
      smoother grade of the JAX package's main path: B.1's ``residual3t``
      with bf16 r0 and d0, B.1's ``"mxu"`` core on the cheb family at bf16
-     state, B.2's six modes at its production grade (made from the mxu
-     operator) and bf16 state, and B.4's ``residual3t`` and cheb family at
-     bf16 state, bound BF16_BOUND (1e-2: a rounding to bf16 may fall on
-     the other side where the kernel's float32 sums differ in order from
-     the twin's);
+     state and B.4's ``residual3t`` and cheb family at bf16 state, bound
+     BF16_BOUND (1e-2: a rounding to bf16 may fall on the other side
+     where the kernel's float32 sums differ in order from the twin's);
+     B.2's ``cheb2lr`` (``PMG_CHEB2R=1``) at the exact grade wherever its
+     tile fits (p <= 5 in float32, p <= 3 in float64; elsewhere
+     ``make_cheb2(op, rout=True)`` must refuse the level); B.2's six modes
+     and ``cheb2lr`` at the production grade (made from the mxu operator)
+     and bf16 state on three draws each, held point by point to the size
+     of their sums (:func:`flip_stats`): no point off by more than
+     FLIP_CAP of it (a few bf16 roundings that fall the other way), and
+     no more than FLIP_SHARE of the points off by more than FLIP_FLOOR of
+     it; a twin with one rounding point planted wrong (``cheb2``: r1 and
+     d1 stored in bf16 between the steps; ``cheb2lr``: r2 rounded before
+     the residual) must exceed FLIP_SHARE on the same draw;
   3. golden replay — the ``geometric_3d`` rows (p = 1..7, r = 1..3) and the
      ``polynomial_2d`` rows of tests/golden_convergence.json in float64
      through the kernels: CG counts exact, L2 norms to 1e-10;
@@ -58,11 +67,19 @@ or from the CUDA graph to the eager V-cycle):
      device time: 10 calls back to back behind a device spin that lets the
      host enqueue them all, which leaves the host's launch work out),
      beside its bound (the larger of its bytes over the HBM rate and its
-     FMAs over the FP32 rate; B.1's modes summed up on one line with their
+     FMAs over the FP32 rate, or over the bf16 tensor-core rate where the
+     mode's products take bf16 operands, the ``mxu`` grades; B.1's modes
+     summed up on one line with their
      roofline shares), each B.2 mode beside two B.1 ``cheb`` passes (the
      work one pair replaces) and, for B.3, beside one PyTorch call that
      computes the same function (``library_ms``: an einsum over the three
-     axes, ``add_`` for ``prolongate_and_add``);
+     axes, ``add_`` for ``prolongate_and_add``); and the main path as
+     ``PMG_CHEB2R=1`` builds it (B.2's ``cheb2lr`` on every smoothing
+     level), solved eagerly and graphed as in phase 4: converged in at most
+     one CG iteration more than the default, L2 within 1e-5 of
+     0.0249871331, one eager V-cycle with six ``cheb2lr/mxu/bf16`` and no
+     ``residual1t`` launches, its V-cycles in turns with the others, and
+     ``cheb2lr`` beside the pair and ``residual1t`` that it replaces;
   6. second path — the reference's second driver,
      PolynomialMultigridPoisson(2, 7, 9, 7, "auto") on the card (12.8M
      DoFs, p = 7..1 on one mesh): in float64 to rtol 1e-12 (<= 6 CG
@@ -86,21 +103,25 @@ or from the CUDA graph to the eager V-cycle):
      mu = lam a swap of G and G^T or of mu and lam would not show), at
      p = 1..7, r = 2 and 3 (partial tiles) and at every other level shape
      of the Q3 r = 6 solve, p = 3, r = 1, 4, 5, 6 (3 x 192^3); the bounds
-     of phase 2;
+     of phase 2; in float32 at every one of these shapes also every mode
+     of B.5's bf16 ``"mxu"`` core (float32 state), bound BF16_BOUND;
   9. elasticity replay — ElasticityMultigrid(3, p, r, float64, "auto") to
      rtol 1e-12 at (p, r) = (2, 2), (3, 2), (3, 3): CG counts equal and L2
      norms within 1e-10 of the JAX package's values pinned below;
  10. third path — the elasticity solve at full width,
      ElasticityMultigrid(3, 3, 6, float32, "auto") on the card (21,567,171
      DoFs), to rtol 1e-5: converged, every tensor on the card, the B.5 and
-     B.3 launch counts raised by the eager run; in float64 to rtol 1e-12
-     through B.5 and on the plain "kron" path: the same CG count, L2 norms
-     within 1e-9; the float32 L2 norm within 1e-4 of the float64 one; each
-     kernel solve eager and graphed as in phase 4;
- 11. timing of the third path — the eager and the graphed V-cycle in turns
-     (ms, DoF/s), the eager one's split by level, the busy share of both,
-     the CG solve, and each B.5 and vector B.3 mode against its twin at
-     3 x 192^3 beside its bound (and B.3's beside its ``library_ms``);
+     B.3 launch counts raised by the eager run, B.5's ``cheb/mxu`` and
+     ``chebl/mxu`` among them (the JAX package's smoother grade); in
+     float64 to rtol 1e-12 through B.5 and on the plain "kron" path: the
+     same CG count, L2 norms within 1e-9; the float32 L2 norm within 1e-4
+     of the float64 one, and its CG count no more than that of the exact
+     grade's V-cycle; each kernel solve eager and graphed as in phase 4;
+ 11. timing of the third path — the eager and the graphed V-cycle at the
+     mxu grade (the default) and at the exact grade in turns (ms, DoF/s),
+     the eager one's split by level, the busy share of both, the CG solve,
+     and each B.5 mode (both cores) and vector B.3 mode against its twin
+     at 3 x 192^3 beside its bound (and B.3's beside its ``library_ms``);
  12. config 3 at full width — MixedMultigridPoisson(3, 6, (1, 2, 4),
      float32, "auto"): 9 levels, p = 1 on 2^3..65^3 points, then p = 2 and
      p = 4 on the 64^3-cell mesh (16,974,593 DoFs); to rtol 1e-5, eager
@@ -146,8 +167,9 @@ or from the CUDA graph to the eager V-cycle):
 
 Every phase's seconds, and the total, are printed at the end.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is the result object.
+The line before the last is a JSON object with one entry per kernel and
+grade that its path launched (``cheb2lr`` from the ``PMG_CHEB2R=1`` solve
+of phase 5); the last line is the result object.
 """
 
 from __future__ import annotations
@@ -161,6 +183,8 @@ import statistics
 import subprocess
 import sys
 import time
+from collections.abc import Callable
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -205,6 +229,18 @@ BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
 # the kernel's float32 sums differ in order from the twin's
 BF16_BOUND = 1e-2
 BF16 = torch.bfloat16
+# B.2 at its production grade, held point by point to the magnitude S of
+# the pair's sums there (flip_stats): a bf16 rounding that falls the other
+# way moves the value it rounds by one bf16 step, at most 2^-7 of it, and
+# an output by at most 2^-7 S; no point may be off by more than four such
+# steps, and no more than FLIP_SHARE of the points by more than FLIP_FLOOR
+# S, far above the float32 order of the sums (~5e-8 S).  On an H100 80GB
+# HBM3 at 700 W, three draws at each phase 2 shape gave at most 3.2e-3 S
+# and a share of 2.7e-3 for the kernel, and a share of 0.38 or more for
+# each planted rounding (phase 2 logs all three for every case)
+FLIP_CAP = 2.0 ** -5
+FLIP_FLOOR = 2.0 ** -18
+FLIP_SHARE = 5e-2
 # the graphed solve against the eager one: max |x_graph - x_eager| over the
 # eager solution's max magnitude, by the solution's dtype (bit for bit
 # expected: the graph replays the same kernels in the same order)
@@ -250,23 +286,27 @@ def coefficient(*xs):
 VARCOEF_F64_R3 = {"qdense": (5, 0.012412695994480256),
                   "sumfac": (5, 0.01241269599448026)}
 F32_L2_BOUND_ELASTICITY = 1e-4
-# the H100 SXM's published HBM rate and FP32 rate outside the tensor cores
-# (dense, at the full 700 W power limit)
+# the H100 SXM's published HBM rate, FP32 rate outside the tensor cores and
+# dense bf16 tensor-core rate (at the full 700 W power limit): the mxu
+# grades' products take bf16 operands and accumulate in float32, the work
+# of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # fine-level fields each mode reads once and writes once: B.1, B.4, B.5
 # (u, r, x in; r, d, x out), B.2 (d, r, x in; r2, d2, x2 out) and B.3 (a
 # coarse field is 1/8 of a fine one)
 MODE_FIELDS = {"apply": 2, "residual1t": 3, "residual3t": 5, "cheb": 6,
                "chebl": 4, "chebd": 5, "chebdl": 3, "cheb2": 6, "cheb2l": 4,
                "chebd2": 5, "chebd2l": 3, "cheb2f0": 4, "cheb2f0l": 2,
-               "restrict": 1.125, "prolongate": 1.125,
+               "cheb2lr": 5, "restrict": 1.125, "prolongate": 1.125,
                "prolongate_and_add": 2.125}
 # banded products of 2p+1 FMAs per grid point of each operator kernel:
 # B.1 M A M u in sum-factorised form (2 along z, 3 along y, 2 along x),
-# B.2 two of them, B.4 its 2D form (2 + 2), B.5 the 21 elasticity chains
-# (12 along z, 21 along y, 12 along x)
-PRODUCTS = {"laplace": 7, "cheb2": 14, "laplace2d": 4, "elasticity": 45}
+# B.2 two of them (``cheb2lr`` three), B.4 its 2D form (2 + 2), B.5 the 21
+# elasticity chains (12 along z, 21 along y, 12 along x); by kernel
+PRODUCTS = {"laplace": 7, "cheb2": 14, "cheb2lr": 21, "laplace2d": 4,
+            "elasticity": 45}
 # Each kernel names the path that launches it and the (p, r) of that path's
 # fine level, where its mode times and errors are reported.
 KERNELS = {
@@ -278,6 +318,12 @@ KERNELS = {
                   source="portable_multigrid_tpu_torch/csrc/cheb2.cu",
                   replaces="portable_multigrid_tpu/ops/pallas_cheb2.py:168",
                   counts=cuda_cheb2.LAUNCHES, path="3d", shape=(4, 6)),
+    # B.2's rout=True: the main path with PMG_CHEB2R=1 ("cheb2r") runs it
+    "cheb2lr": dict(route="cuda",
+                    source="portable_multigrid_tpu_torch/csrc/cheb2lr.cu",
+                    replaces="portable_multigrid_tpu/ops/pallas_cheb2.py:168",
+                    counts=cuda_cheb2.ROUT_LAUNCHES, path="cheb2r",
+                    shape=(4, 6)),
     "transfer": dict(route="cuda",
                      source="portable_multigrid_tpu_torch/csrc/transfer.cu",
                      replaces="portable_multigrid_tpu/ops/pallas_transfer.py:154",
@@ -339,41 +385,96 @@ SCAL_PAIR = (0.59, 1.26, 0.71, 1.52)
 SCAL_PAIR_F0 = SCAL_PAIR + (1.3,)
 
 
+class Case(NamedTuple):
+    """One kernel mode on one draw: the kernel call, its twin, the library
+    yardstick (None where no one PyTorch call computes the function); for
+    B.2 at its production grade also the magnitudes of its sums per
+    output (``mags``, held point by point by :func:`flip_stats`) and a
+    twin with one rounding point planted wrong (``witness``), which the
+    same check must refuse."""
+
+    mode: str
+    run: Callable
+    twin: Callable
+    lib: Callable | None = None
+    mags: Callable | None = None
+    witness: Callable | None = None
+
+
 def laplace_cases(op, rng, dtype, device, smooth_op=None):
-    """(mode, kernel call, twin call, None) for every B.1 / B.4 / B.5 mode
-    on random state; in float32 also the bf16 grade's modes of the JAX
+    """A :class:`Case` for every B.1 / B.4 / B.5 mode on random state; in float32 also the bf16 grade's modes of the JAX
     package's main path (keys as ``cuda_laplace.launch_key`` counts them):
     ``residual3t`` of ``op`` with bf16 outputs and the cheb family of
-    ``smooth_op`` (B.1's mxu core; ``op`` itself in 2D) at bf16 state."""
+    ``smooth_op`` (B.1's mxu core; ``op`` itself in 2D) at bf16 state; for
+    B.5, which keeps float32 state, every mode of ``smooth_op`` (its mxu
+    core)."""
     u, r, x = (masked_trimmed(op, rng, dtype, device) for _ in range(3))
     args = {"apply": ((), ()), "residual1t": ((r,), ()),
             "residual3t": ((r,), SCAL_RES3), "cheb": ((r, x), SCAL_CHEB),
             "chebl": ((r, x), SCAL_CHEB), "chebd": ((r,), SCAL_CHEB),
             "chebdl": ((r,), SCAL_CHEB)}
     for mode, (ins, scal) in args.items():
-        yield (mode, lambda m=mode, i=ins, s=scal: op.run(m, u, i, s),
-               lambda m=mode, i=ins, s=scal: op.twin(m, u, i, s), None)
+        yield Case(mode, lambda m=mode, i=ins, s=scal: op.run(m, u, i, s),
+                   lambda m=mode, i=ins, s=scal: op.twin(m, u, i, s))
+    if smooth_op is not None and not op.bf16_state:
+        for mode, (ins, scal) in args.items():
+            yield Case(cuda_laplace.launch_key(mode, smooth_op.core, None),
+                       lambda m=mode, i=ins, s=scal: smooth_op.run(m, u, i, s),
+                       lambda m=mode, i=ins, s=scal: smooth_op.twin(m, u, i,
+                                                                    s))
     if dtype != torch.float32 or not op.bf16_state:
         return
-    yield ("residual3t/bf16",
-           lambda: op.run("residual3t", u, (r,), SCAL_RES3, sdtype=BF16),
-           lambda: op.twin("residual3t", u, (r,), SCAL_RES3, sdtype=BF16),
-           None)
+    yield Case("residual3t/bf16",
+               lambda: op.run("residual3t", u, (r,), SCAL_RES3, sdtype=BF16),
+               lambda: op.twin("residual3t", u, (r,), SCAL_RES3, sdtype=BF16))
     sop = op if smooth_op is None else smooth_op
     d16, r16 = u.to(BF16), r.to(BF16)
     for mode in ("cheb", "chebl", "chebd", "chebdl"):
         ins = (r16, x) if mode in ("cheb", "chebl") else (r16,)
         key = cuda_laplace.launch_key(mode, sop.core, BF16)
-        yield (key,
-               lambda m=mode, i=ins: sop.run(m, d16, i, SCAL_CHEB,
-                                             sdtype=BF16),
-               lambda m=mode, i=ins: sop.twin(m, d16, i, SCAL_CHEB,
-                                              sdtype=BF16), None)
+        yield Case(key,
+                   lambda m=mode, i=ins: sop.run(m, d16, i, SCAL_CHEB,
+                                                 sdtype=BF16),
+                   lambda m=mode, i=ins: sop.twin(m, d16, i, SCAL_CHEB,
+                                                  sdtype=BF16))
+
+
+def pair_magnitudes(op, d, r, x, scal, mode) -> tuple:
+    """Per output of a B.2 mode, the magnitude S of its sums at each point:
+    the twin's recurrence run on |d|, |r|, |x| with |K| and |M|, |scalars|
+    and every subtraction an addition, in float64.  Each value the pair
+    rounds to bf16 (an input of a contraction, a product of its z or y
+    stage, a stored r2 or d2) is at most S in magnitude where it lands in
+    an output."""
+    T = torch.float64
+    kb, mb = op.kband.to(T).abs(), op.mband.to(T).abs()
+
+    def A(t):
+        return cuda_laplace.apply_trimmed(kb, kb.sum(0), mb, t)
+
+    diag = op.diag_trimmed().to(T).abs()
+    c0a, c1a, c0b, c1b = (abs(float(c)) for c in scal[:4])
+    d, r, x = (None if t is None else t.to(T).abs() for t in (d, r, x))
+    if mode in ("cheb2f0", "cheb2f0l"):
+        r, d = d, d / (abs(float(scal[4])) * diag)
+        x = d
+    elif mode in ("chebd2", "chebd2l"):
+        x = d
+    r1 = r + A(d)
+    d1 = c0a * d + (c1a / diag) * r1
+    r2 = r1 + A(d1)
+    d2 = c0b * d1 + (c1b / diag) * r2
+    x2 = x + d1 + d2
+    if mode == cuda_cheb2.ROUT_MODE:
+        return x2, r2 + A(d2)
+    return (x2,) if mode.endswith("l") else (r2, d2, x2)
 
 
 def cheb2_cases(kern, rng, dtype, device, sdtype=None):
-    """(mode, kernel call, twin call, None) for the six B.2 modes, with d
-    and r stored in ``sdtype`` (keys as ``launch_key`` counts them)."""
+    """A :class:`Case` for each of the six B.2 modes, with d and r stored
+    in ``sdtype`` (keys as ``launch_key`` counts them); at bf16 state
+    also their magnitudes, and for ``cheb2`` the witness that stores r1
+    and d1 in bf16 between the steps, as two B.1 passes do."""
     op = kern.op
     d, r, x = (masked_trimmed(op, rng, dtype, device) for _ in range(3))
     b = d
@@ -384,11 +485,57 @@ def cheb2_cases(kern, rng, dtype, device, sdtype=None):
             "chebd2l": (d, r, None, SCAL_PAIR),
             "cheb2f0": (b, None, None, SCAL_PAIR_F0),
             "cheb2f0l": (b, None, None, SCAL_PAIR_F0)}
+
+    def two_steps():
+        r1, d1, x1 = op.twin("cheb", d, (r, x), SCAL_PAIR[:2], sdtype=sdtype)
+        return op.twin("cheb", d1, (r1, x1), SCAL_PAIR[2:], sdtype=sdtype)
+
+    bf = sdtype == BF16
     for mode, a in args.items():
-        yield (cuda_laplace.launch_key(mode, op.core, sdtype),
-               lambda m=mode, a=a: kern.steps2(*a, m, sdtype=sdtype),
-               lambda m=mode, a=a: cuda_cheb2.cheb2_twin(op, *a, m, sdtype),
-               None)
+        yield Case(cuda_laplace.launch_key(mode, op.core, sdtype),
+                   lambda m=mode, a=a: kern.steps2(*a, m, sdtype=sdtype),
+                   lambda m=mode, a=a: cuda_cheb2.cheb2_twin(op, *a, m,
+                                                             sdtype),
+                   mags=(lambda m=mode, a=a: pair_magnitudes(op, *a, m))
+                   if bf else None,
+                   witness=two_steps if bf and mode == "cheb2" else None)
+
+
+def cheb2lr_cases(op, rng, dtype, device, sdtype=None):
+    """The :class:`Case` of B.2's ``cheb2lr`` on ``op``'s level where its
+    tile fits, with d and r stored in ``sdtype``; at bf16 state also its
+    magnitudes and the witness that rounds r2 to bf16 before the
+    residual.  Where the tile does not fit, ``make_cheb2(op, rout=True)``
+    must refuse the level, and nothing is yielded."""
+    if not cuda_cheb2.cheb2_fits(op, rout=True):
+        try:
+            cuda_cheb2.make_cheb2(op, rout=True)
+        except ValueError:
+            return
+        raise RuntimeError(f"cheb2lr p={op.degree} {op.dtype}: a tile was "
+                           f"made where none fits")
+    kern = cuda_cheb2.make_cheb2(op, rout=True)
+    mode = cuda_cheb2.ROUT_MODE
+    d, r, x = (masked_trimmed(op, rng, dtype, device) for _ in range(3))
+    if sdtype is not None:
+        d, r = d.to(sdtype), r.to(sdtype)
+
+    def twin():
+        return cuda_cheb2.cheb2_twin(op, d, r, x, SCAL_PAIR, mode, sdtype)
+
+    def r2_rounded():
+        # the pair's r2 in float32, then r_out + (bf16(r2) - r2)
+        r2 = cuda_cheb2.cheb2_twin(op, d, r, x, SCAL_PAIR, "cheb2")[0]
+        x2, r_out = twin()
+        return x2, r_out + (r2.to(BF16).to(r2.dtype) - r2)
+
+    bf = sdtype == BF16
+    yield Case(cuda_laplace.launch_key(mode, op.core, sdtype),
+               lambda: kern.steps2(d, r, x, SCAL_PAIR, mode, sdtype=sdtype),
+               twin,
+               mags=(lambda: pair_magnitudes(op, d, r, x, SCAL_PAIR, mode))
+               if bf else None,
+               witness=r2_rounded if bf else None)
 
 
 def einsum3(W: torch.Tensor, src: torch.Tensor, add=None) -> torch.Tensor:
@@ -409,29 +556,32 @@ def transfer_cases(tr, p, r, rng, dtype, device, lead=()):
                         device=device)
     twin = cuda_transfer.transfer_twin
     R, P = tr.restrict_.dense, tr.prolong.dense
-    yield ("restrict", lambda: tr.restrict(f), lambda: twin(R, f),
-           lambda: einsum3(R, f))
-    yield ("prolongate", lambda: tr.prolongate(c), lambda: twin(P, c),
-           lambda: einsum3(P, c))
-    yield ("prolongate_and_add", lambda: tr.prolongate_and_add(dst, c),
-           lambda: twin(P, c, dst), lambda: einsum3(P, c, dst))
+    yield Case("restrict", lambda: tr.restrict(f), lambda: twin(R, f),
+               lambda: einsum3(R, f))
+    yield Case("prolongate", lambda: tr.prolongate(c), lambda: twin(P, c),
+               lambda: einsum3(P, c))
+    yield Case("prolongate_and_add", lambda: tr.prolongate_and_add(dst, c),
+               lambda: twin(P, c, dst), lambda: einsum3(P, c, dst))
 
 
-def level_cases(path, p, r, dtype, device, seed=0):
+def level_cases(path, p, r, dtype, device, draws: int = 1):
     """Every mode of the kernels of a path ("3d", "2d" or "elasticity", as
-    in KERNELS) at one level shape: (kernel, mode, run, twin, library), the
-    library call None where no one PyTorch call computes the function."""
-    rng = np.random.default_rng(seed)
+    in KERNELS) at one level shape: (kernel, :class:`Case`); B.2 at its
+    production grade on ``draws`` draws."""
+    rng = np.random.default_rng(0)
     if path == "2d":
         op = cuda_laplace2d.make_cuda_laplace2d(space(p, r, 2), dtype, device)
         for case in laplace_cases(op, rng, dtype, device):
-            yield ("laplace2d",) + case
+            yield "laplace2d", case
         return
     mxu = None
     if path == "elasticity":
         op = cuda_elasticity.make_cuda_elasticity(space(p, r), dtype, *MU_LAM,
                                                   device)
         name, lead = "elasticity", (3,)
+        if dtype == torch.float32:
+            mxu = cuda_elasticity.make_cuda_elasticity(
+                space(p, r), dtype, *MU_LAM, device, core="mxu")
     else:
         op = cuda_laplace.make_cuda_laplace(space(p, r), dtype, device)
         name, lead = "laplace", ()
@@ -439,32 +589,59 @@ def level_cases(path, p, r, dtype, device, seed=0):
             mxu = cuda_laplace.make_cuda_laplace(space(p, r), dtype, device,
                                                  core="mxu")
     for case in laplace_cases(op, rng, dtype, device, mxu):
-        yield (name,) + case
+        yield name, case
     if r == 0:
         return  # the 1-cell level has no transfer and no pair kernel
     tr = cuda_transfer.make_cuda_h_transfer(space(p, r - 1), space(p, r),
                                             dtype, device)
     if path == "3d":
         for case in cheb2_cases(cuda_cheb2.make_cheb2(op), rng, dtype, device):
-            yield ("cheb2",) + case
-        if mxu is not None:
+            yield "cheb2", case
+        for case in cheb2lr_cases(op, rng, dtype, device):
+            yield "cheb2lr", case
+        for _ in range(draws if mxu is not None else 0):
             # the production grade at bf16 state, as the main path runs it
             for case in cheb2_cases(cuda_cheb2.make_cheb2(mxu), rng, dtype,
                                     device, BF16):
-                yield ("cheb2",) + case
+                yield "cheb2", case
+            for case in cheb2lr_cases(mxu, rng, dtype, device, BF16):
+                yield "cheb2lr", case
     for case in transfer_cases(tr, p, r, rng, dtype, device, lead=lead):
-        yield ("transfer",) + case
+        yield "transfer", case
+
+
+def flip_stats(got: tuple, want: tuple, mags: tuple) -> tuple:
+    """(max |got - want| / S, share of the points with S > 0 where
+    |got - want| > FLIP_FLOOR S, number of those points), the worst over
+    the outputs, S the magnitudes of :func:`pair_magnitudes`; where S = 0
+    (constrained points) the outputs must be equal."""
+    worst, share, n = 0.0, 0.0, 0
+    for g, w, m in zip(got, want, mags):
+        diff = (g.double() - w.double()).abs()
+        free = m > 0
+        n = int(free.sum())
+        if bool((diff[~free] > 0).any()):
+            return float("inf"), 1.0, n
+        q = diff[free] / m[free]
+        worst = max(worst, float(q.max()))
+        share = max(share, float((q > FLIP_FLOOR).double().mean()))
+    return worst, share, n
 
 
 def compare(path, p, r, dtype, device, results) -> None:
-    """Each kernel mode (and library yardstick) against its twin."""
-    for name, mode, run, twin, lib in level_cases(path, p, r, dtype, device):
-        got, want = run(), twin()
+    """Each kernel mode (and library yardstick) against its twin: the max
+    error over the twin's max magnitude within its bound, or, for B.2 at
+    its production grade, within the flip limits point by point, which
+    its witness must break."""
+    for name, c in level_cases(path, p, r, dtype, device, draws=3):
+        mode = c.mode
+        got, want = c.run(), c.twin()
         synchronize(device)
         worst = 0.0
         bound = BF16_BOUND if "/" in mode else BOUND[dtype]
-        for g, w in zip(got if isinstance(got, tuple) else (got,),
-                        want if isinstance(want, tuple) else (want,)):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
             if not torch.isfinite(g).all() or g.dtype != w.dtype:
                 raise RuntimeError(f"{name}/{mode} p={p} r={r}: non-finite "
                                    f"or {g.dtype} where the twin has "
@@ -476,9 +653,29 @@ def compare(path, p, r, dtype, device, results) -> None:
             key = (name, mode, p, r, str(dtype).split(".")[-1])
             results[key] = max(results.get(key, 0.0), err)
         # the yardstick must compute the same function to be one
-        lib_rel = rel_err(lib(), want)[1] if lib else 0.0
-        log(f"  {name:10s} {mode:19s} p={p} r={r} {str(dtype)[6:]:8s} "
-            f"max rel err {worst:.3e} (bound {bound:.0e})")
+        lib_rel = rel_err(c.lib(), want[0])[1] if c.lib else 0.0
+        head = f"  {name:10s} {mode:19s} p={p} r={r} {str(dtype)[6:]:8s}"
+        if c.mags is not None:
+            mags = c.mags()
+            cap, share, n = flip_stats(got, want, mags)
+            seen = f"max err {cap:.3e} S (cap {FLIP_CAP:.2e}), share " \
+                   f"over {FLIP_FLOOR:.1e} S {share:.2e} (bound {FLIP_SHARE:.0e})"
+            # a share needs points: the one free point of p = 1, r = 1
+            # shows none
+            witness = c.witness if n > 1 else None
+            planted = ""
+            if witness is not None:
+                w_cap, w_share, _ = flip_stats(witness(), want, mags)
+                planted = f"witness {w_cap:.3e} S, share {w_share:.2e}"
+            log(f"{head} {seen}" + (f"; {planted}" if planted else ""))
+            if not (cap <= FLIP_CAP and share <= FLIP_SHARE):
+                raise RuntimeError(f"{name}/{mode} p={p} r={r}: {seen}")
+            if witness is not None and not w_share > FLIP_SHARE:
+                raise RuntimeError(f"{name}/{mode} p={p} r={r}: the planted "
+                                   f"rounding passes the check: {planted}")
+            del mags
+            continue
+        log(f"{head} max rel err {worst:.3e} (bound {bound:.0e})")
         if not (worst <= bound and lib_rel <= bound):
             raise RuntimeError(f"{name}/{mode} p={p} r={r} {dtype}: relative "
                                f"error {worst:.3e} (library {lib_rel:.3e}) "
@@ -579,10 +776,12 @@ def ptxas_report(build_log: str) -> list[str]:
         if m:
             k = re.search(r"((?:laplace2d|laplace|cheb2|rhs|transfer|"
                           r"restrict|prolong|elasticity)_kernel)I([fd])"
-                          r"(?:Li(\d+)E)?(?:Lb([01])E)?", m.group(1))
+                          r"(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?",
+                          m.group(1))
             name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
                     f"{', ' + k.group(3) if k.group(3) else ''}"
-                    f"{', bf16 grade' if k.group(4) == '1' else ''}>"
+                    f"{', bf16 grade' if k.group(4) == '1' else ''}"
+                    f"{', cheb2lr' if k.group(5) == '1' else ''}>"
                     if k else m.group(1))
             rows[name] = ["?", "?", "?", "?"]
             continue
@@ -767,12 +966,59 @@ def log_levels(prob, rhs, name=lambda k, sp: f"r={k}") -> None:
             f"{own[k]:.3f} ms ({100 * own[k] / sum(own):.1f}%)")
 
 
-def phase_timing(card: str, prob, st, device) -> dict:
-    """Phase 5: V-cycle, CG solve and every kernel mode vs its twin."""
+def cheb2r_path(prob, st, device):
+    """The main path with ``PMG_CHEB2R=1``, built as a user would build it
+    (B.2's ``cheb2lr`` on every smoothing level: the last pre-smoothing pair
+    gives the residual that is restricted), solved eagerly and graphed as
+    in phase 4: converged in at most one CG iteration more than the
+    default (the JAX package's pinned trade-off), L2 within 1e-5 of the
+    golden value; one eager V-cycle launches ``cheb2lr/mxu/bf16`` once on
+    each of the six smoothing levels and ``residual1t`` never.  Returns the
+    model and the eager solve's launches."""
+    os.environ["PMG_CHEB2R"] = "1"
+    try:
+        prob_r = GeometricMultigridPoisson(3, 4, 6, torch.float32, "auto",
+                                           device)
+    finally:
+        del os.environ["PMG_CHEB2R"]
+    reset_counts()
+    x, st_r, per_mode = solve_both(prob_r, 1e-5, path_kernels("3d")
+                                   + path_kernels("cheb2r"),
+                                   "main path, PMG_CHEB2R=1")
+    l2_rel = abs(st_r.solution_l2_norm / GOLDEN_L2_Q4_R6 - 1.0)
+    log(f"  PMG_CHEB2R=1: CG iterations {st_r.iterations} (default "
+        f"{st.iterations}), L2 {st_r.solution_l2_norm:.10f} (rel diff "
+        f"{l2_rel:.2e} from the golden {GOLDEN_L2_Q4_R6}); launches "
+        f"{per_mode}")
+    if not (st_r.converged and st_r.iterations <= st.iterations + 1
+            and l2_rel <= F32_L2_BOUND_3D):
+        raise RuntimeError(f"PMG_CHEB2R=1 main path: converged="
+                           f"{st_r.converged} in {st_r.iterations} "
+                           f"iterations, L2 off by {l2_rel:.2e}")
+    check_on_card(prob_r, x, device, per_mode, "main path, PMG_CHEB2R=1")
+    reset_counts()
+    prob_r.preconditioner(graph=False).apply(prob_r.rhs())
+    synchronize(device)
+    rout = cuda_cheb2.ROUT_LAUNCHES.get("cheb2lr/mxu/bf16", 0)
+    res1 = cuda_laplace.LAUNCHES["residual1t"]
+    log(f"  PMG_CHEB2R=1: one eager V-cycle launches cheb2lr/mxu/bf16 "
+        f"{rout} times, residual1t {res1}")
+    reset_counts()
+    if rout != len(prob_r.levels) - 1 or res1:
+        raise RuntimeError(f"PMG_CHEB2R=1 V-cycle: {rout} cheb2lr and "
+                           f"{res1} residual1t launches")
+    return prob_r, per_mode
+
+
+def phase_timing(card: str, prob, st, device, per_mode) -> dict:
+    """Phase 5: V-cycle, CG solve and every kernel mode vs its twin; the
+    ``PMG_CHEB2R=1`` path's launches of ``cheb2lr`` join ``per_mode``."""
     log(f"phase 5: timing on {card} (CUDA events, median of 10)")
     rhs = prob.rhs()
     fine_op = prob.levels[-1].op
     n_dofs = prob.spaces[-1].n_dofs
+    prob_r, per_mode_r = cheb2r_path(prob, st, device)
+    per_mode["cheb2lr"] = per_mode_r["cheb2lr"]
     vcycles = {}
     for label, exact in (("", False), ("exact ", True)):
         for pairs in (True, False):
@@ -780,11 +1026,14 @@ def phase_timing(card: str, prob, st, device) -> dict:
             kind = "pairs" if pairs else "singles"
             vcycles[f"{label}{kind} eager"] = v
             vcycles[f"{label}{kind} graphed"] = GraphedVCycle(v)
+    vcycles["cheb2r eager"] = prob_r.preconditioner(graph=False)
+    vcycles["cheb2r graphed"] = prob_r.preconditioner()
     for name, v in vcycles.items():
         its = cg(fine_op.apply, rhs, v.apply, rtol=1e-5).iterations
+        kind = ("pairs and cheb2lr" if "cheb2r" in name else
+                "pairs" if "pairs" in name else "off")
         log(f"  {name} ({'exact float32' if 'exact' in name else 'bf16'} "
-            f"grade, B.2 {'pairs' if 'pairs' in name else 'off'}): CG "
-            f"{its} iterations to rtol 1e-5")
+            f"grade, B.2 {kind}): CG {its} iterations to rtol 1e-5")
     # B.1's mxu core runs the recurrence's single steps
     reset_counts()
     vcycles["singles eager"].apply(rhs)
@@ -799,7 +1048,7 @@ def phase_timing(card: str, prob, st, device) -> dict:
                       warmup=1)
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations, graphed "
         f"V-cycle): {t_solve:.3f} ms = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
-    del vcycles, mg
+    del vcycles, mg, prob_r
     p, r = KERNELS["laplace"]["shape"]
     t_two = two_single_steps_ms(p, r, device)
     t_two16 = two_single_steps_ms(p, r, device, bf16=True)
@@ -816,6 +1065,15 @@ def phase_timing(card: str, prob, st, device) -> dict:
             log(f"  cheb2 {mode:18s} {t['ms']:.3f} ms vs two B.1 passes "
                 f"{two:.3f} ms ({two / t['ms']:.2f}x), bound "
                 f"{t['bound_ms']:.4f} ms, twin {t['plain_ms']:.3f} ms")
+    # cheb2lr replaces the last pre-smoothing pair (cheb2l) and residual1t
+    for grade in ("", "/mxu/bf16"):
+        t = times[("cheb2lr", "cheb2lr" + grade)]
+        pair = times[("cheb2", "cheb2l" + grade)]["ms"]
+        res1 = times[("laplace", "residual1t")]["ms"]
+        log(f"  cheb2lr {'cheb2lr' + grade:16s} {t['ms']:.3f} ms vs the pair and "
+            f"residual1t it replaces {pair:.3f} + {res1:.3f} = "
+            f"{pair + res1:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), twin {t['plain_ms']:.3f} ms")
     log("phase 5: ok")
     return times
 
@@ -824,17 +1082,21 @@ def grade_vcycle(prob, pairs: bool = True, exact: bool = False) -> VCycle:
     """The model's V-cycle with its fused smoothers changed, nothing else:
     ``pairs`` False runs every B.2 pair as two B.1 single steps (the
     smoothers' pair kernel removed); ``exact`` swaps the bf16 grade of the
-    float32 levels back to the exact operator at float32 state, its pairs
-    made from the exact operator, as the JAX package's tests build the
-    exact grade."""
+    float32 levels (B.1's mxu core at bf16 state, B.5's mxu core) back to
+    the exact operator at float32 state, its B.2 kernels made from the
+    exact operator, as the JAX package's tests build the exact grade."""
     def change(sm):
         if not isinstance(sm, FusedChebyshev):
             return sm
-        if exact and sm.state_dtype is not None:
+        if exact and (sm.state_dtype is not None
+                      or sm.op_smooth is not None):
             sm = dataclasses.replace(
                 sm, op_smooth=None, state_dtype=None,
-                op_cheb2=sm.op_cheb2 and cuda_cheb2.make_cheb2(sm.op))
-        return sm if pairs else dataclasses.replace(sm, op_cheb2=None)
+                op_cheb2=sm.op_cheb2 and cuda_cheb2.make_cheb2(sm.op),
+                op_cheb2r=sm.op_cheb2r and cuda_cheb2.make_cheb2(
+                    sm.op, rout=True))
+        return sm if pairs else dataclasses.replace(sm, op_cheb2=None,
+                                                    op_cheb2r=None)
 
     levels = tuple(dataclasses.replace(lvl, smoother=change(lvl.smoother))
                    for lvl in prob.levels)
@@ -863,7 +1125,8 @@ def grade_vcycles(prob, pairs: bool = True) -> dict:
 GRADE_MODES = {"3d": {"laplace": ("residual3t/bf16",),
                       "cheb2": ("/mxu/bf16",)},
                "singles": {"laplace": ("residual3t/bf16", "/mxu/bf16")},
-               "2d": {"laplace2d": ("residual3t/bf16", "chebl/bf16")}}
+               "2d": {"laplace2d": ("residual3t/bf16", "chebl/bf16")},
+               "elasticity": {"elasticity": ("cheb/mxu", "chebl/mxu")}}
 
 
 def check_grade(counts: dict, path: str, what: str) -> None:
@@ -905,10 +1168,12 @@ def mode_bytes(name: str, mode: str) -> int:
     if "bf16" not in grade:
         return MODE_FIELDS[base] * 4
     f32 = torch.float32
-    if name == "cheb2":
+    if name in ("cheb2", "cheb2lr"):
         ins = ((f32,) if base.startswith("cheb2f0") else
-               (BF16, BF16) + ((f32,) if base in ("cheb2", "cheb2l") else ()))
-        outs = (f32,) if base.endswith("l") else (BF16, BF16, f32)
+               (BF16, BF16) + ((f32,) if base in ("cheb2", "cheb2l",
+                                                  "cheb2lr") else ()))
+        outs = ((f32, f32) if base == "cheb2lr" else
+                (f32,) if base.endswith("l") else (BF16, BF16, f32))
     else:
         ins, outs = cuda_laplace.io_dtypes(base, f32, BF16)
     return sum(torch.empty((), dtype=t).element_size() for t in ins + outs)
@@ -919,7 +1184,8 @@ def bound(path, name, mode, p, r) -> tuple[float, str]:
     for one pass of the mode at this shape — each input read once and each
     output written once at the HBM rate (float32 fields, bf16 state streams
     at 2 bytes), against the FMAs of this shape's operator at the FP32
-    rate."""
+    rate, or at the bf16 tensor-core rate on an ``mxu`` grade, whose
+    products take bf16 operands."""
     dim = 2 if path == "2d" else 3
     N = 2 ** r * p  # the fine level's trimmed extent
     comps = 3 if path == "elasticity" else 1
@@ -934,9 +1200,11 @@ def bound(path, name, mode, p, r) -> tuple[float, str]:
         fmas = comps * int(torch.count_nonzero(W.dense)) * (
             n_in ** 2 + n_in * n_out + n_out ** 2)
     else:
-        fmas = PRODUCTS[name] * (2 * p + 1) * N ** dim
+        base = mode.partition("/")[0]
+        fmas = PRODUCTS.get(base, PRODUCTS[name]) * (2 * p + 1) * N ** dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * fmas / FP32_FLOPS * 1e3
+    rate = BF16_FLOPS if "mxu" in mode.partition("/")[2] else FP32_FLOPS
+    t_ops = 2 * fmas / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -945,8 +1213,8 @@ def time_modes(path, p, r, device) -> dict:
     level shape, in float32, beside its bound and roofline share; the
     kernel's device time back to back is logged beside them."""
     times = {}
-    for name, mode, run, twin, lib in level_cases(path, p, r, torch.float32,
-                                                  device):
+    for name, (mode, run, twin, lib, *_) in level_cases(path, p, r,
+                                                        torch.float32, device):
         t_k, t_t = cuda_ms(run), cuda_ms(twin)
         t_l = cuda_ms(lib) if lib else None
         t_dev = device_ms(run)
@@ -1115,8 +1383,8 @@ def phase_second_timing(card: str, prob, st, device) -> dict:
     gaps = 0.0
     for k, sp in enumerate(prob.spaces):
         p, mode = sp.degree, "apply" if k == 0 else "cheb"
-        run = next(c[2] for c in level_cases("2d", p, r, torch.float32,
-                                             device) if c[1] == mode)
+        run = next(c.run for _, c in level_cases("2d", p, r, torch.float32,
+                                                 device) if c.mode == mode)
         t_k = device_ms(run)
         b_ms, by = bound("2d", "laplace2d", mode, p, r)
         ms_v, launches = b4.get(p, (0.0, 0))
@@ -1176,6 +1444,9 @@ def phase_elasticity(device, r: int):
             f"{st.iterations}, residual {st.residual_norm:.3e}, "
             f"L2 {st.solution_l2_norm!r}; launches {per_mode}")
         check_on_card(prob, x, device, per_mode, f"third path {name}")
+        if dtype == torch.float32:
+            # the JAX package's smoother grade: B.5's mxu core
+            check_grade(per_mode, "elasticity", f"third path {name}")
         runs[dtype] = prob, st, per_mode
         del x
     (p64, s64, _), (p32, s32, per_mode) = runs[torch.float64], runs[torch.float32]
@@ -1193,6 +1464,16 @@ def phase_elasticity(device, r: int):
     log(f"  float32 L2 rel diff from float64: {rel32:.2e}")
     if rel32 > F32_L2_BOUND_ELASTICITY:
         raise RuntimeError(f"third path float32: L2 norm off by {rel32:.2e}")
+    # the mxu grade may not cost a CG iteration over the exact grade
+    rhs = p32.rhs()
+    exact = cg(p32.fine_operator.apply, rhs,
+               grade_vcycle(p32, exact=True).apply, rtol=1e-5).iterations
+    log(f"  float32 CG iterations: {s32.iterations} at the mxu grade, "
+        f"{exact} at the exact grade")
+    if s32.iterations > exact:
+        raise RuntimeError(f"third path float32: {s32.iterations} CG "
+                           f"iterations at the mxu grade, {exact} exact")
+    del rhs
     del runs, p64
     torch.cuda.empty_cache()
     log("phase 10: ok")
@@ -1200,12 +1481,13 @@ def phase_elasticity(device, r: int):
 
 
 def phase_elasticity_timing(card: str, prob, st, device) -> dict:
-    """Phase 11: elasticity V-cycle, its split by level, the busy share,
-    the CG solve and each B.5 mode against its twin at 3 x 192^3."""
+    """Phase 11: elasticity V-cycle at the mxu grade (the default) and at
+    the exact grade, its split by level, the busy share, the CG solve and
+    each B.5 mode (both cores) against its twin at 3 x 192^3."""
     log(f"phase 11: timing on {card} (CUDA events, median of 10)")
     rhs = prob.rhs()
     n_dofs = prob.levels[-1].op.n_dofs
-    graph_report(card, prob, rhs, n_dofs)
+    graph_report(card, prob, rhs, n_dofs, grade_vcycles(prob))
     log_levels(prob, rhs)
     fine_op = prob.levels[-1].op
     mg = prob.preconditioner()
@@ -1214,6 +1496,12 @@ def phase_elasticity_timing(card: str, prob, st, device) -> dict:
     log(f"  CG solve to rtol 1e-5 ({st.iterations} iterations, graphed "
         f"V-cycle): {t_solve:.3f} ms = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
     times = time_modes("elasticity", *KERNELS["elasticity"]["shape"], device)
+    for mode in ("cheb", "chebl"):
+        t, ex = times[("elasticity", mode + "/mxu")], times[("elasticity",
+                                                             mode)]
+        log(f"  elasticity {mode}/mxu {t['ms']:.3f} ms vs the exact "
+            f"{mode} {ex['ms']:.3f} ms ({t['ms'] / ex['ms']:.2f}x), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     log("phase 11: ok")
     # B.3's times are reported at the main path's shape (phase 5)
     return {k: v for k, v in times.items() if k[0] == "elasticity"}
@@ -1544,8 +1832,9 @@ def main(argv: list[str]) -> int:
 
     card = timed(1, phase_build)
     if argv:
-        prob, st, _ = timed(4, phase_main, device, 6, GOLDEN_L2_Q4_R6, 4)
-        timed(5, phase_timing, card, prob, st, device)
+        prob, st, per_mode = timed(4, phase_main, device, 6, GOLDEN_L2_Q4_R6,
+                                   4)
+        timed(5, phase_timing, card, prob, st, device, per_mode)
         return 0
     dtypes = (torch.float32, torch.float64)
     shapes = [("3d", p, 2, dt) for dt in dtypes for p in range(1, 8)]
@@ -1563,7 +1852,7 @@ def main(argv: list[str]) -> int:
     with open("tests/golden_convergence.json") as fh:
         timed(3, phase_golden, device, json.load(fh))
     prob, st, per_mode = timed(4, phase_main, device, 6, GOLDEN_L2_Q4_R6, 4)
-    times = timed(5, phase_timing, card, prob, st, device)
+    times = timed(5, phase_timing, card, prob, st, device, per_mode)
     del prob
     torch.cuda.empty_cache()
     prob2, st2, per_mode2 = timed(6, phase_second, device, 9)
@@ -1598,19 +1887,21 @@ def main(argv: list[str]) -> int:
 
     # one entry per kernel and grade that its path launched: "laplace"
     # (exact float32), "laplace/bf16" (bf16 state), "cheb2/mxu/bf16" (the
-    # production grade), ..., each with its busiest mode
+    # production grade), "elasticity/mxu", "cheb2lr/mxu/bf16", ..., each
+    # with its busiest mode
     kernels = []
     for name, k in KERNELS.items():
         groups = collections.defaultdict(dict)
         for mode, n in per_mode[name].items():
             if n:
-                groups[mode.partition("/")[2]][mode] = n
-        for grade, counts in groups.items():
+                grade = mode.partition("/")[2]
+                groups[f"{name}/{grade}" if grade else name][mode] = n
+        for entry, counts in groups.items():
             mode = max(counts, key=counts.get)
             err = max(v for key, v in errs.items()
                       if key[0] == name and key[1] in counts
                       and key[2:] == (*k["shape"], "float32"))
-            kernels.append(dict(name=f"{name}/{grade}" if grade else name,
+            kernels.append(dict(name=entry,
                                 mode=mode, route=k["route"],
                                 source=k["source"], replaces=k["replaces"],
                                 launches=sum(counts.values()),

@@ -14,7 +14,8 @@ identical state and identical Chebyshev bounds:
     matrices are not carried over);
   * transfer: ``M1``, ``wmask_f`` and ``mask_c1`` of a ``Transfer``;
   * smoother: ``degree``, ``theta`` and ``delta``, and for a fused one its
-    recurrence operator and ``state_dtype``.
+    recurrence operator, its ``state_dtype`` and whether it has the
+    ``cheb2lr`` kernel (``op_cheb2r``).
 """
 
 from __future__ import annotations
@@ -78,15 +79,16 @@ def elasticity_operator(*, degree: int, n: int, dim: int, mask1, dK1, dM1, mu,
                         lam, variant: str = "kron", K1=None, M1=None, G1=None,
                         B=None, Dco=None, qmetric=None, elem_matrix=None,
                         kernel: bool = False, dtype=torch.float64,
-                        device="cpu"):
+                        device="cpu", core: str = "banded"):
     """The elasticity operator from its state: a plain variant, or B.5 (3D,
-    from the kron state) with ``kernel``."""
+    from the kron state) with ``kernel`` (``core="mxu"``: its bf16 grade,
+    the JAX ``FusedVectorChebyshev``'s ``op_smooth``)."""
     if kernel:
         if dim != 3:
             raise ValueError("B.5 is a 3D operator")
         return cuda_elasticity_from_factors(degree, n, mask1, K1, M1, G1, dK1,
                                             dM1, float(mu), float(lam), dtype,
-                                            device)
+                                            device, core)
     return elasticity_from_factors(dim=dim, degree=degree, n=n, mu=float(mu),
                                    lam=float(lam), m1=mask1, gK=dK1, gM=dM1,
                                    variant=variant, K1=K1, M1=M1, G1=G1, B=B,
@@ -115,13 +117,16 @@ def kernel_transfer(*, n_coarse: int, stride_c: int, stride_f: int, M1,
 
 
 def smoother(op, *, degree: int, theta, delta, fused: bool = False,
-             op_smooth=None, state_dtype=None):
+             op_smooth=None, state_dtype=None, op_cheb2r: bool = False):
     """A Chebyshev smoother with the given bounds: plain on the full grid,
     or fused on trimmed state (with the B.2 pair kernel where the operator
     has one, made from ``op_smooth`` when given).  ``op_smooth`` and
-    ``state_dtype`` carry a JAX ``FusedChebyshev``'s recurrence operator
-    (e.g. :func:`kernel_operator` with ``core="mxu"``) and its
-    ``state_dtype`` (``"bf16"`` -> ``torch.bfloat16``)."""
+    ``state_dtype`` carry a JAX ``FusedChebyshev``'s (or
+    ``FusedVectorChebyshev``'s) recurrence operator (e.g.
+    :func:`kernel_operator` with ``core="mxu"``) and its ``state_dtype``
+    (``"bf16"`` -> ``torch.bfloat16``); ``op_cheb2r`` True adds the
+    ``cheb2lr`` kernel (``make_cheb2(..., rout=True)``) of a JAX
+    smoother whose ``op_cheb2r`` is set."""
     theta, delta = float(np.asarray(theta)), float(np.asarray(delta))
     if state_dtype == "bf16":
         state_dtype = torch.bfloat16
@@ -133,5 +138,7 @@ def smoother(op, *, degree: int, theta, delta, fused: bool = False,
                               delta=delta,
                               op_cheb2=make_cheb2(pair_op) if op.pair_kernel
                               else None, op_smooth=op_smooth,
-                              state_dtype=state_dtype)
+                              state_dtype=state_dtype,
+                              op_cheb2r=make_cheb2(pair_op, rout=True)
+                              if op_cheb2r else None)
     return Chebyshev(degree=int(degree), op=op, theta=theta, delta=delta)

@@ -2,9 +2,9 @@
 // epilogues.
 //
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_elasticity.py
-// PallasElasticityOperator._run (exact "banded" core, iota mask; modes
-// apply, residual1t, residual3t, cheb, chebl, chebd, chebdl — the seven
-// trimmed-state modes of B.1).  It computes M A M u for a 3-component field
+// PallasElasticityOperator._run (the exact "banded" core and the bf16 "mxu"
+// core, iota mask; modes apply, residual1t, residual3t, cheb, chebl, chebd,
+// chebdl — the seven trimmed-state modes of B.1).  It computes M A M u for a 3-component field
 // on trimmed state — [3, N, N, N], N = n p, C order with z contiguous:
 //
 //   out_c = sum_a alpha_{a,c} (K@a, M elsewhere) u_c
@@ -23,6 +23,17 @@
 // away from the Dirichlet ends: interior rows of K, G and G^T sum to zero).
 // The direct sum cancels terms of size |W||u| down to the O(h) result of a
 // smooth u and loses it to f32 roundoff; M stays direct.
+//
+// The mxu grade (float only; kRoundBF16 of StateFlags in common.cuh, the
+// JAX core "mxu" of pallas_elasticity.py:374-457): the host passes the four
+// bands rounded to bf16 and the row sums of the rounded bands, so that the
+// difference form is the TPU core's direct sum up to float rounding; the
+// kernel rounds to bf16 the window where it lands in shared memory (each
+// thread the elements it copied, once, before the plane's barrier), the
+// four z products where they are stored, and the 12 group sums where they
+// enter the ring; every product accumulates in float.  It is a second
+// instance (RND), so that the exact instance keeps its registers; the
+// state streams stay float (the JAX kernel has no bf16 state).
 //
 // What bounds it on the H100: FP32 FMA throughput and shared-memory
 // traffic, then HBM.  The 21 chains share 45 banded products per grid point
@@ -121,9 +132,9 @@ struct Row {
 };
 
 // z stage of one component: window rows r < WY (row length WZ) -> K, M, G,
-// H along z into zb[4][WY][32].  A thread keeps its z column (and so its z
-// row w) for every row it takes.
-template <typename T, int P>
+// H along z into zb[4][WY][32], rounded to bf16 with RND.  A thread keeps
+// its z column (and so its z row w) for every row it takes.
+template <typename T, int P, bool RND>
 __device__ __forceinline__ void stage_z(const T* win, int WY, int WZ, T* zb,
                                         const Row<T, P>& w) {
   const int tz = threadIdx.x % kTZ, rows = blockDim.x / kTZ;
@@ -139,6 +150,12 @@ __device__ __forceinline__ void stage_z(const T* win, int WY, int WZ, T* zb,
       am += w.m[o] * v;
       ag += w.g[o] * dv;
       ah += w.h[o] * dv;
+    }
+    if constexpr (RND) {
+      ak = round_bf16(ak);
+      am = round_bf16(am);
+      ag = round_bf16(ag);
+      ah = round_bf16(ah);
     }
     T* out = zb + r * kTZ + tz;
     out[0] = ak;
@@ -212,7 +229,8 @@ __device__ __forceinline__ void stage_y(const T* zb, int WY,
   }
 }
 
-template <typename T, int P>
+// RND: the instance of the mxu grade (float only)
+template <typename T, int P, bool RND>
 __global__ void __launch_bounds__(kMaxThreads<P>, sizeof(T) == 4 ? 2 : 1)
 elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                   const T* __restrict__ in2, T* __restrict__ out0,
@@ -257,31 +275,37 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   load_plane(xs, win);
   for (int64_t xin = xs; xin < xe; ++xin) {
     const int i = (int)(xin - xs);
-    const T* w = win + (i & 1) * 3 * nwin;
+    T* w = win + (i & 1) * 3 * nwin;
     if (xin + 1 < xe) {
       load_plane(xin + 1, win + ((i + 1) & 1) * 3 * nwin);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
+    if constexpr (RND) {
+      // the window at the mxu grade: the elements this thread copied
+      for (int k = tid; k < 3 * nwin; k += blockDim.x)
+        w[k] = round_bf16(w[k]);
+    }
     __syncthreads();  // plane xin in; the last plane's z products all read
     T g[kGroups];
 #pragma unroll
     for (int k = 0; k < kGroups; ++k) g[k] = T(0);
-    stage_z<T, P>(w, WY, WZ, zb0, zr);
+    stage_z<T, P, RND>(w, WY, WZ, zb0, zr);
     __syncthreads();
     stage_y<T, P, 0>(zb0, WY, yr, mu, lam, g);
-    stage_z<T, P>(w + nwin, WY, WZ, zb1, zr);
+    stage_z<T, P, RND>(w + nwin, WY, WZ, zb1, zr);
     __syncthreads();
     stage_y<T, P, 1>(zb1, WY, yr, mu, lam, g);
-    stage_z<T, P>(w + 2 * nwin, WY, WZ, zb0, zr);
+    stage_z<T, P, RND>(w + 2 * nwin, WY, WZ, zb0, zr);
     __syncthreads();
     stage_y<T, P, 2>(zb0, WY, yr, mu, lam, g);
 
     // the thread's slot of plane xin in the ring
     T* slot = ring + (i % R) * kGroups * ncols + tid;
 #pragma unroll
-    for (int k = 0; k < kGroups; ++k) slot[k * ncols] = g[k];
+    for (int k = 0; k < kGroups; ++k)
+      slot[k * ncols] = RND ? round_bf16(g[k]) : g[k];
 
     // plane x + p is in: contract the ring along x into the outputs at x
     const int64_t x = xin - P;
@@ -327,26 +351,42 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   }
 }
 
-template <typename T, int P>
+template <typename T, int P, bool RND>
 int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
              T* out2, const Bands<T>& b, const T* dk, const T* dm, double mu,
              double lam, double c0, double c1, int N, int mode, int LX,
              int TY, void* stream) {
   if (TY * kTZ > kMaxThreads<P>) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_elems(P, TY) * sizeof(T);
-  cudaError_t err = allow_smem((const void*)elasticity_kernel<T, P>, smem);
+  const void* kernel = (const void*)elasticity_kernel<T, P, RND>;
+  cudaError_t err = allow_smem(kernel, smem);
   // two blocks of up to 113 KB per SM need the whole shared-memory carveout
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute((const void*)elasticity_kernel<T, P>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ceil_div(N, kTZ), (unsigned)ceil_div(N, TY),
                   (unsigned)ceil_div(N, LX));
-  elasticity_kernel<T, P><<<grid, TY * kTZ, smem, (cudaStream_t)stream>>>(
+  elasticity_kernel<T, P, RND><<<grid, TY * kTZ, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, b, dk, dm, (T)mu, (T)lam, (T)c0, (T)c1,
       N, mode, LX, TY);
   return (int)cudaGetLastError();
+}
+
+// the mxu grade's instance where the flags ask for it (float only)
+template <typename T, int P>
+int launch_grade(const T* u, const T* in1, const T* in2, T* out0, T* out1,
+                 T* out2, const Bands<T>& b, const T* dk, const T* dm,
+                 double mu, double lam, double c0, double c1, int N, int mode,
+                 int LX, int TY, int flags, void* stream) {
+  if constexpr (sizeof(T) == 4) {
+    if (flags & kRoundBF16)
+      return launch_p<T, P, true>(u, in1, in2, out0, out1, out2, b, dk, dm,
+                                  mu, lam, c0, c1, N, mode, LX, TY, stream);
+  }
+  return launch_p<T, P, false>(u, in1, in2, out0, out1, out2, b, dk, dm, mu,
+                               lam, c0, c1, N, mode, LX, TY, stream);
 }
 
 template <typename T>
@@ -354,17 +394,19 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
            const T* kb, const T* ks, const T* mb, const T* gb, const T* gs,
            const T* hb, const T* hs, const T* dk, const T* dm, double mu,
            double lam, double c0, double c1, int N, int p, int mode, int LX,
-           int TY, int TZ, void* stream) {
-  // a block is TY warps, one per y row of its column
+           int TY, int TZ, int flags, void* stream) {
+  // a block is TY warps, one per y row of its column; the state streams
+  // are never bf16, and a double kernel has no mxu grade
   if (TZ != kTZ || TY < 1 || TY * kTZ > kThreads || LX < 1 ||
-      mode < kApply || mode > kChebDL)
+      mode < kApply || mode > kChebDL || (flags & ~kRoundBF16) ||
+      (flags && sizeof(T) != 4))
     return (int)cudaErrorInvalidValue;
   const Bands<T> b{kb, ks, mb, gb, gs, hb, hs};
   switch (p) {
-#define PMG_CASE(PP)                                                       \
-  case PP:                                                                 \
-    return launch_p<T, PP>(u, in1, in2, out0, out1, out2, b, dk, dm, mu,  \
-                           lam, c0, c1, N, mode, LX, TY, stream);
+#define PMG_CASE(PP)                                                        \
+  case PP:                                                                  \
+    return launch_grade<T, PP>(u, in1, in2, out0, out1, out2, b, dk, dm, mu, \
+                               lam, c0, c1, N, mode, LX, TY, flags, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -376,17 +418,18 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 }  // namespace
 
 // (LX, TY, TZ) is the launch tile: LX output planes per block along x, a
-// (TY, TZ = 32) column of the y-z plane.
+// (TY, TZ = 32) column of the y-z plane; flags: kRoundBF16 for the mxu
+// grade (float only), else 0.
 extern "C" int pmg_elasticity_f32(
     const float* u, const float* in1, const float* in2, float* out0,
     float* out1, float* out2, const float* kb, const float* ks,
     const float* mb, const float* gb, const float* gs, const float* hb,
     const float* hs, const float* dk, const float* dm, double mu, double lam,
     double c0, double c1, int N, int p, int mode, int LX, int TY, int TZ,
-    void* stream) {
+    int flags, void* stream) {
   return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, gb, gs, hb,
                        hs, dk, dm, mu, lam, c0, c1, N, p, mode, LX, TY, TZ,
-                       stream);
+                       flags, stream);
 }
 
 extern "C" int pmg_elasticity_f64(
@@ -395,8 +438,8 @@ extern "C" int pmg_elasticity_f64(
     const double* mb, const double* gb, const double* gs, const double* hb,
     const double* hs, const double* dk, const double* dm, double mu,
     double lam, double c0, double c1, int N, int p, int mode, int LX, int TY,
-    int TZ, void* stream) {
+    int TZ, int flags, void* stream) {
   return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, gb, gs,
                         hb, hs, dk, dm, mu, lam, c0, c1, N, p, mode, LX, TY,
-                        TZ, stream);
+                        TZ, flags, stream);
 }

@@ -14,8 +14,15 @@ Variants:
   * ``"auto"`` — the kernel path where B.5 applies, 3D: every level above
     the coarsest runs B.5 (``ops/cuda_elasticity.py``) with the fused
     smoother on trimmed state; the coarsest runs plain Chebyshev-as-solver
-    on B.5's full-grid apply; the h-pairs run B.3 on each component.  One
-    operator serves every role of a level.  In 2D, where B.5 does not
+    on B.5's full-grid apply; the h-pairs run B.3 on all components in
+    one launch.  In float32 the smoothing levels run the JAX package's
+    smoother grade (``_maybe_mxu_recurrence``,
+    ``portable_multigrid_tpu/models/elasticity.py:94-149``): the exact B.5
+    for CG, the eigenvalue estimates and the residuals, the Chebyshev
+    recurrence on B.5's bf16 ``"mxu"`` core; ``PMG_ELASTICITY_MXU=0``
+    keeps the recurrence exact and ``PMG_ELASTICITY_FUSED=0`` runs it as
+    the plain full-grid ``Chebyshev``, as there.  In float64 one operator
+    serves every role of a level.  In 2D, where B.5 does not
     apply, every level falls back to ``"kron"``, as the JAX package's
     ``make_elasticity_auto`` does.  (The JAX package also falls back for
     float64, which its kernel does not take; the port's B.5 has float64
@@ -28,14 +35,11 @@ Variants:
 ``variant=None`` takes ``PMG_ELASTICITY_VARIANT``, by default ``"auto"``
 for a 3D float32 solve on a CUDA device and ``"kron"`` otherwise, the JAX
 package's rule (its ``"auto"`` falls back to kron outside 3D).
-
-Not ported: the bf16 ``mxu`` core that drives the JAX recurrence
-(``_maybe_mxu_recurrence``; ROADMAP, precision modes).  This path runs the
-exact recurrence.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -82,10 +86,22 @@ class ElasticityMultigrid(_MultigridBase):
         if coarse:
             smoother = make_chebyshev(op, smoothing_range=1e-3, degree=None,
                                       eig_cg_n_iterations=op.n_dofs)
-        else:
-            smoother = make_chebyshev(
-                op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
-                fused=kernel)
+            return op, smoother
+        # float32: the JAX package's switches of the recurrence's grade and
+        # of its fusion (its _maybe_mxu_recurrence); float64 runs fused
+        # and exact
+        grade = kernel and self.dtype == torch.float32
+        mxu = None
+        if grade and os.environ.get("PMG_ELASTICITY_MXU", "1") == "1":
+            mxu = make_cuda_elasticity(space, self.dtype, self.mu, self.lam,
+                                       self.device, core="mxu")
+        fused = kernel and (not grade or os.environ.get(
+            "PMG_ELASTICITY_FUSED", "1") == "1")
+        smoother = make_chebyshev(
+            op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
+            fused=fused, fused_smoother_op=mxu if fused else None)
+        if mxu is not None and not fused:
+            smoother = dataclasses.replace(smoother, op=mxu)
         return op, smoother
 
     def rhs(self, f=None) -> torch.Tensor:

@@ -26,7 +26,13 @@ Variants:
     recurrence on a bf16-grade operator (B.1's ``"mxu"`` core and B.2 at
     its production grade in 3D; the exact B.4 in 2D), with r and d stored
     in bfloat16 between passes.  float64 levels run the exact operator in
-    every role.  On CPU tensors each kernel wrapper runs its plain twin.
+    every role.  ``PMG_CHEB2=0`` drops the B.2 pairs (every recurrence step
+    a B.1 pass); ``PMG_CHEB2R=1`` adds B.2's ``cheb2lr`` kernel, so that
+    the last pre-smoothing pair also gives the residual to restrict, on
+    every level where its tile fits (p <= 5 in float32, p <= 3 in float64;
+    the JAX package builds it where it compiles): the switches and defaults
+    of ``portable_multigrid_tpu/models/poisson.py:96-114``.  On CPU tensors
+    each kernel wrapper runs its plain twin.
   * ``"kron"``, ``"sumfac"``, ``"dense"`` — the plain paths: the operator
     variant of ``ops/laplace.py``, plain Chebyshev and the windowed
     ``Transfer`` on full grids.
@@ -55,7 +61,7 @@ import torch
 from ..fem.assemble import assemble_rhs, l2_norm
 from ..fem.mesh import HyperCubeMesh, geometric_coarsening_sequence
 from ..fem.space import FESpace
-from ..ops.cuda_cheb2 import make_cheb2
+from ..ops.cuda_cheb2 import cheb2_fits, make_cheb2
 from ..ops.cuda_laplace import CudaLaplaceOperator, make_cuda_laplace
 from ..ops.cuda_laplace2d import make_cuda_laplace2d
 from ..ops.cuda_transfer import make_cuda_h_transfer
@@ -102,12 +108,20 @@ def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
         if grade:
             smooth_op = (make_cuda_laplace(space, dtype, device, core="mxu")
                          if space.dim == 3 else op)
-        pair = (make_cheb2(op if smooth_op is None else smooth_op)
-                if fused and op.pair_kernel else None)
+        pair_op = op if smooth_op is None else smooth_op
+        pair = pair_r = None
+        if (fused and op.pair_kernel
+                and os.environ.get("PMG_CHEB2", "1") == "1"):
+            pair = make_cheb2(pair_op)
+            # opt-in, as in the JAX package: the residual then comes at the
+            # recurrence's grade, which costs at most one CG iteration
+            if (os.environ.get("PMG_CHEB2R", "0") == "1"
+                    and cheb2_fits(pair_op, rout=True)):
+                pair_r = make_cheb2(pair_op, rout=True)
         smoother = make_chebyshev(
             op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
             fused=fused, cheb2=pair, fused_smoother_op=smooth_op,
-            state_dtype=torch.bfloat16 if grade else None)
+            state_dtype=torch.bfloat16 if grade else None, cheb2r=pair_r)
     return op, smoother
 
 

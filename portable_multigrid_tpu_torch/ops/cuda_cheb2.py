@@ -1,4 +1,5 @@
-"""B.2: two Chebyshev steps per pass (``csrc/cheb2.cu``) and its twin.
+"""B.2: two Chebyshev steps per pass (``csrc/cheb2.cuh``; the pair's modes
+in ``cheb2.cu``, ``cheb2lr`` in ``cheb2lr.cu``) and its twin.
 
 Counterpart of ``portable_multigrid_tpu/ops/pallas_cheb2.py``
 (``Cheb2Kernel.steps2`` / ``make_cheb2``).  On trimmed state:
@@ -7,13 +8,21 @@ Counterpart of ``portable_multigrid_tpu/ops/pallas_cheb2.py``
     r2 = r1 - M A M d1     d2 = c0b d1 + (c1b / diag) r2
     x2 = x + d1 + d2
 
-Modes (:data:`MODES`): ``cheb2`` in (d, r, x) out (r2, d2, x2); ``cheb2l``
-out x2 only; ``chebd2``/``chebd2l`` take x == d; ``cheb2f0``/``cheb2f0l``
-start from the rhs b passed in the d slot (d0 = b / (theta diag), r0 = b,
-x0 = d0; theta is scal[4]); the kernel runs them as ``chebd2*`` on
-(d0, b), d0 written by its elementwise pre-pass into a scratch field.  The
-kernel shares the operator's band arrays, the row sums of K (it contracts
-K in difference form) and the diagonal factors
+Modes of the pair (:data:`MODES`): ``cheb2`` in (d, r, x) out (r2, d2,
+x2); ``cheb2l`` out x2 only; ``chebd2``/``chebd2l`` take x == d;
+``cheb2f0``/``cheb2f0l`` start from the rhs b passed in the d slot
+(d0 = b / (theta diag), r0 = b, x0 = d0; theta is scal[4]); the kernel
+runs them as ``chebd2*`` on (d0, b), d0 written by its elementwise
+pre-pass into a scratch field.  :data:`ROUT_MODE`, ``cheb2lr`` (the TPU
+kernel's ``rout=True``, ``pallas_cheb2.py:120-129``)
+is a recurrence-ending pair that also gives the next V-cycle residual,
+r_out = r2 - M A M d2, at the pair's grade and from r2 unrounded: in
+(d, r, x), out (x2, r_out), both in the operator's dtype.  It runs on a
+kernel of its own, :class:`Cheb2RKernel` (``make_cheb2(op,
+rout=True)``), which runs no other mode: its column and rings are those
+of three stencil applications.  Each kernel shares the operator's band
+arrays, the row sums of K (it contracts K in difference form) and the
+diagonal factors
 (:class:`~.cuda_laplace.CudaLaplaceOperator`); the twin contracts the
 bands with the same difference form.
 
@@ -52,49 +61,130 @@ from .cuda_laplace import (
 )
 
 MODES = ("cheb2", "cheb2l", "chebd2", "chebd2l", "cheb2f0", "cheb2f0l")
+ROUT_MODE = "cheb2lr"  # the one mode of a rout kernel (csrc/cheb2lr.cu)
 # launches per mode (cuda_laplace.launch_key), counted where the wrapper
-# launches the kernel
+# launches the kernel: the pair's, and the cheb2lr kernel's apart
 LAUNCHES = dict.fromkeys(MODES, 0)
+ROUT_LAUNCHES = {ROUT_MODE: 0}
 
 _TY = (16, 8, 6, 4, 2, 1)  # candidate interior rows of a block's column
 
 
-def cheb2_smem_elems(p: int, ty: int) -> int:
+def cheb2_smem_elems(p: int, ty: int, stages: int = 2) -> int:
     """Shared-memory elements of one block (mirrors smem_elems in
-    cheb2.cu): three d windows, two sets of step one's z products, ring 1
-    of 2p+1 planes on the grown column, the d1 plane, two sets of step
-    two's z products, ring 2 of 2p+1 planes and the lag ring of p+1
-    (r1, d1) planes on the interior; the epilogues' inputs loaded a plane
-    ahead (r and d on the grown column, x on the interior, twice each;
-    three sets of the two x rows of 2(2p+1) + 3 values, padded to a
-    multiple of four)."""
-    R, wy, wz, ey = 2 * p + 1, ty + 4 * p, EZ + 2 * p, ty + 2 * p
+    cheb2.cuh) for ``stages`` stencil applications a pass (2: the pair, 3:
+    ``cheb2lr``), with step one on the column grown by G = (stages - 1) p
+    and step two on the column grown by G - p: three d windows, two sets
+    of step one's z products, ring 1 of 2p+1 planes on step one's column,
+    the d1 plane, two sets of step two's z products, ring 2 of 2p+1 planes
+    and the lag ring of p+1 (r1, d1) planes on step two's column; the
+    epilogues' inputs loaded a plane ahead (r and d on step one's column,
+    x on the interior, twice each; three sets of the x rows of each stage,
+    2(2p+1) + 3 values each, padded to a multiple of four); with three
+    stages also the d2 plane, two sets of step three's z products, ring 3
+    on the interior and the lag ring of p+1 r2 planes."""
+    R, G = 2 * p + 1, (stages - 1) * p
+    wy, wz = ty + 2 * G + 2 * p, EZ + 2 * p
+    ey, e2 = ty + 2 * G, ty + 2 * G - 2 * p  # step one's and two's rows
     xrow = -(-(2 * R + 3) // 4) * 4  # 16-byte aligned in float32
-    return (3 * wy * wz + 4 * wy * EZ + R * 2 * ey * EZ + ey * EZ
-            + 4 * ey * EZ + R * 2 * ty * EZ + (p + 1) * 2 * ty * EZ
-            + 4 * ey * EZ + 2 * ty * EZ + 3 * 2 * xrow)
+    elems = (3 * wy * wz + 4 * wy * EZ + R * 2 * ey * EZ + ey * EZ
+             + 4 * ey * EZ + R * 2 * e2 * EZ + (p + 1) * 2 * e2 * EZ
+             + 4 * ey * EZ + 2 * ty * EZ + 3 * stages * xrow)
+    if stages == 3:
+        elems += (e2 * EZ + 4 * e2 * EZ + R * 2 * ty * EZ
+                  + (p + 1) * ty * EZ)
+    return elems
 
 
-def cheb2_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
-    """(LX, TY, NW) of the launch for an N^3 grid, as cheb2.cu's tile_ty /
-    tile_warps compile it.
+def cheb2_tile(p: int, itemsize: int, N: int,
+               rout: bool = False) -> tuple[int, int, int]:
+    """(LX, TY, NW) of the launch for an N^3 grid, as cheb2.cuh's tile_ty /
+    tile_warps compile it; ``rout``: the ``cheb2lr`` instance's.
 
-    TY: the largest candidate whose TY + 2p grown rows the block's warps
-    own two each and whose buffers fit one block; NW = ceil((TY + 2p) / 2)
+    Step one runs on the column grown by G = p (2p with ``rout``).  TY:
+    the largest candidate whose TY + 2G grown rows the block's warps own
+    two each and whose buffers fit one block; NW = ceil((TY + 2G) / 2)
     warps.  One block per SM: at p = 4 in float32 one block over TY = 16
     beat two blocks of 8 warps over TY = 8 by 15% on an H100 80GB HBM3 at
     700 W (less y overgrowth for as many warps).  LX: the chunk rule of
-    :func:`~.cuda_laplace.chunk_planes` with 4p lead-in planes."""
+    :func:`~.cuda_laplace.chunk_planes` with 2 (G + p) lead-in planes.
+    Raises where no tile fits: with ``rout`` p >= 6 in float32 and p >= 4
+    in float64."""
+    ty = _tile_ty(p, itemsize, rout)
+    if ty is None:
+        kind = "cheb2lr" if rout else "pair"
+        raise ValueError(f"no {kind} tile fits one block at p={p} in "
+                         f"{8 * itemsize}-bit floats")
+    G = (2 if rout else 1) * p
+    columns = -(-N // (EZ - 2 * G)) * -(-N // ty)
+    return (chunk_planes(N, columns, 2 * (G + p)), ty,
+            (ty + 2 * G + 1) // 2)
+
+
+def _tile_ty(p: int, itemsize: int, rout: bool) -> int | None:
+    """TY of :func:`cheb2_tile` (tile_ty in cheb2.cuh), None where no
+    candidate fits."""
     # two grown rows for each of at most 12 warps in float32 (168 registers
     # a thread; at 16 warps, 128 registers, p = 3 and 5 spilled) and 8 in
     # float64 (255 registers): march_warps in march.cuh
+    stages = 3 if rout else 2
+    G = (stages - 1) * p
     limit = 2 * march_warps(itemsize)
-    ty = next((t for t in _TY if t + 2 * p <= limit
-               and cheb2_smem_elems(p, t) * itemsize <= SMEM_LIMIT), None)
-    if ty is None:
-        raise ValueError(f"no pair tile fits shared memory at p={p}")
-    columns = -(-N // (EZ - 2 * p)) * -(-N // ty)
-    return chunk_planes(N, columns, 4 * p), ty, (ty + 2 * p + 1) // 2
+    return next((t for t in _TY if t + 2 * G <= limit
+                 and cheb2_smem_elems(p, t, stages) * itemsize <= SMEM_LIMIT),
+                None)
+
+
+def cheb2_fits(op: CudaLaplaceOperator, rout: bool = False) -> bool:
+    """Whether B.2 has a tile for ``op``'s level (:func:`cheb2_tile`): the
+    pair always, ``cheb2lr`` at p <= 5 in float32 and p <= 3 in
+    float64."""
+    itemsize = torch.empty((), dtype=op.dtype).element_size()
+    return _tile_ty(op.degree, itemsize, rout) is not None
+
+
+def _checked(op, d, r, x, scal, mode, sdtype):
+    """The state dtype of a pass of ``mode`` on ``op``'s level after
+    checking its inputs (r None iff the pass starts from the rhs; x given
+    iff it is read)."""
+    from_rhs = mode in ("cheb2f0", "cheb2f0l")
+    if (r is None) != from_rhs:
+        raise ValueError(f"mode {mode!r}: r must be given iff not from rhs")
+    if (x is None) != (mode not in ("cheb2", "cheb2l", ROUT_MODE)):
+        raise ValueError(f"mode {mode!r}: x must be given iff cheb2, "
+                         f"cheb2l or cheb2lr")
+    if len(scal) != (5 if from_rhs else 4):
+        raise ValueError(f"mode {mode!r}: wrong number of scalars")
+    sdtype = state_dtype(op, sdtype)
+    for name, t, dt in (("d", d, op.dtype if from_rhs else sdtype),
+                        ("r", r, sdtype), ("x", x, op.dtype)):
+        if t is not None:
+            _check(op, t, name, dt)
+    if not (d.device.type == "cpu" or d.is_cuda):
+        raise ValueError(f"unsupported device {d.device}")
+    return sdtype
+
+
+def _flags(op, sdtype, reads_bf16: bool, out_dtype) -> int:
+    """StateFlags of a launch: bf16 d and r in, bf16 r2 and d2 out, the
+    operator's bf16 grade."""
+    bf = sdtype == torch.bfloat16
+    return ((IN_BF16 if bf and reads_bf16 else 0)
+            | (OUT_BF16 if out_dtype == torch.bfloat16 else 0)
+            | (ROUND_BF16 if op.core == "mxu" else 0))
+
+
+def _bands(op) -> tuple:
+    return (op.kband.data_ptr(), op.mband.data_ptr(), op.ksum.data_ptr(),
+            op.dK1.data_ptr(), op.dM1.data_ptr())
+
+
+def _counted(counts: dict, op, mode, sdtype, err) -> None:
+    if err:
+        raise RuntimeError(f"cheb2 kernel ({mode}) launch failed: "
+                           f"CUDA error {err}")
+    key = launch_key(mode, op.core, sdtype)
+    counts[key] = counts.get(key, 0) + 1
 
 
 @dataclasses.dataclass
@@ -105,62 +195,69 @@ class Cheb2Kernel:
     tile: tuple  # (LX, TY, NW) of cheb2_tile
 
     def steps2(self, d, r, x, scal, mode: str = "cheb2", sdtype=None):
-        """One pass of ``mode``; returns (r2, d2, x2) or (x2,) for "l"
+        """One pass of ``mode``; returns (r2, d2, x2), or (x2,) for "l"
         modes, with r and d (r2 and d2) stored in ``sdtype`` (None: the
         operator's dtype)."""
         if mode not in MODES:
-            raise ValueError(f"unknown cheb2 mode {mode!r}")
-        from_rhs = mode in ("cheb2f0", "cheb2f0l")
-        if (r is None) != from_rhs:
-            raise ValueError(f"mode {mode!r}: r must be given iff not from rhs")
-        if (x is None) != (mode not in ("cheb2", "cheb2l")):
-            raise ValueError(f"mode {mode!r}: x must be given iff cheb2/cheb2l")
-        if len(scal) != (5 if from_rhs else 4):
-            raise ValueError(f"mode {mode!r}: wrong number of scalars")
+            raise ValueError(f"unknown cheb2 mode {mode!r}"
+                             + (": cheb2lr runs on make_cheb2(op, rout=True)"
+                                if mode == ROUT_MODE else ""))
         op = self.op
-        sdtype = state_dtype(op, sdtype)
-        for name, t, dt in (("d", d, op.dtype if from_rhs else sdtype),
-                            ("r", r, sdtype), ("x", x, op.dtype)):
-            if t is not None:
-                _check(op, t, name, dt)
+        sdtype = _checked(op, d, r, x, scal, mode, sdtype)
         if d.device.type == "cpu":
             return cheb2_twin(op, d, r, x, scal, mode, sdtype)
-        if not d.is_cuda:
-            raise ValueError(f"unsupported device {d.device}")
-        return self._launch(d, r, x, scal, mode, sdtype)
-
-    def _launch(self, d, r, x, scal, mode, sdtype):
-        op = self.op
-        fn = _build.build().fn("pmg_cheb2", _suffix(op.dtype))
-        last = mode.endswith("l")
-        out_dt = _out_dtypes(op, mode, sdtype)
         outs = [torch.empty(d.shape, dtype=dt, device=d.device)
-                for dt in out_dt]
-        bf = sdtype == torch.bfloat16
-        flags = ((IN_BF16 if bf and r is not None else 0)
-                 | (OUT_BF16 if bf and not last else 0)
-                 | (ROUND_BF16 if op.core == "mxu" else 0))
+                for dt in _out_dtypes(op, mode, sdtype)]
         optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
         sc = [float(s) for s in scal] + [0.0] * (5 - len(scal))
-        # cheb2f0*: the kernel's pre-pass writes d0 = b / (theta diag) here
+        # cheb2f0*: the kernel's pre-pass writes d0 = b / (theta diag)
         scratch = torch.empty_like(d) if r is None else None
+        fn = _build.build().fn("pmg_cheb2", _suffix(op.dtype))
         err = fn(d.data_ptr(), None if r is None else r.data_ptr(),
-                 None if x is None else x.data_ptr(), *optrs,
-                 op.kband.data_ptr(), op.mband.data_ptr(), op.ksum.data_ptr(),
-                 op.dK1.data_ptr(), op.dM1.data_ptr(),
+                 None if x is None else x.data_ptr(), *optrs, *_bands(op),
                  None if scratch is None else scratch.data_ptr(), *sc,
                  op.n * op.degree, op.degree, MODES.index(mode), *self.tile,
-                 flags, _build.stream_handle(d.device))
-        if err:
-            raise RuntimeError(f"cheb2 kernel ({mode}) launch failed: "
-                               f"CUDA error {err}")
-        key = launch_key(mode, op.core, sdtype)
-        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+                 _flags(op, sdtype, r is not None, outs[0].dtype),
+                 _build.stream_handle(d.device))
+        _counted(LAUNCHES, op, mode, sdtype, err)
+        return tuple(outs)
+
+
+@dataclasses.dataclass
+class Cheb2RKernel:
+    """The recurrence-ending pair plus the residual (``cheb2lr``,
+    ``csrc/cheb2lr.cu``) on the operator ``op``'s level."""
+
+    op: CudaLaplaceOperator
+    tile: tuple  # (LX, TY, NW) of cheb2_tile(..., rout=True)
+
+    def steps2(self, d, r, x, scal, mode: str = ROUT_MODE, sdtype=None):
+        """One ``cheb2lr`` pass; returns (x2, r_out), with d and r stored
+        in ``sdtype`` (None: the operator's dtype)."""
+        if mode != ROUT_MODE:
+            raise ValueError(f"mode {mode!r} on a cheb2lr kernel: it runs "
+                             f"cheb2lr only (the pair: make_cheb2(op))")
+        op = self.op
+        sdtype = _checked(op, d, r, x, scal, mode, sdtype)
+        if d.device.type == "cpu":
+            return cheb2_twin(op, d, r, x, scal, mode, sdtype)
+        outs = [torch.empty(d.shape, dtype=dt, device=d.device)
+                for dt in _out_dtypes(op, mode, sdtype)]
+        fn = _build.build().fn("pmg_cheb2lr", _suffix(op.dtype))
+        err = fn(d.data_ptr(), r.data_ptr(), x.data_ptr(),
+                 *(t.data_ptr() for t in outs), *_bands(op),
+                 *map(float, scal), op.n * op.degree, op.degree, *self.tile,
+                 _flags(op, sdtype, True, outs[0].dtype),
+                 _build.stream_handle(d.device))
+        _counted(ROUT_LAUNCHES, op, mode, sdtype, err)
         return tuple(outs)
 
 
 def _out_dtypes(op, mode: str, sdtype) -> tuple:
-    """x2 in the operator's dtype; r2 and d2 in the state dtype."""
+    """x2 and r_out in the operator's dtype; r2 and d2 in the state
+    dtype."""
+    if mode == "cheb2lr":
+        return op.dtype, op.dtype
     return (op.dtype,) if mode.endswith("l") else (sdtype, sdtype, op.dtype)
 
 
@@ -186,16 +283,23 @@ def cheb2_twin(op: CudaLaplaceOperator, d, r, x, scal, mode: str,
     r2 = r1 - apply_trimmed(*bands, d1, bf16_grade)
     d2 = c0b * d1 + (c1b / diag) * r2
     x2 = x + d1 + d2
-    outs = (x2,) if mode.endswith("l") else (r2, d2, x2)
+    if mode == "cheb2lr":
+        # the third stencil application, on r2 as the pair computes it
+        outs = x2, r2 - apply_trimmed(*bands, d2, bf16_grade)
+    else:
+        outs = (x2,) if mode.endswith("l") else (r2, d2, x2)
     return tuple(o.to(dt) for o, dt in zip(outs, out_dt))
 
 
-def make_cheb2(op: CudaLaplaceOperator) -> Cheb2Kernel:
+def make_cheb2(op: CudaLaplaceOperator,
+               rout: bool = False) -> Cheb2Kernel | Cheb2RKernel:
     """The pair kernel on ``op``'s level, at ``op``'s grade (the production
-    bf16 grade on an ``"mxu"`` operator)."""
+    bf16 grade on an ``"mxu"`` operator); ``rout``: the ``cheb2lr``
+    kernel, which raises ValueError where its tile fits no block
+    (:func:`cheb2_tile`)."""
     if op.dim != 3:
         # as in the JAX package (pallas_cheb2.py:59-69)
         raise ValueError("the pair kernel B.2 is 3D only")
     itemsize = torch.empty((), dtype=op.dtype).element_size()
-    return Cheb2Kernel(op=op,
-                       tile=cheb2_tile(op.degree, itemsize, op.n * op.degree))
+    tile = cheb2_tile(op.degree, itemsize, op.n * op.degree, rout)
+    return (Cheb2RKernel if rout else Cheb2Kernel)(op=op, tile=tile)

@@ -3,13 +3,14 @@ twin.
 
 Counterpart of ``portable_multigrid_tpu/ops/pallas_elasticity.py``
 (``PallasElasticityOperator``, ``make_pallas_elasticity``; the exact
-"banded" core with the structural x mask).  The operator works on TRIMMED
-3-component state — [3, n p, n p, n p], the global last plane of every
-spatial axis dropped, C order with z contiguous — and computes M A M u for
-the 21 Kronecker chains of the elasticity weak form (``ops/elasticity.py``)
-from the GLOBAL mask-folded trimmed 1D matrices K, M, G and H = G^T, plus
-the single-step Chebyshev epilogues of B.1 (modes in :data:`MODES`) with the
-per-component diagonal diag_c = sum_k alpha_{k,c} (dK@k, dM elsewhere).
+"banded" core and the bf16 ``"mxu"`` core, with the structural x mask).
+The operator works on TRIMMED 3-component state — [3, n p, n p, n p], the
+global last plane of every spatial axis dropped, C order with z
+contiguous — and computes M A M u for the 21 Kronecker chains of the
+elasticity weak form (``ops/elasticity.py``) from the GLOBAL mask-folded
+trimmed 1D matrices K, M, G and H = G^T, plus the single-step Chebyshev
+epilogues of B.1 (modes in :data:`MODES`) with the per-component diagonal
+diag_c = sum_k alpha_{k,c} (dK@k, dM elsewhere).
 
 The TPU modes map to the port's: ``apply`` -> ``apply`` (trimmed in and
 out; :meth:`~.cuda_laplace.CudaLaplaceOperator.apply` trims and pads around
@@ -20,6 +21,18 @@ G and H contraction in difference form with the row sums below; the twin
 contracts the dense matrices directly.  On a CUDA tensor
 :meth:`~.cuda_laplace.CudaLaplaceOperator.run` launches the kernel; on a
 CPU tensor it runs :func:`elasticity_twin`.
+
+``core="mxu"`` (float32 only) is the bf16 grade of the JAX package's
+smoother recurrence (``pallas_elasticity.py:374-457``): the four bands
+rounded to bf16 (their row sums taken from the rounded bands), u rounded
+to bf16, each z product rounded, the y stage summed into the 12 (output c,
+x matrix) groups with mu, lam and alpha folded in, each group rounded, and
+the x stage, every product accumulated in float32.  Its twin is
+:func:`elasticity_grouped` in that order.  The state stays float32: the
+JAX kernel has no bf16 state, and neither has B.5 (``bf16_state``).  The
+TPU core assembles x and y per block and rounds the two halves of a block
+boundary entry apart; the global bands round the whole entry, so the two
+agree at bf16 grade, not bit for bit.
 """
 
 from __future__ import annotations
@@ -32,10 +45,12 @@ import torch
 
 from ..fem.space import FESpace
 from .cuda_laplace import (
+    CORES,
     MODES,
     SMEM_LIMIT,
     SMS,
     CudaLaplaceOperator,
+    round_bf16,
     row_sums,
     to_bands,
     twin_epilogue,
@@ -47,6 +62,7 @@ from .elasticity import (
     separable_elasticity_diagonal,
 )
 from .laplace import assembled_1d_matrices, diagonal_1d_factors
+from .structured import contract
 
 # kernel launches per mode, counted where the wrapper launches the kernel
 LAUNCHES = dict.fromkeys(MODES, 0)
@@ -97,7 +113,8 @@ def elasticity_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
 class CudaElasticityOperator(CudaLaplaceOperator):
     """3D Q_p elasticity operator for the kernel path, on one device: the
     surface of the B.1 operator on [3, ...] fields, ``kband``/``mband`` plus
-    the G and H bands, the row sums of K, G, H, and mu / lam."""
+    the G and H bands, the row sums of K, G, H, and mu / lam; ``core``
+    "banded" (exact) or "mxu" (the bf16 grade, float32)."""
 
     mu: float = 1.0
     lam: float = 1.0
@@ -112,7 +129,7 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     kernel: ClassVar[str] = "pmg_elasticity"
     launches: ClassVar[dict] = LAUNCHES
     pair_kernel: ClassVar[bool] = False
-    # B.5 stores every stream in its dtype (its bf16 core is not ported)
+    # B.5 stores every stream in its dtype, at either core
     bf16_state: ClassVar[bool] = False
 
     @property
@@ -147,17 +164,66 @@ class CudaElasticityOperator(CudaLaplaceOperator):
 def elasticity_twin(op: CudaElasticityOperator, mode: str, u: torch.Tensor,
                     ins=(), scal=()):
     """Plain torch version of every kernel mode (same inputs and outputs):
-    the dense trimmed mask-folded 1D matrices contracted directly."""
-    raw = elasticity_kron(u, op.Kt, op.Mt, op.Gt, op.Gt.T, op.mu, op.lam)
+    the dense trimmed mask-folded 1D matrices contracted directly, at the
+    mxu core in its grouped order and roundings."""
+    if op.core == "mxu":
+        raw = elasticity_grouped(u, op.Kt, op.Mt, op.Gt, op.mu, op.lam, True)
+    else:
+        raw = elasticity_kron(u, op.Kt, op.Mt, op.Gt, op.Gt.T, op.mu, op.lam)
     return twin_epilogue(op, mode, raw, u, ins, scal)
+
+
+def elasticity_grouped(u: torch.Tensor, K, M, G, mu: float, lam: float,
+                       bf16_grade: bool = False) -> torch.Tensor:
+    """The 21 chains on a [3, N, N, N] field in B.5's order (the JAX core's,
+    pallas_elasticity.py:374-457): K, M, G and H = G^T along z per
+    component; along y the products that the 12 (output c, x matrix)
+    groups take, summed with mu, lam and alpha = 2 mu + lam folded in;
+    along x each group by its matrix.  ``bf16_grade`` rounds u, each z
+    product and each group sum to bf16 (the mxu core's inputs of its
+    three contractions); every contraction sums in u's dtype."""
+    rnd = round_bf16 if bf16_grade else (lambda t: t)
+    mats = {"k": K, "m": M, "g": G, "h": G.T}
+    u = rnd(u)
+    # z[a][Z]: Z along z of component a
+    z = [{Z: rnd(contract(u[a], W, 2)) for Z, W in mats.items()}
+         for a in range(3)]
+
+    def y(a, name):
+        """y matrix name[0] along y of the z product name[1] of a."""
+        return contract(z[a][name[1]], mats[name[0]], 1)
+
+    al = 2.0 * mu + lam
+    groups = (  # per output c: its x matrix's group
+        {"k": al * y(0, "mm"), "m": mu * (y(0, "km") + y(0, "mk")),
+         "h": mu * (y(1, "gm") + y(2, "mg")),
+         "g": lam * (y(1, "hm") + y(2, "mh"))},
+        {"k": mu * y(1, "mm"),
+         "m": al * y(1, "km") + mu * (y(1, "mk") + y(2, "hg"))
+         + lam * y(2, "gh"),
+         "g": mu * y(0, "hm"), "h": lam * y(0, "gm")},
+        {"k": mu * y(2, "mm"),
+         "m": mu * (y(2, "km") + y(1, "gh")) + al * y(2, "mk")
+         + lam * y(1, "hg"),
+         "g": mu * y(0, "mh"), "h": lam * y(0, "mg")},
+    )
+    return torch.stack([sum(contract(rnd(t), mats[X], 0)
+                            for X, t in g.items()) for g in groups])
 
 
 def cuda_elasticity_from_factors(degree: int, n: int, m1, K1, M1, G1, gK, gM,
                                  mu: float, lam: float, dtype=torch.float32,
-                                 device="cpu") -> CudaElasticityOperator:
+                                 device="cpu",
+                                 core: str = "banded") -> CudaElasticityOperator:
     """Pack the operator from its 1D factors (NumPy, float64): the free-DoF
     mask ``m1``, the assembled 1D matrices ``K1``/``M1``/``G1`` and the
-    diagonal factors ``gK`` (h-folded) / ``gM``, all of length n*degree+1."""
+    diagonal factors ``gK`` (h-folded) / ``gM``, all of length n*degree+1.
+    ``core="mxu"`` (float32) rounds K, M and G to bf16 from float64 and
+    takes the row sums from the rounded bands."""
+    if core not in CORES:
+        raise ValueError(f"unknown core {core!r}; the port has {CORES}")
+    if core == "mxu" and dtype != torch.float32:
+        raise ValueError("the mxu core is the float32 bf16 grade")
     m1, K1, M1, G1 = (np.asarray(a, np.float64) for a in (m1, K1, M1, G1))
 
     def fold(W):
@@ -168,6 +234,13 @@ def cuda_elasticity_from_factors(degree: int, n: int, m1, K1, M1, G1, gK, gM,
                                device=device)
 
     Kt, Mt, Gt = fold(K1), fold(M1), fold(G1)
+    sums = row_sums(K1, m1), row_sums(G1, m1), row_sums(G1.T, m1)
+    if core == "mxu":
+        # the entries rounded once, as the TPU core's bf16 matrices are;
+        # a band holds the same entries as its matrix
+        Kt, Mt, Gt = (torch.as_tensor(W).to(torch.bfloat16).double().numpy()
+                      for W in (Kt, Mt, Gt))
+        sums = tuple(to_bands(W, degree).sum(axis=0) for W in (Kt, Gt, Gt.T))
     itemsize = torch.empty((), dtype=dtype).element_size()
     return CudaElasticityOperator(
         degree=degree, n=n, mask1=t(m1), dK1=t(gK), dM1=t(gM),
@@ -175,14 +248,16 @@ def cuda_elasticity_from_factors(degree: int, n: int, m1, K1, M1, G1, gK, gM,
         tile=elasticity_tile(degree, itemsize, n * degree),
         Kt=t(Kt), Mt=t(Mt), mu=float(mu), lam=float(lam),
         gband=t(to_bands(Gt, degree)), hband=t(to_bands(Gt.T, degree)),
-        ksum=t(row_sums(K1, m1)), gsum=t(row_sums(G1, m1)),
-        hsum=t(row_sums(G1.T, m1)), Gt=t(Gt))
+        ksum=t(sums[0]), gsum=t(sums[1]), hsum=t(sums[2]), Gt=t(Gt),
+        core=core)
 
 
 def make_cuda_elasticity(space: FESpace, dtype=torch.float32, mu: float = 1.0,
-                         lam: float = 1.0,
-                         device="cpu") -> CudaElasticityOperator:
-    """Host packing (NumPy, f64) of the 1D factors, shipped once to ``device``."""
+                         lam: float = 1.0, device="cpu",
+                         core: str = "banded") -> CudaElasticityOperator:
+    """Host packing (NumPy, f64) of the 1D factors, shipped once to
+    ``device``; ``core="mxu"`` builds the bf16-grade recurrence operator
+    (float32 only)."""
     if space.dim != 3:
         raise ValueError("B.5 is a 3D operator; the plain 'kron' "
                          "elasticity operator serves 2D")
@@ -190,4 +265,4 @@ def make_cuda_elasticity(space: FESpace, dtype=torch.float32, mu: float = 1.0,
     gK, gM = diagonal_1d_factors(space)
     return cuda_elasticity_from_factors(
         space.degree, space.mesh.cells_per_axis, space.free_mask_1d(), K1, M1,
-        assembled_1d_gradient(space), gK, gM, mu, lam, dtype, device)
+        assembled_1d_gradient(space), gK, gM, mu, lam, dtype, device, core)

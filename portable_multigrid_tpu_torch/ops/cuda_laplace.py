@@ -249,7 +249,7 @@ class CudaLaplaceOperator:
     # B.2 runs two Chebyshev steps of this operator per pass (3D Laplace
     # only, as in the JAX package)
     pair_kernel: ClassVar[bool] = True
-    # the kernel takes StateFlags: bf16 recurrence streams
+    # the kernel stores the recurrence streams in bf16 (StateFlags)
     bf16_state: ClassVar[bool] = True
 
     @property
@@ -428,8 +428,7 @@ def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal,
     err = fn(u.data_ptr(), *ptrs, *optrs,
              *(t.data_ptr() for t in op.kernel_state()),
              *op.kernel_scalars(), c0, c1,
-             N, op.degree, MODES.index(mode), *op.tile,
-             *((flags,) if op.bf16_state else ()),
+             N, op.degree, MODES.index(mode), *op.tile, flags,
              _build.stream_handle(u.device))
     if err:
         raise RuntimeError(f"{op.kernel} kernel ({mode}) launch failed: "

@@ -82,7 +82,9 @@ class FusedChebyshev:
     None), and ``state_dtype`` (bfloat16 there; the operator's dtype when
     None) stores the recurrence streams r and d between passes, as in the
     JAX package's ``FusedChebyshev``.  x and every level residual stay in
-    the operator's dtype.
+    the operator's dtype.  ``op_cheb2r`` (B.2's ``cheb2lr`` kernel,
+    ``PMG_CHEB2R=1``) lets :meth:`smooth_and_residual` end the smoothing
+    step with a pair that also gives the V-cycle's residual.
 
     On B.5 this is the counterpart of the JAX package's
     ``FusedVectorChebyshev``: the state is a [3, ...] trimmed field and
@@ -97,13 +99,18 @@ class FusedChebyshev:
     op_cheb2: object = None  # ops.cuda_cheb2.Cheb2Kernel
     op_smooth: object = None  # the recurrence's operator; None: op
     state_dtype: torch.dtype | None = None  # r and d between passes
+    op_cheb2r: object = None  # ops.cuda_cheb2.Cheb2RKernel (cheb2lr)
     trimmed_io: ClassVar[bool] = True
 
     def _scalars(self, dtype):
         dt = np_dtype(dtype)
         return dt(self.theta), dt(self.delta), dt(1), dt(2)
 
-    def _steps(self, r, d, x, x_is_d: bool = False, k0: int = 0, rho=None):
+    def _steps(self, r, d, x, x_is_d: bool = False, k0: int = 0, rho=None,
+               rout: bool = False):
+        """Steps k0 .. degree - 2 of the recurrence from (r, d, x); returns
+        x, or with ``rout`` (x, rhs - A x) from ``op_cheb2r`` running the
+        last pair (callers see to it that the steps pair up)."""
         theta, delta, one, two = self._scalars(x.dtype)
         sd = self.state_dtype
         if sd is not None:
@@ -121,18 +128,21 @@ class FusedChebyshev:
             c0a = rho_new * rho
             c1a = two * rho_new / delta
             first_d = x_is_d and k == 0
-            if self.op_cheb2 is not None and k + 1 < n:
+            last = k + 2 == n
+            pair = self.op_cheb2r if rout and last else self.op_cheb2
+            if pair is not None and k + 1 < n:
                 rho2 = one / (two * sigma1 - rho_new)
                 scal = tuple(map(float, (c0a, c1a, rho2 * rho_new,
                                          two * rho2 / delta)))
-                last = k + 2 == n
                 mode = {(False, False): "cheb2", (False, True): "cheb2l",
                         (True, False): "chebd2", (True, True): "chebd2l"
                         }[(first_d, last)]
-                outs = self.op_cheb2.steps2(d, r, None if first_d else x,
-                                            scal, mode, sdtype=sd)
+                if pair is self.op_cheb2r:
+                    mode = "cheb2lr"
+                outs = pair.steps2(d, r, None if first_d else x, scal, mode,
+                                   sdtype=sd)
                 if last:
-                    return outs[0]
+                    return outs if rout else outs[0]
                 r, d, x = outs
                 rho = rho2
                 k += 2
@@ -184,6 +194,26 @@ class FusedChebyshev:
         r0, d0, x0 = self.op.run("residual3t", u, (rhs,), (theta,),
                                  sdtype=self.state_dtype)
         return self._steps(r0, d0, x0)
+
+    def smooth_and_residual(self, u: torch.Tensor,
+                            rhs: torch.Tensor) -> tuple:
+        """(u', rhs - A u'), u' = :meth:`smooth` (u, rhs): the V-cycle's
+        last pre-smoothing step and the residual it restricts.  With
+        ``op_cheb2r`` and a recurrence of an even number n >= 2 of steps
+        that pairs up (n == 2, or ``op_cheb2`` for the middle pairs), the
+        last pair is one ``cheb2lr`` pass, which gives the residual
+        r2 - A d2 at the pair's grade in place of a ``residual1t`` pass
+        (the JAX package's ``smooth_and_residual``); otherwise
+        :meth:`smooth`, then :meth:`residual`."""
+        n = self.degree - 1
+        if not (self.op_cheb2r is not None and n >= 2 and n % 2 == 0
+                and (n == 2 or self.op_cheb2 is not None)):
+            un = self.smooth(u, rhs)
+            return un, self.residual(un, rhs)
+        theta = float(np_dtype(u.dtype)(self.theta))
+        r0, d0, x0 = self.op.run("residual3t", u, (rhs,), (theta,),
+                                 sdtype=self.state_dtype)
+        return self._steps(r0, d0, x0, rout=True)
 
     def residual(self, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         """rhs - A u on the free DoFs — one B.1 pass (residual1t)."""
@@ -359,6 +389,7 @@ def make_chebyshev(
     cheb2=None,
     fused_smoother_op=None,
     state_dtype=None,
+    cheb2r=None,
 ):
     """Set up the smoother for a level operator (eig-CG on the op's device).
 
@@ -369,9 +400,10 @@ def make_chebyshev(
     Lanczos length (eig iterations = m() is an upper bound; the extremes
     settle after tens of steps).  ``fused`` (or a ``fused_smoother_op``)
     builds a :class:`FusedChebyshev` on trimmed state, with ``cheb2`` its
-    optional pair kernel, ``fused_smoother_op`` the recurrence's operator
-    and ``state_dtype`` the storage of its streams; the eigenvalue
-    estimate runs on the exact ``op``."""
+    optional pair kernel, ``cheb2r`` its optional ``cheb2lr`` kernel,
+    ``fused_smoother_op`` the recurrence's operator and ``state_dtype`` the
+    storage of its streams; the eigenvalue estimate runs on the exact
+    ``op``."""
     # one draw over the whole field, components included, times the grid
     # mask broadcast over them — the JAX package's start vector: NumPy's on
     # the host, or above DEVICE_DRAW_POINTS jax.random's on the device
@@ -392,5 +424,5 @@ def make_chebyshev(
     if fused or fused_smoother_op is not None:
         return FusedChebyshev(degree=deg, op=op, theta=theta, delta=delta,
                               op_cheb2=cheb2, op_smooth=fused_smoother_op,
-                              state_dtype=state_dtype)
+                              state_dtype=state_dtype, op_cheb2r=cheb2r)
     return Chebyshev(degree=deg, op=op, theta=theta, delta=delta)

@@ -9,7 +9,9 @@ include/multigrid/portable_v_cycle_multigrid.h:26-190):
   * coarsest level: one smooth with the Chebyshev-as-solver smoother
     (:148-154);
   * otherwise pre-smooth, residual, restrict, recurse, prolongate_and_add,
-    post-smooth (:156-188).
+    post-smooth (:156-188); a smoother with ``smooth_and_residual`` runs
+    the last pre-smoothing step and the residual as one call, as the JAX
+    package's V-cycle does (its ``fuse_sr``).
 
 On a CUDA device :class:`GraphedVCycle` replays the whole V-cycle from one
 CUDA graph, the port's counterpart of the V-cycle traced into the JAX
@@ -68,9 +70,15 @@ class VCycle:
         # the first pre-smooth acts on the zero initial guess: r = src, so
         # the residual apply is skipped (exact)
         u = lvl.smoother.apply(src)
-        for _ in range(self.pre_smoothing_steps - 1):
+        # the last pre-smooth and the residual in one call where the
+        # smoother fuses them (B.2's cheb2lr), as smooth then residual
+        fuse_sr = (self.pre_smoothing_steps >= 2
+                   and hasattr(lvl.smoother, "smooth_and_residual"))
+        for _ in range(self.pre_smoothing_steps - (2 if fuse_sr else 1)):
             u = self._smooth(level, u, src)
-        if hasattr(lvl.smoother, "residual"):
+        if fuse_sr:
+            u, residual = lvl.smoother.smooth_and_residual(u, src)
+        elif hasattr(lvl.smoother, "residual"):
             residual = lvl.smoother.residual(u, src)
         else:
             residual = src - lvl.op.apply(u)

@@ -10,7 +10,7 @@ values pinned in ``chip_smoke.py``, and the CUDA graph of the V-cycle
 variable-coefficient solve, and the operator variants' products in full
 float32 with a caller's TF32 switched on; and the bf16 smoother grade
 (B.1's mxu core and bf16 state, B.2's production grade, B.4 at bf16
-state) against the twins.  These
+state, B.5's mxu core) and B.2's ``cheb2lr`` against the twins.  These
 skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
@@ -241,6 +241,55 @@ def test_elasticity_matches_twin(cuda, p, dtype):
     torch.cuda.synchronize()
     assert sum(cuda_elasticity.LAUNCHES.values()) == before + 7
     assert sum(cuda_transfer.LAUNCHES.values()) == moved + 3
+
+
+@pytest.mark.parametrize("p", range(1, 8))
+def test_elasticity_mxu_matches_twin(cuda, p):
+    """Every B.5 mode at the mxu grade (float32 state) against its twin at
+    r = 2, each launched under its own counter (``cheb/mxu``)."""
+    rng = np.random.default_rng(p)
+    op = cuda_elasticity.make_cuda_elasticity(
+        FESpace(HyperCubeMesh(3, 2), p), torch.float32, *chip_smoke.MU_LAM,
+        cuda, core="mxu")
+    u, r, x = (_field(op.n * p, rng, torch.float32, cuda, lead=(3,))
+               for _ in range(3))
+    before = cuda_elasticity.LAUNCHES.get("cheb/mxu", 0)
+    for mode in cuda_laplace.MODES:
+        ins = tuple({"r": r, "x": x}[k] for k in _INS.get(mode, ("r", "x")))
+        scal = _SCAL.get(mode, (0.59, 1.26))
+        _close_bf16(op.run(mode, u, ins, scal), op.twin(mode, u, ins, scal))
+    torch.cuda.synchronize()
+    assert cuda_elasticity.LAUNCHES["cheb/mxu"] == before + 1
+
+
+@pytest.mark.parametrize("p", range(1, 8))
+def test_cheb2lr_matches_twin(cuda, p):
+    """B.2's cheb2lr at the exact grade (float32 and float64) and at the
+    production grade with bf16 state, against its twin at r = 2, where its
+    tile fits; where it does not, make_cheb2(op, rout=True) refuses."""
+    rng = np.random.default_rng(p)
+    sp = FESpace(HyperCubeMesh(3, 2), p)
+    scal = (0.59, 1.26, 0.71, 1.52)
+    for dtype, core, sd in ((torch.float32, "banded", None),
+                            (torch.float64, "banded", None),
+                            (torch.float32, "mxu", BF16)):
+        op = cuda_laplace.make_cuda_laplace(sp, dtype, cuda, core=core)
+        if not cuda_cheb2.cheb2_fits(op, rout=True):
+            assert p > (5 if dtype == torch.float32 else 3)
+            with pytest.raises(ValueError):
+                cuda_cheb2.make_cheb2(op, rout=True)
+            continue
+        kern = cuda_cheb2.make_cheb2(op, rout=True)
+        d, r, x = (_field(4 * p, rng, dtype, cuda) for _ in range(3))
+        if sd is not None:
+            d, r = d.to(sd), r.to(sd)
+        got = kern.steps2(d, r, x, scal, "cheb2lr", sdtype=sd)
+        want = cuda_cheb2.cheb2_twin(op, d, r, x, scal, "cheb2lr", sd)
+        if sd is None:
+            _close(got, want, dtype)
+        else:
+            _close_bf16(got, want)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("mode", cuda_transfer.MODES)
