@@ -163,13 +163,31 @@ or from the CUDA graph to the eager V-cycle):
      float32, "sumfac") (L2 within 1e-5 of the same); ElasticityMultigrid(3,
      3, 5, float64) on ``sumfac`` and ``dense`` to rtol 1e-12 (the
      ``kron`` solve's CG count, L2 within 1e-9); each solved through the
-     graphed V-cycle, with its eager and graphed V-cycle ms in turns.
+     graphed V-cycle, with its eager and graphed V-cycle ms in turns;
+ 16. the slab-sharded solve as S shards on one card — B.1's slab modes
+     (``apply`` on x-full input, ``residual1f``, ``residual3f``,
+     ``chebf``; exact and ``mxu`` core) within BOUND / BF16_BOUND of their
+     twins and B.2's ``xext`` pair at both grades (the production grade
+     point by point, :func:`flip_stats`) at p = 1..7, r = 3, on shards 0,
+     1 and 3 of 4, and on the Q4 r=6 slab (65 x 256 x 256 points in); each
+     xext output against the single-device pair's at the same planes (the
+     count equal bit for bit is logged); each mode timed on that slab
+     beside its bound; ``ShardedGeometricPoisson(3, 4, 6, devices=[cuda:0]
+     * 4, float32, "auto")`` to rtol 1e-5 against the single-device model
+     at float32 state (the mxu recurrence and the production pairs): the
+     same CG count, x within SHARD_X_BOUND of max |x|, L2 within 1e-5 of
+     0.0249871331, every mode of SHARDED_KEYS launched; both eager
+     V-cycles in turns, busy shares, launches per sharded V-cycle; S = 8
+     at Q4 r=4 (two-cell slabs); the float64 plain path at Q2 r=4 against
+     the single-device solve; with two or more cards, the main path
+     across them.
 
 Every phase's seconds, and the total, are printed at the end.
 
 The line before the last is a JSON object with one entry per kernel and
 grade that its path launched (``cheb2lr`` from the ``PMG_CHEB2R=1`` solve
-of phase 5); the last line is the result object.
+of phase 5; ``laplace/slab``, ``laplace/slab/mxu`` and ``cheb2/xext/mxu``
+from phase 16's sharded solve); the last line is the result object.
 """
 
 from __future__ import annotations
@@ -177,6 +195,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -209,6 +228,11 @@ from portable_multigrid_tpu_torch.ops import (
     cuda_transfer,
 )
 from portable_multigrid_tpu_torch.ops.structured import exact_matmuls
+from portable_multigrid_tpu_torch.parallel.poisson import (
+    ShardedGeometricPoisson,
+    _build_stacked_cheb2,
+    _build_stacked_slab,
+)
 from portable_multigrid_tpu_torch.solvers.cg import cg
 from portable_multigrid_tpu_torch.solvers.refinement import iterative_refinement
 from portable_multigrid_tpu_torch.solvers.chebyshev import FusedChebyshev
@@ -297,6 +321,7 @@ BF16_FLOPS = 989e12
 # (u, r, x in; r, d, x out), B.2 (d, r, x in; r2, d2, x2 out) and B.3 (a
 # coarse field is 1/8 of a fine one)
 MODE_FIELDS = {"apply": 2, "residual1t": 3, "residual3t": 5, "cheb": 6,
+               "residual1f": 3, "residual3f": 5, "chebf": 6,
                "chebl": 4, "chebd": 5, "chebdl": 3, "cheb2": 6, "cheb2l": 4,
                "chebd2": 5, "chebd2l": 3, "cheb2f0": 4, "cheb2f0l": 2,
                "cheb2lr": 5, "restrict": 1.125, "prolongate": 1.125,
@@ -908,10 +933,12 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
 
 def time_turns(vcycles: dict, rhs, reps: int = 10, warmup: int = 3) -> dict:
     """The median ms of ``reps`` applies of each V-cycle, taken in turns in
-    the dict's order and back: name -> [first, second]."""
+    the dict's order and back: name -> [first, second]; ``rhs`` one input
+    for all, or a dict of them by name."""
     runs = {name: [] for name in vcycles}
     for name in list(vcycles) + list(vcycles)[::-1]:
-        runs[name].append(cuda_ms(lambda v=vcycles[name]: v.apply(rhs), reps,
+        src = rhs[name] if isinstance(rhs, dict) else rhs
+        runs[name].append(cuda_ms(lambda v=vcycles[name]: v.apply(src), reps,
                                   warmup))
     return runs
 
@@ -1202,9 +1229,15 @@ def bound(path, name, mode, p, r) -> tuple[float, str]:
     else:
         base = mode.partition("/")[0]
         fmas = PRODUCTS.get(base, PRODUCTS[name]) * (2 * p + 1) * N ** dim
+    return roofline(nbytes, fmas, "mxu" in mode.partition("/")[2])
+
+
+def roofline(nbytes: float, fmas: float, mxu: bool) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the larger of the bytes at the HBM
+    rate and the FMAs at the FP32 rate (the bf16 tensor-core rate for an
+    ``mxu`` grade's products)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    rate = BF16_FLOPS if "mxu" in mode.partition("/")[2] else FP32_FLOPS
-    t_ops = 2 * fmas / rate * 1e3
+    t_ops = 2 * fmas / (BF16_FLOPS if mxu else FP32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1814,6 +1847,328 @@ def phase_variants(card: str, device, r: int, r_elasticity: int) -> None:
     log("phase 15: ok")
 
 
+# --------------------------------------------------------------------------
+# phase 16: the slab-sharded solve, S shards on one card
+# --------------------------------------------------------------------------
+
+SHARDS = 4  # the sharded main path's shards on one card
+# the modes of phase 16's kernels at the Q4 r=6 slab (launch keys)
+SLAB_KEYS = ("apply/slab", "residual1f/slab", "residual3f/slab",
+             "chebf/slab")
+PAIR_MODES = ("cheb2", "cheb2l", "chebd2", "chebd2l", "cheb2f0", "cheb2f0l")
+
+
+def global_fields(op, rng, dtype, device, k: int = 3) -> list:
+    """k random trimmed fields of the global grid, zero on constrained
+    entries."""
+    return [masked_trimmed(op, rng, dtype, device) for _ in range(k)]
+
+
+def halo(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Planes lo .. hi - 1 of a trimmed global field, zeros off the grid."""
+    N = t.shape[0]
+    out = t.new_zeros((hi - lo,) + t.shape[1:])
+    a, b = max(lo, 0), min(hi, N)
+    out[a - lo: b - lo] = t[a:b]
+    return out
+
+
+def sharded_cases(p: int, r: int, S: int, s: int, device):
+    """(kernel, :class:`Case`, single) for every mode of B.1's slab
+    instance (exact and mxu core) and of B.2's xext pair (exact and
+    production grade, float32 state) on shard s of S at (p, r), float32:
+    random global fields, the shard's inputs cut from them; ``single`` the
+    single-device kernel's outputs at the shard's planes (the pair: its
+    outputs there must be the same bit for bit), else None."""
+    dtype = torch.float32
+    sp = space(p, r)
+    devices = [device] * S
+    rng = np.random.default_rng(s)
+    cube = cuda_laplace.make_cuda_laplace(sp, dtype, device)
+    u, rhs, x = global_fields(cube, rng, dtype, device)
+    slabs = {core: _build_stacked_slab(sp, devices, dtype, core).local[s]
+             for core in ("banded", "mxu")}
+    L = slabs["banded"].trimmed_shape[0]
+    lo, hi = s * L, (s + 1) * L
+    u_ext = halo(u, lo, hi + 1)
+    ins = {"apply": ((), ()), "residual1f": ((rhs[lo:hi],), ()),
+           "residual3f": ((rhs[lo:hi],), SCAL_RES3),
+           "chebf": ((rhs[lo:hi], x[lo:hi]), SCAL_CHEB)}
+    for core, op in slabs.items():
+        for mode, (i, sc) in ins.items():
+            key = mode + "/slab" + ("/mxu" if core == "mxu" else "")
+            yield "laplace", Case(
+                key, lambda o=op, m=mode, i=i, sc=sc: o.run(m, u_ext, i, sc),
+                lambda o=op, m=mode, i=i, sc=sc: o.twin(m, u_ext, i, sc)), \
+                None
+    if _build_stacked_cheb2(sp, devices, dtype) is None:
+        return  # one-cell slabs: the smoother takes single steps
+    for core in ("banded", "mxu"):
+        op = cube if core == "banded" else cuda_laplace.make_cuda_laplace(
+            sp, dtype, device, core="mxu")
+        kern = cuda_cheb2.make_cheb2_xext(op, lo, L)
+        whole = cuda_cheb2.make_cheb2(op)
+        d, rr = halo(u, lo - 2 * p, hi + 2 * p), halo(rhs, lo - p, hi + p)
+        for mode in PAIR_MODES:
+            f0 = mode.startswith("cheb2f0")
+            has_x = mode in ("cheb2", "cheb2l")
+            a = (d, None if f0 else rr, x[lo:hi] if has_x else None,
+                 SCAL_PAIR_F0 if f0 else SCAL_PAIR)
+            g = (u, None if f0 else rhs, x if has_x else None, a[3])
+            key = cuda_laplace.launch_key(mode + "/xext", op.core, None)
+            yield "cheb2", Case(
+                key, lambda k=kern, a=a, m=mode: k.steps2(*a, m),
+                lambda o=op, a=a, m=mode: cuda_cheb2.cheb2_twin_xext(
+                    o, lo, L, *a, m),
+                mags=(lambda o=op, g=g, m=mode: tuple(
+                    t[lo:hi] for t in pair_magnitudes(o, *g, m)))
+                if core == "mxu" else None), \
+                (lambda w=whole, g=g, m=mode: tuple(
+                    t[lo:hi] for t in w.steps2(*g, m)))
+
+
+def sharded_compare(p: int, r: int, S: int, shards, device, errs) -> dict:
+    """Each mode of :func:`sharded_cases` against its twin on the given
+    shards: the exact modes within BOUND, B.1's mxu core within
+    BF16_BOUND, B.2's production grade point by point (:func:`flip_stats`
+    caps); every pair output also against the single-device pair's.
+    Returns the number of pair outputs equal to the single-device pair's
+    bit for bit, by grade, and of those compared."""
+    same = collections.Counter()
+    for s in shards:
+        for name, c, single in sharded_cases(p, r, S, s, device):
+            got, want = c.run(), c.twin()
+            synchronize(device)
+            worst = 0.0
+            for g, w in zip(got, want):
+                if not torch.isfinite(g).all() or g.shape != w.shape:
+                    raise RuntimeError(f"{name}/{c.mode} p={p} r={r} shard "
+                                       f"{s}/{S}: non-finite or shape "
+                                       f"{tuple(g.shape)}")
+                err, rel = rel_err(g, w)
+                worst = max(worst, rel)
+                key = (name, c.mode, p, r, "float32")
+                errs[key] = max(errs.get(key, 0.0), err)
+            head = f"  {name:8s} {c.mode:22s} p={p} r={r} shard {s}/{S}"
+            if c.mags is not None:
+                cap, share, _ = flip_stats(got, want, c.mags())
+                seen = (f"max err {cap:.3e} S (cap {FLIP_CAP:.2e}), share "
+                        f"over {FLIP_FLOOR:.1e} S {share:.2e}")
+                ok = cap <= FLIP_CAP and share <= FLIP_SHARE
+            else:
+                bound = BF16_BOUND if "mxu" in c.mode else BOUND[torch.float32]
+                seen = f"max rel err {worst:.3e} (bound {bound:.0e})"
+                ok = worst <= bound
+            if single is not None:
+                ref = single()
+                synchronize(device)
+                grade = "mxu" if "mxu" in c.mode else "exact"
+                same[grade, "outputs"] += len(got)
+                same[grade, "bitwise"] += sum(bool(torch.equal(g, w))
+                                              for g, w in zip(got, ref))
+                diff = max(rel_err(g, w)[1] for g, w in zip(got, ref))
+                seen += f"; vs the single-device pair {diff:.3e}"
+                ok = ok and diff <= (BF16_BOUND if grade == "mxu"
+                                     else BOUND[torch.float32])
+            log(f"{head} {seen}")
+            if not ok:
+                raise RuntimeError(f"{name}/{c.mode} p={p} r={r} shard "
+                                   f"{s}/{S}: {seen}")
+    return same
+
+
+def time_sharded_modes(p: int, r: int, S: int, device) -> dict:
+    """Each phase 16 mode on an interior shard of the Q4 r=6 slab, in
+    float32: kernel and twin ms (CUDA events, median of 10), the bound
+    from the bytes of this call's inputs and outputs and the FMAs of its
+    stencil applications on the shard's output points."""
+    times = {}
+    N = 2 ** r * p
+    for name, c, _ in sharded_cases(p, r, S, 1, device):
+        outs = c.run()
+        t_k, t_t = cuda_ms(c.run), cuda_ms(c.twin)
+        L = outs[0].shape[0]
+        # the inputs: x-full u (L + 1 planes) and L-plane epilogue inputs
+        # for a slab; d and r with 2p and p planes of halo (b alone with
+        # 2p for cheb2f0) and L-plane x for a pair
+        base = c.mode.partition("/")[0]
+        if name == "laplace":
+            fields_in = (L + 1) + L * {"apply": 0, "residual1f": 1,
+                                       "residual3f": 1, "chebf": 2}[base]
+            products = PRODUCTS["laplace"]
+        else:
+            fields_in = ((L + 4 * p) if base.startswith("cheb2f0") else
+                         (L + 4 * p) + (L + 2 * p)
+                         + (L if base in ("cheb2", "cheb2l") else 0))
+            products = PRODUCTS["cheb2"]
+        nbytes = 4 * N * N * (fields_in + L * len(outs))
+        b_ms, by = roofline(nbytes, products * (2 * p + 1) * L * N * N,
+                            "mxu" in c.mode)
+        times[(name, c.mode)] = dict(ms=t_k, plain_ms=t_t, library_ms=None,
+                                     bound_ms=b_ms, bound_by=by)
+        log(f"  {name:8s} {c.mode:22s} kernel {t_k:8.3f} ms   twin "
+            f"{t_t:8.3f} ms   bound {b_ms:.4f} ms ({by}, "
+            f"{100 * b_ms / t_k:.1f}% of roofline)   device "
+            f"{device_ms(c.run):.3f} ms back to back")
+    return times
+
+
+def f32_state_vcycle(prob) -> VCycle:
+    """The single-device model's V-cycle at the sharded solve's grade:
+    the mxu recurrence and B.2's production pairs at float32 state (the
+    smoothers' state dtype dropped, nothing else changed)."""
+    def change(sm):
+        if isinstance(sm, FusedChebyshev) and sm.state_dtype is not None:
+            return dataclasses.replace(sm, state_dtype=None)
+        return sm
+
+    levels = tuple(dataclasses.replace(lvl, smoother=change(lvl.smoother))
+                   for lvl in prob.levels)
+    return VCycle(levels=levels, fine_trimmed=prob.fine_trimmed)
+
+
+def sharded_launches() -> dict:
+    """The phase 16 kernels' launches by key since the last reset."""
+    return {name: {k: n for k, n in KERNELS[name]["counts"].items()
+                   if n and ("/slab" in k or "/xext" in k)}
+            for name in ("laplace", "cheb2")}
+
+
+def sharded_solve(card: str, devices, p: int, r: int, what: str,
+                  timing: bool = False):
+    """The kernel path's sharded solve against the single-device one at
+    the same grade, in float32 to rtol 1e-5: converged, the same CG count,
+    x within SHARD_X_BOUND of max |x|; returns (stats, the launches of
+    the solve by kernel and key, times)."""
+    device = devices[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    prob = ShardedGeometricPoisson(3, p, r, devices=devices,
+                                   dtype=torch.float32, variant="auto")
+    synchronize(device)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, st = prob.solve(rtol=1e-5, verbose=True)
+    synchronize(device)
+    t_solve = time.perf_counter() - t0
+    launches = sharded_launches()
+    log(f"  {what}: setup {t_setup:.2f} s, solve {t_solve:.2f} s; launches "
+        f"(construction and solve) {launches}")
+    for name in ("laplace", "cheb2"):
+        if not launches[name]:
+            raise RuntimeError(f"{what} never launched the sharded modes of "
+                               f"{name}")
+    single = GeometricMultigridPoisson(3, p, r, torch.float32, "auto",
+                                       device)
+    v1 = f32_state_vcycle(single)
+    rhs1 = single.rhs()
+    res1 = cg(single.fine_operator.apply, rhs1, v1.apply, rtol=1e-5)
+    x1 = res1.x.cpu().numpy()
+    diff = float(np.abs(x - x1).max() / np.abs(x1).max())
+    log(f"  {what}: {st.iterations} CG iterations (single device, float32 "
+        f"state: {res1.iterations}), L2 {st.solution_l2_norm:.10f}, x "
+        f"within {diff:.3e} of max |x| of the single-device x")
+    if not (st.converged and st.iterations == res1.iterations
+            and diff <= SHARD_X_BOUND):
+        raise RuntimeError(f"{what}: converged={st.converged}, "
+                           f"{st.iterations} CG iterations against "
+                           f"{res1.iterations}, x off by {diff:.3e}")
+    times = {}
+    if timing:
+        rhs = prob.rhs()
+        mg = prob.preconditioner()
+        turns = time_turns({"sharded eager": mg, "single eager": v1,
+                            "single graphed": GraphedVCycle(v1)},
+                           {"sharded eager": rhs, "single eager": rhs1,
+                            "single graphed": rhs1})
+        n_dofs = st.n_dofs
+        for name, ts in turns.items():
+            log(f"  V-cycle {name:15s} (float32 state): {ts[0]:.3f} / "
+                f"{ts[1]:.3f} ms = {n_dofs / (min(ts) * 1e-3):.4e} DoF/s "
+                f"[{card}]")
+        wall = statistics.mean(turns["sharded eager"])
+        device_busy(mg, rhs, wall, "sharded eager")
+        device_busy(v1, rhs1, statistics.mean(turns["single eager"]),
+                    "single eager")
+        reset_counts()
+        mg.apply(rhs)
+        synchronize(device)
+        log(f"  launches per sharded V-cycle: {sharded_launches()}")
+        reset_counts()
+        times = turns
+    return st, launches, times
+
+
+# the keys phase 16's sharded main path must launch: B.1's slab modes
+# (apply for CG, residual3f and residual1f on the exact core, chebf on the
+# mxu core, the single steps of the one-cell slabs of r = 2) and B.2's
+# xext pairs at the production grade
+SHARDED_KEYS = {"laplace": SLAB_KEYS[:3] + ("chebf/slab/mxu",),
+                "cheb2": ("cheb2/xext/mxu", "cheb2l/xext/mxu",
+                          "cheb2f0/xext/mxu")}
+# the sharded solve's x against the single-device one's, over max |x|
+SHARD_X_BOUND = 1e-5
+
+
+def phase_sharded(card: str, device, errs: dict, per_mode: dict) -> dict:
+    """Phase 16: the slab-sharded solve as S shards on one card."""
+    log(f"phase 16: slab-sharded solve, {SHARDS} shards on one card "
+        f"({card})")
+    same = collections.Counter()
+    for p in range(1, 8):
+        same.update(sharded_compare(p, 3, SHARDS, (0, 1, SHARDS - 1),
+                                    device, errs))
+    # the fine slab of the main path: 16 cells, 65 x 256 x 256 points in
+    same.update(sharded_compare(4, 6, SHARDS, (1,), device, errs))
+    for grade in ("exact", "mxu"):
+        log(f"  B.2 xext at the {grade} grade: {same[grade, 'bitwise']} of "
+            f"{same[grade, 'outputs']} outputs equal to the single-device "
+            f"pair's bit for bit")
+    times = time_sharded_modes(4, 6, SHARDS, device)
+    st, launches, _ = sharded_solve(card, [device] * SHARDS, 4, 6,
+                                    f"ShardedGeometricPoisson(3, 4, 6, "
+                                    f"{SHARDS} shards, float32, auto)",
+                                    timing=True)
+    l2_rel = abs(st.solution_l2_norm / GOLDEN_L2_Q4_R6 - 1.0)
+    log(f"  L2 {st.solution_l2_norm:.10f}, rel diff {l2_rel:.2e} from the "
+        f"golden {GOLDEN_L2_Q4_R6}")
+    if l2_rel > F32_L2_BOUND_3D:
+        raise RuntimeError(f"sharded main path L2 off by {l2_rel:.2e}")
+    for name, keys in SHARDED_KEYS.items():
+        missing = [k for k in keys if not launches[name].get(k)]
+        if missing:
+            raise RuntimeError(f"sharded main path: {name} never launched "
+                               f"{missing}")
+        per_mode[name].update(launches[name])
+    # the halo edge: two-cell slabs (and one-cell ones at r = 3)
+    sharded_solve(card, [device] * 8, 4, 4, "ShardedGeometricPoisson(3, 4, "
+                  "4, 8 shards, float32, auto)")
+    # the plain path in float64 against the single-device solve
+    prob = ShardedGeometricPoisson(3, 2, 4, devices=[device] * SHARDS,
+                                   dtype=torch.float64, variant="sumfac")
+    _, st = prob.solve()
+    _, st1 = GeometricMultigridPoisson(3, 2, 4, torch.float64, "auto",
+                                       device).solve()
+    rel = abs(st.solution_l2_norm / st1.solution_l2_norm - 1.0)
+    log(f"  ShardedGeometricPoisson(3, 2, 4, {SHARDS} shards, float64, "
+        f"sumfac): {st.iterations} CG iterations (single device "
+        f"{st1.iterations}), L2 {st.solution_l2_norm!r}, rel diff {rel:.2e}")
+    if not (st.converged and st.iterations == st1.iterations
+            and rel <= 1e-10):
+        raise RuntimeError("sharded float64 plain path does not match the "
+                           "single-device solve")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        k = 2 ** int(math.log2(min(4, count)))
+        sharded_solve(card, [torch.device("cuda", i) for i in range(k)], 4,
+                      6, f"ShardedGeometricPoisson(3, 4, 6) across {k} "
+                      f"cards")
+    else:
+        log(f"  across cards: not run, this machine has {count} card")
+    log("phase 16: ok")
+    return times
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--main-path"]):
         raise SystemExit(f"unknown arguments {argv}; see the module docstring")
@@ -1879,6 +2234,8 @@ def main(argv: list[str]) -> int:
     timed(14, phase_varcoef, card, device, 6)
     torch.cuda.empty_cache()
     timed(15, phase_variants, card, device, 6, 5)
+    torch.cuda.empty_cache()
+    times.update(timed(16, phase_sharded, card, device, errs, per_mode))
     torch.cuda.empty_cache()
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items()))

@@ -15,7 +15,10 @@ identical state and identical Chebyshev bounds:
   * transfer: ``M1``, ``wmask_f`` and ``mask_c1`` of a ``Transfer``;
   * smoother: ``degree``, ``theta`` and ``delta``, and for a fused one its
     recurrence operator, its ``state_dtype`` and whether it has the
-    ``cheb2lr`` kernel (``op_cheb2r``).
+    ``cheb2lr`` kernel (``op_cheb2r``);
+  * the sharded solve's levels (:func:`sharded_levels`): the JAX package's
+    ``ShardedGeometricPoisson.levels_stacked``, every array with a leading
+    shard axis, into the port's per-shard objects on a list of devices.
 """
 
 from __future__ import annotations
@@ -24,7 +27,11 @@ import numpy as np
 import torch
 
 from .ops.cuda_cheb2 import make_cheb2
-from .ops.cuda_laplace import CudaLaplaceOperator, cuda_laplace_from_factors
+from .ops.cuda_laplace import (
+    CudaLaplaceOperator,
+    cuda_laplace_from_factors,
+    cuda_laplace_slab_from_factors,
+)
 from .ops.cuda_elasticity import cuda_elasticity_from_factors
 from .ops.cuda_laplace2d import CudaLaplace2D
 from .ops.cuda_transfer import (
@@ -142,3 +149,140 @@ def smoother(op, *, degree: int, theta, delta, fused: bool = False,
                               op_cheb2r=make_cheb2(pair_op, rout=True)
                               if op_cheb2r else None)
     return Chebyshev(degree=int(degree), op=op, theta=theta, delta=delta)
+
+
+def _shard_operator(op, s: int, dtype, device) -> LaplaceOperator:
+    """Shard s of a stacked plain ``LaplaceOperator`` (per-axis ``n`` and
+    1D factors)."""
+    def t(a):
+        return None if a is None else _t(np.asarray(a)[s], dtype, device)
+
+    def axes(a):
+        return None if a is None else tuple(t(v) for v in a)
+
+    return LaplaceOperator(
+        dim=op.dim, degree=op.degree, n=tuple(op.n), mask1=axes(op.mask1),
+        variant=op.variant, dK1=axes(op.dK1), dM1=axes(op.dM1),
+        Kg=axes(op.Kg), Mg=axes(op.Mg), B=t(op.B), Dco=t(op.Dco),
+        qmetric=t(op.qmetric))
+
+
+def _shard_transfer(tr, s: int, dtype, device) -> Transfer:
+    """Shard s of a stacked ``Transfer``."""
+    def t(a):
+        return _t(np.asarray(a)[s], dtype, device)
+
+    return Transfer(dim=tr.dim, n_coarse=tuple(tr.n_coarse),
+                    stride_c=tr.stride_c, stride_f=tr.stride_f, M1=t(tr.M1),
+                    wmask_f=tuple(t(v) for v in tr.wmask_f),
+                    mask_c1=tuple(t(v) for v in tr.mask_c1))
+
+
+def _kernel_slabs(stacked, devices, dtype, core: str):
+    """The port's B.1 slabs of a JAX ``ShardedPallasLaplace`` level.  The
+    JAX kernel's bands are its TPU blocks' matrices, so the 1D matrices come
+    from the level's geometry (its degree and cells, the port's assembly);
+    the shards' slices of the x mask and diagonal factors are the JAX
+    arrays, and its thin rows must agree with the port's."""
+    from .fem.mesh import HyperCubeMesh
+    from .fem.space import FESpace
+    from .ops.laplace import assembled_1d_matrices, diagonal_1d_factors
+    from .parallel.poisson import _build_stacked_slab, _partial_assembled_1d
+    from .parallel.sharding import ShardedCudaLaplace
+
+    loc = stacked.local
+    n_loc, n = loc.n[0], loc.n[1]
+    p = loc.degree
+    space = FESpace(HyperCubeMesh(3, int(np.log2(n))), p)
+    ref = _build_stacked_slab(space, devices, dtype, core)
+    K1, M1 = assembled_1d_matrices(space)
+    gK, gM = diagonal_1d_factors(space)
+    Kp, Mp = _partial_assembled_1d(space, n_loc)
+    slabs = []
+    for s, dev in enumerate(devices):
+        mx, gKx, gMx = (np.asarray(v[0], np.float64)[s]
+                        for v in (loc.mask1, loc.dK1, loc.dM1))
+        slabs.append(cuda_laplace_slab_from_factors(
+            p, n, n_loc, space.free_mask_1d(), K1, M1, gK, gM, mx, Kp, Mp,
+            gKx, gMx, dtype, dev, core))
+        cols = mx[-(p + 1):]
+        for got, want in ((ref.thin_kx[s], np.asarray(stacked.thin_kx)[s]),
+                          (ref.thin_mx[s], np.asarray(stacked.thin_mx)[s])):
+            if not np.allclose(got.cpu().numpy(), want * cols, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max()):
+                raise ValueError("the JAX level's thin rows are not the "
+                                 "port's slab rows")
+    return ShardedCudaLaplace(local=tuple(slabs), thin_kx=ref.thin_kx,
+                              thin_mx=ref.thin_mx, thin_sx=ref.thin_sx)
+
+
+def sharded_levels(levels, devices, n_replicated: int,
+                   dtype=torch.float64) -> tuple:
+    """The port's sharded levels (``parallel/``) from the JAX package's
+    ``ShardedGeometricPoisson.levels_stacked`` as NumPy arrays with a
+    leading shard axis, on ``devices`` (one per shard), the first
+    ``n_replicated`` levels replicated: plain operators and transfers from
+    their arrays, shard by shard (a replicated level from shard 0's, one
+    per device); a ``ShardedPallasLaplace`` level as B.1's slabs
+    (:func:`_kernel_slabs`), its fused smoother with B.1's ``mxu`` slabs
+    and, where the JAX level has the pair, B.2's ``xext`` kernels; every
+    smoother with the JAX level's degree and bounds."""
+    from .fem.mesh import HyperCubeMesh
+    from .fem.space import FESpace
+    from .parallel.poisson import _build_stacked_cheb2
+    from .parallel.sharding import (
+        GatherTransfer,
+        Replicated,
+        ShardedFusedChebyshev,
+        ShardedLaplaceOperator,
+        ShardedTransfer,
+        per_device,
+    )
+    from .solvers.vcycle import MGLevel
+
+    out = []
+    for i, lvl in enumerate(levels):
+        jop, jsm, jtr = lvl.op, lvl.smoother, lvl.transfer
+        fused = type(jsm).__name__ == "ShardedFusedChebyshev"
+        if i < n_replicated:
+            op = Replicated(per_device(
+                lambda dev: _shard_operator(jop, 0, dtype, dev), devices))
+        elif type(jop).__name__ == "ShardedPallasLaplace":
+            op = _kernel_slabs(jop, devices, dtype, "banded")
+        else:
+            op = ShardedLaplaceOperator(local=tuple(
+                _shard_operator(jop, s, dtype, dev)
+                for s, dev in enumerate(devices)))
+        theta = float(np.asarray(jsm.theta)[0])
+        delta = float(np.asarray(jsm.delta)[0])
+        if fused:
+            loc = jsm.op_smooth.local
+            space = FESpace(HyperCubeMesh(3, int(np.log2(loc.n[1]))),
+                            loc.degree)
+            smoother = ShardedFusedChebyshev(
+                degree=int(jsm.degree), op=op,
+                op_smooth=_kernel_slabs(jsm.op_smooth, devices, dtype,
+                                        "mxu"),
+                theta=theta, delta=delta,
+                op_cheb2=None if jsm.op_cheb2 is None
+                else _build_stacked_cheb2(space, devices, dtype))
+        else:
+            smoother = Chebyshev(degree=int(jsm.degree), op=op, theta=theta,
+                                 delta=delta)
+        if jtr is None:
+            tr = None
+        elif type(jtr).__name__ == "GatherTransfer":
+            tr = GatherTransfer(
+                local=per_device(lambda dev: _shard_transfer(
+                    jtr.local, 0, dtype, dev), devices),
+                slab_stride=int(jtr.slab_stride),
+                n_loc_points=int(jtr.n_loc_points))
+        elif i < n_replicated:
+            tr = Replicated(per_device(
+                lambda dev: _shard_transfer(jtr, 0, dtype, dev), devices))
+        else:
+            tr = ShardedTransfer(local=tuple(
+                _shard_transfer(jtr, s, dtype, dev)
+                for s, dev in enumerate(devices)))
+        out.append(MGLevel(op=op, smoother=smoother, transfer=tr))
+    return tuple(out)

@@ -5,39 +5,47 @@
 namespace {
 
 // The cheb2f0 pre-pass: d0 = b / (theta diag) on the trimmed grid, one
-// block per (x, y) row, the threads along z.  An elementwise HBM pass
-// (8 B a point in f32); it takes the b / (theta diag) of every window point
-// out of the marching kernel, which would repeat it for each of the 3-4
+// block per (x, y) row, the threads along z; the array's first x plane is
+// global plane X0 (a shard's extended b starts 2p planes before its own),
+// and d0 is zero on planes off the grid.  An elementwise HBM pass (8 B a
+// point in f32); it takes the b / (theta diag) of every window point out
+// of the marching kernel, which would repeat it for each of the 3-4
 // windows that hold the point.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rhs_kernel(const T* __restrict__ b, T* __restrict__ d0,
            const T* __restrict__ dk, const T* __restrict__ dm, T theta,
-           int N_) {
-  const int64_t N = N_, row = blockIdx.x, gx = row / N, gy = row % N;
+           int N_, int X0) {
+  const int64_t N = N_, row = blockIdx.x, gx = X0 + row / N, gy = row % N;
+  const bool on = gx >= 0 && gx < N;
   for (int64_t gz = threadIdx.x; gz < N; gz += blockDim.x) {
     const int64_t g = row * N + gz;
-    d0[g] = b[g] / (theta * diag_at(dk, dm, gx, gy, gz));
+    d0[g] = on ? b[g] / (theta * diag_at(dk, dm, gx, gy, gz)) : T(0);
   }
 }
 
 // cheb2f0* is chebd2* on d = b / (theta diag) (the pre-pass, into
-// scratch) and r = b
+// scratch) and r = b.  xext: the shard's march (March in cheb2.cuh) of
+// NX planes from global plane XOFF, with d and x (= d) extended by 2p
+// planes a side and r by p (by 2p for cheb2f0*, where r is b).
 template <typename T>
 int launch(const void* d, const void* r, const T* x, void* out0, void* out1,
            T* out2, const T* kb, const T* mb, const T* ks, const T* dk,
            const T* dm, T* scratch, double c0a, double c1a, double c0b,
-           double c1b, double theta, int N, int p, int mode, int LX, int TY,
-           int NW, int flags, void* stream) {
-  if (mode < kCheb2 || mode > kF0L || (flags && sizeof(T) != 4))
+           double c1b, double theta, int N, int NX, int XOFF, int xext, int p,
+           int mode, int LX, int TY, int NW, int flags, void* stream) {
+  if (mode < kCheb2 || mode > kF0L || (flags && sizeof(T) != 4) ||
+      (!xext && (NX != N || XOFF != 0)))
     return (int)cudaErrorInvalidValue;
-  if (mode == kF0 || mode == kF0L) {
+  const bool f0 = mode == kF0 || mode == kF0L;
+  const March g{N, NX, XOFF, xext ? 2 * p : 0, xext ? (f0 ? 2 : 1) * p : 0};
+  if (f0) {
     // b comes in T, and the pre-pass writes d0 in T: the pair's inputs
     // (d0, b) are never bf16
     if (!scratch || (flags & kInBF16)) return (int)cudaErrorInvalidValue;
-    rhs_kernel<T><<<(unsigned)((int64_t)N * N), kThreads, 0,
-                    (cudaStream_t)stream>>>(static_cast<const T*>(d), scratch,
-                                            dk, dm, (T)theta, N);
+    const int64_t rows = (int64_t)(NX + 2 * g.HD) * N;
+    rhs_kernel<T><<<(unsigned)rows, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const T*>(d), scratch, dk, dm, (T)theta, N, XOFF - g.HD);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     r = d;
@@ -49,7 +57,7 @@ int launch(const void* d, const void* r, const T* x, void* out0, void* out1,
 #define PMG_CASE(PP)                                                         \
   case PP:                                                                   \
     return launch_grade<T, PP, false>(d, r, x, out0, out1, out2, kb, mb, ks, \
-                                      dk, dm, c0a, c1a, c0b, c1b, N, mode,   \
+                                      dk, dm, c0a, c1a, c0b, c1b, g, mode,   \
                                       LX, TY, NW, flags, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
@@ -63,30 +71,22 @@ int launch(const void* d, const void* r, const T* x, void* out0, void* out1,
 
 // (LX, TY, NW): LX output planes per block along x, TY interior rows of the
 // block's y-z column and NW warps (the compiled tile of cheb2_tile);
-// scratch: a trimmed field for the cheb2f0 modes' d0, else unused; flags:
-// the StateFlags of the launch (float only).  d, r, out0 and out1 are
-// float or bf16 as the flags say.
-extern "C" int pmg_cheb2_f32(const void* d, const void* r, const float* x,
-                             void* out0, void* out1, float* out2,
-                             const float* kb, const float* mb, const float* ks,
-                             const float* dk, const float* dm, float* scratch,
-                             double c0a, double c1a, double c0b, double c1b,
-                             double theta, int N, int p, int mode, int LX,
-                             int TY, int NW, int flags, void* stream) {
-  return launch<float>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, scratch,
-                       c0a, c1a, c0b, c1b, theta, N, p, mode, LX, TY, NW,
-                       flags, stream);
-}
+// scratch: a field of d's shape for the cheb2f0 modes' d0, else unused;
+// flags: the StateFlags of the launch (float only).  d, r, out0 and out1
+// are float or bf16 as the flags say.  N: the grid's extent; NX, XOFF,
+// xext: the march of a shard (NX = N, XOFF = 0, xext = 0 on the cube).
+#define PMG_CHEB2_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const void* d, const void* r, const T* x, void* out0,  \
+                      void* out1, T* out2, const T* kb, const T* mb,         \
+                      const T* ks, const T* dk, const T* dm, T* scratch,     \
+                      double c0a, double c1a, double c0b, double c1b,        \
+                      double theta, int N, int NX, int XOFF, int xext,       \
+                      int p, int mode, int LX, int TY, int NW, int flags,    \
+                      void* stream) {                                        \
+    return launch<T>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, scratch, \
+                     c0a, c1a, c0b, c1b, theta, N, NX, XOFF, xext, p, mode,  \
+                     LX, TY, NW, flags, stream);                             \
+  }
 
-extern "C" int pmg_cheb2_f64(const void* d, const void* r, const double* x,
-                             void* out0, void* out1, double* out2,
-                             const double* kb, const double* mb,
-                             const double* ks, const double* dk,
-                             const double* dm, double* scratch, double c0a,
-                             double c1a, double c0b, double c1b, double theta,
-                             int N, int p, int mode, int LX, int TY, int NW,
-                             int flags, void* stream) {
-  return launch<double>(d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, scratch,
-                        c0a, c1a, c0b, c1b, theta, N, p, mode, LX, TY, NW,
-                        flags, stream);
-}
+PMG_CHEB2_ENTRY(pmg_cheb2_f32, float)
+PMG_CHEB2_ENTRY(pmg_cheb2_f64, double)

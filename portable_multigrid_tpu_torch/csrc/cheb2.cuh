@@ -7,7 +7,9 @@
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_cheb2.py
 // Cheb2Kernel.steps2 (modes cheb2, cheb2l, chebd2, chebd2l, cheb2f0,
 // cheb2f0l and, on a rout=True kernel, cheb2lr, at its exact=True grade and
-// at its production grade, with the recurrence state in float or bf16).
+// at its production grade, with the recurrence state in float or bf16;
+// the pair's modes also on a shard of the slab-sharded solve, xext=True:
+// March below).
 // On trimmed state it computes
 //     r1 = r  - A d      d1 = c0a d  + (c1a / diag) r1
 //     r2 = r1 - A d1     d2 = c0b d1 + (c1b / diag) r2
@@ -168,7 +170,8 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
              const T* __restrict__ kb, const T* __restrict__ mb,
              const T* __restrict__ ks, const T* __restrict__ dk,
              const T* __restrict__ dm, T c0a, T c1a, T c0b, T c1b, int N_,
-             int mode, int LX, int flags) {
+             int NX_, int XOFF_, int HD, int HR, int mode, int LX,
+             int flags) {
   constexpr int S = kStages<ROUT>, R = 2 * P + 1;
   constexpr int TY = tile_ty<T, P, ROUT>(), NW = tile_warps<T, P, ROUT>();
   constexpr int G = (S - 1) * P;  // step one's growth of the column
@@ -194,11 +197,15 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
   T* zb3 = d2p + E2 * kEZ;                  // ROUT: [2][2][E2][32]
   T* ring3 = zb3 + 4 * E2 * kEZ;            // ROUT: [R][2][TY][32]
   T* lag2 = ring3 + R * 2 * TY * kEZ;       // ROUT: [P+1][TY][32]  r2
-  const int64_t N = N_;
+  // the grid is N^3; the block marches local x planes, NX of them from
+  // global plane XOFF, and d (r) carries HD (HR) planes of halo a side
+  const int64_t N = N_, NX = NX_, XOFF = XOFF_;
   const int lane = threadIdx.x % kEZ, w = threadIdx.x / kEZ;
   const int64_t z0 = (int64_t)blockIdx.x * TZ, y0 = (int64_t)blockIdx.y * TY;
   const int64_t x0 = (int64_t)blockIdx.z * LX;
-  const int64_t xend = x0 + LX < N ? x0 + LX : N;
+  const int64_t xend = x0 + LX < NX ? x0 + LX : NX;
+  // local plane x lies on the grid
+  auto on_grid = [&](int64_t xl) { return XOFF + xl >= 0 && XOFF + xl < N; };
   const int64_t xs = x0 - G - P, xe = xend + G + P;
   const int64_t gz = z0 - G + lane;  // the thread's z row, all march long
   const bool zok = gz >= 0 && gz < N;
@@ -260,7 +267,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
   const T* rT = static_cast<const T*>(r);
   auto load_plane = [&](int64_t xn, int b) {
     if (xn < xe) {
-      const bool xok = xn >= 0 && xn < N;
+      const bool xok = on_grid(xn);
       if constexpr (BF) {
 #pragma unroll
         for (int k = 0; k < KR; ++k) {
@@ -270,7 +277,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
 #pragma unroll
           for (int kc = 0; kc < KC; ++kc) {
             const int64_t zz = z0 - G - P + lane + kc * kEZ;
-            sw[k][kc] = stage_bits(d, (xn * N + yy) * N + zz,
+            sw[k][kc] = stage_bits(d, ((xn + HD) * N + yy) * N + zz,
                                    yok && zz >= 0 && zz < N, ibf);
           }
         }
@@ -283,29 +290,30 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
             const int64_t zz = z0 - G - P + c;
             const bool ok = yok && zz >= 0 && zz < N;
             cp_async_elem(dst + rw * WZ + c,
-                          ok ? dT + (xn * N + yy) * N + zz : dT, ok);
+                          ok ? dT + ((xn + HD) * N + yy) * N + zz : dT, ok);
           }
         }
       }
     }
     const int64_t x1 = xn - 1 - P, x2 = xn - 2 - 2 * P;
-    if (xn <= xe && x1 >= x0 - G && x1 >= 0 && x1 < N) {
+    if (xn <= xe && x1 >= x0 - G && on_grid(x1)) {
 #pragma unroll
       for (int j = 0; j < R1; ++j) {
         if (ey[j] < 0) continue;
         const int64_t gy = y0 - G + ey[j];
         const bool ok = zok && gy >= 0 && gy < N;
-        const int64_t g = (x1 * N + gy) * N + gz;
+        const int64_t gr = ((x1 + HR) * N + gy) * N + gz;
+        const int64_t gd = ((x1 + HD) * N + gy) * N + gz;
         const int e = (b * EY + ey[j]) * kEZ + lane;
         // the epilogues' r and d as stored, never rounded
         if (ibf) {
           if constexpr (BF) {
-            se[0][j] = stage_bits(r, g, ok, true);
-            se[1][j] = stage_bits(d, g, ok, true);
+            se[0][j] = stage_bits(r, gr, ok, true);
+            se[1][j] = stage_bits(d, gd, ok, true);
           }
         } else {
-          cp_async_elem(rbuf + e, ok ? rT + g : rT, ok);
-          cp_async_elem(dbuf + e, ok ? dT + g : dT, ok);
+          cp_async_elem(rbuf + e, ok ? rT + gr : rT, ok);
+          cp_async_elem(dbuf + e, ok ? dT + gd : dT, ok);
         }
       }
     }
@@ -314,7 +322,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
       for (int j = 0; j < R1; ++j) {
         const int q = w + j * NW;
         if (q < TY && y0 + q < N) {
-          const int64_t g = (x2 * N + y0 + q) * N + gz;
+          const int64_t g = ((x2 + (x_is_x ? 0 : HD)) * N + y0 + q) * N + gz;
           if (xbf) {
             if constexpr (BF) se[2][j] = stage_bits(xsrc, g, true, true);
           } else {
@@ -341,8 +349,8 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
         } else {
           continue;
         }
-        const bool ok = row >= 0 && row < N;
-        cp_async_elem(xr + e, ok ? src + row : src, ok);
+        const bool ok = on_grid(row);
+        cp_async_elem(xr + e, ok ? src + XOFF + row : src, ok);
       }
     }
     cp_async_commit();
@@ -365,7 +373,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
         }
       }
       const int64_t x1 = xn - 1 - P, x2 = xn - 2 - 2 * P;
-      if (ibf && xn <= xe && x1 >= x0 - G && x1 >= 0 && x1 < N) {
+      if (ibf && xn <= xe && x1 >= x0 - G && on_grid(x1)) {
 #pragma unroll
         for (int j = 0; j < R1; ++j) {
           if (ey[j] < 0) continue;
@@ -515,7 +523,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
             if (!out_x) continue;
             const int64_t gy = y0 - G + ey[j];
             T r2 = T(0), d2 = T(0);
-            if (x2 >= 0 && x2 < N && gy >= 0 && gy < N && zok) {
+            if (on_grid(x2) && gy >= 0 && gy < N && zok) {
               const T raw = contract_x<T, P>(xr, ring2 + e2 * kEZ + lane,
                                              2 * E2 * kEZ, E2 * kEZ, base);
               const T* lg = lag + ls * 2 * E2 * kEZ + e2 * kEZ + lane;
@@ -594,7 +602,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
     const int64_t x1 = xin - 1 - P;
     if (x1 < x0 - G) continue;
     // r1, d1 at plane x1 on the grown rows (zero off the grid)
-    const bool xok = x1 < N && x1 >= 0;
+    const bool xok = on_grid(x1);
     Row<T, P> xr;
     T dkx, dmx;
     xr.load_smem(xr1, dkx, dmx);
@@ -648,16 +656,29 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
   }
 }
 
+// Where a launch marches: the grid is N^3; the block grid covers NX local
+// x planes from global plane XOFF, and d (r) arrives with HD (HR) planes
+// of halo a side.  The cube: NX = N, XOFF = HD = HR = 0.  A shard of the
+// slab-sharded solve (the TPU kernel's xext=True, pallas_cheb2.py:142-151):
+// NX = n_loc p, XOFF its first plane, and d and r extended by the
+// neighbours' planes (zeros at the global ends), 2p and p a side; the x
+// rows are the global ones, read at the shard's offset, so every output is
+// the single-device pair's at the same plane.
+struct March {
+  int N, NX, XOFF, HD, HR;
+};
+
 template <typename T, int P, bool BF, bool ROUT>
 int launch_p(const void* d, const void* r, const T* x, void* out0, void* out1,
              T* out2, const T* kb, const T* mb, const T* ks, const T* dk,
              const T* dm, double c0a, double c1a, double c0b, double c1b,
-             int N, int mode, int LX, int TY, int NW, int flags,
+             const March& g, int mode, int LX, int TY, int NW, int flags,
              void* stream) {
   constexpr int kTY = tile_ty<T, P, ROUT>(), kNW = tile_warps<T, P, ROUT>();
   static_assert(kTY > 0, "no pair tile fits shared memory");
   // the host's tile must be the one this instance was compiled for
-  if (TY != kTY || NW != kNW || LX < 1) return (int)cudaErrorInvalidValue;
+  if (TY != kTY || NW != kNW || LX < 1 || g.NX < 1)
+    return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)smem_elems(P, kTY, kStages<ROUT>) * sizeof(T);
   const void* kernel = (const void*)cheb2_kernel<T, P, BF, ROUT>;
@@ -668,12 +689,12 @@ int launch_p(const void* d, const void* r, const T* x, void* out0, void* out1,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int TZ = kEZ - 2 * (kStages<ROUT> - 1) * P;
-  const dim3 grid((unsigned)ceil_div(N, TZ), (unsigned)ceil_div(N, kTY),
-                  (unsigned)ceil_div(N, LX));
+  const dim3 grid((unsigned)ceil_div(g.N, TZ), (unsigned)ceil_div(g.N, kTY),
+                  (unsigned)ceil_div(g.NX, LX));
   cheb2_kernel<T, P, BF, ROUT>
       <<<grid, kPairThreads<T, P, ROUT>, smem, (cudaStream_t)stream>>>(
           d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, (T)c0a, (T)c1a,
-          (T)c0b, (T)c1b, N, mode, LX, flags);
+          (T)c0b, (T)c1b, g.N, g.NX, g.XOFF, g.HD, g.HR, mode, LX, flags);
   return (int)cudaGetLastError();
 }
 
@@ -682,16 +703,16 @@ template <typename T, int P, bool ROUT>
 int launch_grade(const void* d, const void* r, const T* x, void* out0,
                  void* out1, T* out2, const T* kb, const T* mb, const T* ks,
                  const T* dk, const T* dm, double c0a, double c1a,
-                 double c0b, double c1b, int N, int mode, int LX, int TY,
-                 int NW, int flags, void* stream) {
+                 double c0b, double c1b, const March& g, int mode, int LX,
+                 int TY, int NW, int flags, void* stream) {
   if constexpr (sizeof(T) == 4) {
     if (flags & (kInBF16 | kRoundBF16))
       return launch_p<T, P, true, ROUT>(d, r, x, out0, out1, out2, kb, mb,
-                                        ks, dk, dm, c0a, c1a, c0b, c1b, N,
+                                        ks, dk, dm, c0a, c1a, c0b, c1b, g,
                                         mode, LX, TY, NW, flags, stream);
   }
   return launch_p<T, P, false, ROUT>(d, r, x, out0, out1, out2, kb, mb, ks,
-                                     dk, dm, c0a, c1a, c0b, c1b, N, mode, LX,
+                                     dk, dm, c0a, c1a, c0b, c1b, g, mode, LX,
                                      TY, NW, flags, stream);
 }
 

@@ -14,6 +14,17 @@
 // golden L2 norm.  The diagonal is rebuilt from its 1D factors instead of
 // being streamed.
 //
+// The slab of the sharded solve (ops/cuda_laplace.py CudaLaplaceSlab; the
+// TPU kernel's make_pallas_slab, xmask="vector", with its modes chebf,
+// residual3f and residual1f, pallas_laplace.py:232-242): x has factors of
+// its own, a partial assembly over the slab's cells with the shard's slice
+// of the x mask folded in (interior shard boundaries stay unmasked, so the
+// boundary rows carry only the slab's cells), NX = n_loc p output planes,
+// and an x-full input of NX + 1 planes (the shard's state and its right
+// neighbour's first plane).  The output drops the slab's last plane, whose
+// partial row the caller completes.  The modes run the epilogues of apply,
+// residual1t, residual3t and cheb on that geometry (the Operator struct).
+//
 // The JAX package's smoother grade (float only; StateFlags in common.cuh):
 //   * bf16 state: in the cheb family u (= d) and in1 (= r) are stored in
 //     bf16, and r' and d' (r0 and d0 of residual3t) are written in bf16;
@@ -102,8 +113,11 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
                void* __restrict__ out1, T* __restrict__ out2,
                const T* __restrict__ kb, const T* __restrict__ ks,
                const T* __restrict__ mb, const T* __restrict__ dk,
-               const T* __restrict__ dm, T c0, T c1, int N_, int mode,
-               int LX, int flags) {
+               const T* __restrict__ dm, const T* __restrict__ xkb,
+               const T* __restrict__ xks, const T* __restrict__ xmb,
+               const T* __restrict__ xdk, const T* __restrict__ xdm, T c0,
+               T c1, int N_, int NX_, int NXI_, int mode, int LX,
+               int flags) {
   constexpr int R = 2 * P + 1, NW = kWarps<T>, TY = kTY<T>, RW = TY / NW;
   constexpr int WY = TY + 2 * P, WZ = kEZ + 2 * P, XH = xrow_elems(P);
   constexpr int TP = TY * kEZ;  // one plane of the column
@@ -113,11 +127,12 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
   T* ring = zb + 4 * WY * kEZ;              // [R][2][TY][32]  MB, S
   T* ebuf = ring + R * 2 * TP;              // [2][3][TY][32]  u, r, x
   T* xrow = ebuf + 6 * TP;                  // [3][XH]
-  const int64_t N = N_;
+  // y and z extent N; NX output planes along x, from NXI input planes
+  const int64_t N = N_, NX = NX_, NXI = NXI_;
   const int lane = threadIdx.x % kEZ, w = threadIdx.x / kEZ;
   const int64_t z0 = (int64_t)blockIdx.x * kEZ, y0 = (int64_t)blockIdx.y * TY;
   const int64_t x0 = (int64_t)blockIdx.z * LX;
-  const int64_t xend = x0 + LX < N ? x0 + LX : N;
+  const int64_t xend = x0 + LX < NX ? x0 + LX : NX;
   const int64_t xs = x0 - P, xe = xend + P;
   const int64_t gz = z0 + lane;  // the thread's z row, all march long
   const bool zok = gz < N;
@@ -155,7 +170,7 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
   // thread's points, into buffer b; the x row of x_o
   auto load_plane = [&](int64_t xn, int b) {
     if (xn < xe) {
-      const bool xok = xn >= 0 && xn < N;
+      const bool xok = xn >= 0 && xn < NXI;
       if constexpr (BF) {
 #pragma unroll
         for (int k = 0; k < KR; ++k) {
@@ -211,11 +226,11 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
       if (w == NW - 1) {
         T* xr = xrow + (int)((xn - xs) % 3) * XH;
         for (int e = lane; e < 2 * R + 3; e += kEZ) {
-          const T* src = e < R        ? kb + e * N
-                         : e < 2 * R  ? mb + (e - R) * N
-                         : e == 2 * R ? ks
-                         : e == 2 * R + 1 ? dk
-                                          : dm;
+          const T* src = e < R        ? xkb + e * NX
+                         : e < 2 * R  ? xmb + (e - R) * NX
+                         : e == 2 * R ? xks
+                         : e == 2 * R + 1 ? xdk
+                                          : xdm;
           cp_async_elem(xr + e, src + xo, true);
         }
       }
@@ -329,17 +344,31 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
   }
 }
 
+// The operator's arrays and the launch geometry, as the host hands them
+// over: the y-z factors (kb, ks, mb, dk, dm) of extent N and the x factors
+// (xkb, xks, xmb; xdk, xdm) of NX rows, NX output planes from NXI input
+// planes.  On the cube the x factors are the y-z ones and NX = NXI = N;
+// on a slab of the sharded solve they are the slab's own (a partial
+// assembly over its cells, the per-shard slices of the diagonal factors)
+// and NXI = NX + 1 (the input is x-full).
+template <typename T>
+struct Operator {
+  const T *kb, *ks, *mb, *dk, *dm, *xkb, *xks, *xmb, *xdk, *xdm;
+  int N, NX, NXI;
+};
+
 template <typename T, int P, bool BF>
 int launch_p(const void* u, const void* in1, const T* in2, void* out0,
-             void* out1, T* out2, const T* kb, const T* ks, const T* mb,
-             const T* dk, const T* dm, double c0, double c1, int N, int mode,
-             int LX, int TY, int NW, int flags, void* stream) {
+             void* out1, T* out2, const Operator<T>& op, double c0,
+             double c1, int mode, int LX, int TY, int NW, int flags,
+             void* stream) {
   constexpr int kNW = kWarps<T>, kRows = kTY<T>;
   constexpr size_t smem = (size_t)smem_elems(P, kRows) * sizeof(T);
   static_assert(smem <= (size_t)kSmemLimit, "B.1 tile exceeds shared memory");
   // the host's tile must be the one this instance was compiled for
   if (TY != kRows || NW != kNW || LX < 1 || mode < kApply ||
-      mode > kChebDL || (flags && sizeof(T) != 4))
+      mode > kChebDL || (flags && sizeof(T) != 4) || op.NX < 1 ||
+      op.NXI < op.NX)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem((const void*)laplace_kernel<T, P, BF>, smem);
   if (err == cudaSuccess)
@@ -347,41 +376,40 @@ int launch_p(const void* u, const void* in1, const T* in2, void* out0,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)ceil_div(N, kEZ), (unsigned)ceil_div(N, kRows),
-                  (unsigned)ceil_div(N, LX));
+  const dim3 grid((unsigned)ceil_div(op.N, kEZ),
+                  (unsigned)ceil_div(op.N, kRows),
+                  (unsigned)ceil_div(op.NX, LX));
   laplace_kernel<T, P, BF><<<grid, kNW * 32, smem, (cudaStream_t)stream>>>(
-      u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, (T)c0, (T)c1, N,
-      mode, LX, flags);
+      u, in1, in2, out0, out1, out2, op.kb, op.ks, op.mb, op.dk, op.dm,
+      op.xkb, op.xks, op.xmb, op.xdk, op.xdm, (T)c0, (T)c1, op.N, op.NX,
+      op.NXI, mode, LX, flags);
   return (int)cudaGetLastError();
 }
 
 // the bf16 grade's instance where a stream goes through registers
 template <typename T, int P>
 int launch_grade(const void* u, const void* in1, const T* in2, void* out0,
-                 void* out1, T* out2, const T* kb, const T* ks, const T* mb,
-                 const T* dk, const T* dm, double c0, double c1, int N,
-                 int mode, int LX, int TY, int NW, int flags, void* stream) {
+                 void* out1, T* out2, const Operator<T>& op, double c0,
+                 double c1, int mode, int LX, int TY, int NW, int flags,
+                 void* stream) {
   if constexpr (sizeof(T) == 4) {
     if (flags & (kInBF16 | kRoundBF16))
-      return launch_p<T, P, true>(u, in1, in2, out0, out1, out2, kb, ks, mb,
-                                  dk, dm, c0, c1, N, mode, LX, TY, NW, flags,
-                                  stream);
+      return launch_p<T, P, true>(u, in1, in2, out0, out1, out2, op, c0, c1,
+                                  mode, LX, TY, NW, flags, stream);
   }
-  return launch_p<T, P, false>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk,
-                               dm, c0, c1, N, mode, LX, TY, NW, flags, stream);
+  return launch_p<T, P, false>(u, in1, in2, out0, out1, out2, op, c0, c1,
+                               mode, LX, TY, NW, flags, stream);
 }
 
 template <typename T>
 int launch(const void* u, const void* in1, const T* in2, void* out0,
-           void* out1, T* out2, const T* kb, const T* ks, const T* mb,
-           const T* dk, const T* dm, double c0, double c1, int N, int p,
-           int mode, int LX, int TY, int NW, int flags, void* stream) {
+           void* out1, T* out2, const Operator<T>& op, double c0, double c1,
+           int p, int mode, int LX, int TY, int NW, int flags, void* stream) {
   switch (p) {
 #define PMG_CASE(PP)                                                        \
   case PP:                                                                  \
-    return launch_grade<T, PP>(u, in1, in2, out0, out1, out2, kb, ks, mb,  \
-                               dk, dm, c0, c1, N, mode, LX, TY, NW, flags, \
-                               stream);
+    return launch_grade<T, PP>(u, in1, in2, out0, out1, out2, op, c0, c1,   \
+                               mode, LX, TY, NW, flags, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -395,25 +423,22 @@ int launch(const void* u, const void* in1, const T* in2, void* out0,
 // (LX, TY, NW): LX output planes per block along x, TY rows of the block's
 // y-z column and NW warps (the compiled tile of laplace_tile); flags: the
 // StateFlags of the launch (float only).  u, in1, out0 and out1 are float
-// or bf16 as the flags say.
-extern "C" int pmg_laplace_f32(const void* u, const void* in1,
-                               const float* in2, void* out0, void* out1,
-                               float* out2, const float* kb, const float* ks,
-                               const float* mb, const float* dk,
-                               const float* dm, double c0, double c1, int N,
-                               int p, int mode, int LX, int TY, int NW,
-                               int flags, void* stream) {
-  return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                       c1, N, p, mode, LX, TY, NW, flags, stream);
-}
+// or bf16 as the flags say.  kb .. dm: the y-z factors (extent N); xkb ..
+// xdm: the x factors (NX rows); NX output planes from NXI input planes
+// (the Operator struct above).
+#define PMG_LAPLACE_ENTRY(NAME, T)                                           \
+  extern "C" int NAME(const void* u, const void* in1, const T* in2,         \
+                      void* out0, void* out1, T* out2, const T* kb,         \
+                      const T* ks, const T* mb, const T* dk, const T* dm,   \
+                      const T* xkb, const T* xks, const T* xmb,             \
+                      const T* xdk, const T* xdm, double c0, double c1,     \
+                      int N, int NX, int NXI, int p, int mode, int LX,      \
+                      int TY, int NW, int flags, void* stream) {            \
+    const Operator<T> op{kb, ks, mb, dk, dm, xkb, xks, xmb, xdk, xdm,       \
+                         N,  NX, NXI};                                      \
+    return launch<T>(u, in1, in2, out0, out1, out2, op, c0, c1, p, mode,    \
+                     LX, TY, NW, flags, stream);                            \
+  }
 
-extern "C" int pmg_laplace_f64(const void* u, const void* in1,
-                               const double* in2, void* out0, void* out1,
-                               double* out2, const double* kb,
-                               const double* ks, const double* mb,
-                               const double* dk, const double* dm, double c0,
-                               double c1, int N, int p, int mode, int LX,
-                               int TY, int NW, int flags, void* stream) {
-  return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, dk, dm, c0,
-                        c1, N, p, mode, LX, TY, NW, flags, stream);
-}
+PMG_LAPLACE_ENTRY(pmg_laplace_f32, float)
+PMG_LAPLACE_ENTRY(pmg_laplace_f64, double)

@@ -55,6 +55,7 @@ from .cuda_laplace import (
     _suffix,
     apply_trimmed,
     chunk_planes,
+    diag_trimmed,
     launch_key,
     march_warps,
     state_dtype,
@@ -96,9 +97,10 @@ def cheb2_smem_elems(p: int, ty: int, stages: int = 2) -> int:
     return elems
 
 
-def cheb2_tile(p: int, itemsize: int, N: int,
-               rout: bool = False) -> tuple[int, int, int]:
-    """(LX, TY, NW) of the launch for an N^3 grid, as cheb2.cuh's tile_ty /
+def cheb2_tile(p: int, itemsize: int, N: int, rout: bool = False,
+               nx: int | None = None) -> tuple[int, int, int]:
+    """(LX, TY, NW) of the launch for an N^3 grid (``nx`` output planes
+    along x on a shard's march, N by default), as cheb2.cuh's tile_ty /
     tile_warps compile it; ``rout``: the ``cheb2lr`` instance's.
 
     Step one runs on the column grown by G = p (2p with ``rout``).  TY:
@@ -117,7 +119,7 @@ def cheb2_tile(p: int, itemsize: int, N: int,
                          f"{8 * itemsize}-bit floats")
     G = (2 if rout else 1) * p
     columns = -(-N // (EZ - 2 * G)) * -(-N // ty)
-    return (chunk_planes(N, columns, 2 * (G + p)), ty,
+    return (chunk_planes(N if nx is None else nx, columns, 2 * (G + p)), ty,
             (ty + 2 * G + 1) // 2)
 
 
@@ -143,10 +145,11 @@ def cheb2_fits(op: CudaLaplaceOperator, rout: bool = False) -> bool:
     return _tile_ty(op.degree, itemsize, rout) is not None
 
 
-def _checked(op, d, r, x, scal, mode, sdtype):
+def _checked(op, d, r, x, scal, mode, sdtype, xext=None):
     """The state dtype of a pass of ``mode`` on ``op``'s level after
     checking its inputs (r None iff the pass starts from the rhs; x given
-    iff it is read)."""
+    iff it is read); on a shard's march ``xext`` = (x_off, nx), with d
+    and r extended by their halos."""
     from_rhs = mode in ("cheb2f0", "cheb2f0l")
     if (r is None) != from_rhs:
         raise ValueError(f"mode {mode!r}: r must be given iff not from rhs")
@@ -156,10 +159,14 @@ def _checked(op, d, r, x, scal, mode, sdtype):
     if len(scal) != (5 if from_rhs else 4):
         raise ValueError(f"mode {mode!r}: wrong number of scalars")
     sdtype = state_dtype(op, sdtype)
-    for name, t, dt in (("d", d, op.dtype if from_rhs else sdtype),
-                        ("r", r, sdtype), ("x", x, op.dtype)):
+    N, p = op.n * op.degree, op.degree
+    nx = N if xext is None else xext[1]
+    halo = (0, 0) if xext is None else (2 * p, p)
+    for name, t, dt, h in (("d", d, op.dtype if from_rhs else sdtype,
+                            halo[0]), ("r", r, sdtype, halo[1]),
+                           ("x", x, op.dtype, 0)):
         if t is not None:
-            _check(op, t, name, dt)
+            _check(op, t, name, dt, (nx + 2 * h, N, N))
     if not (d.device.type == "cpu" or d.is_cuda):
         raise ValueError(f"unsupported device {d.device}")
     return sdtype
@@ -189,37 +196,52 @@ def _counted(counts: dict, op, mode, sdtype, err) -> None:
 
 @dataclasses.dataclass
 class Cheb2Kernel:
-    """Two-step fused recurrence on the operator ``op``'s level."""
+    """Two-step fused recurrence on the operator ``op``'s level; with
+    ``xext`` = (x_off, nx) on one shard of the slab-sharded solve
+    (:func:`make_cheb2_xext`)."""
 
     op: CudaLaplaceOperator
     tile: tuple  # (LX, TY, NW) of cheb2_tile
+    xext: tuple | None = None
 
     def steps2(self, d, r, x, scal, mode: str = "cheb2", sdtype=None):
         """One pass of ``mode``; returns (r2, d2, x2), or (x2,) for "l"
         modes, with r and d (r2 and d2) stored in ``sdtype`` (None: the
-        operator's dtype)."""
+        operator's dtype).  On a shard (``xext``) d arrives with 2p planes
+        of halo a side and r with p, the neighbours' planes or zeros at
+        the global ends (b of the cheb2f0 modes in d's slot, with 2p), and
+        x and the outputs are the shard's nx planes."""
         if mode not in MODES:
             raise ValueError(f"unknown cheb2 mode {mode!r}"
                              + (": cheb2lr runs on make_cheb2(op, rout=True)"
                                 if mode == ROUT_MODE else ""))
         op = self.op
-        sdtype = _checked(op, d, r, x, scal, mode, sdtype)
+        N = op.n * op.degree
+        x_off, nx = (0, N) if self.xext is None else self.xext
+        sdtype = _checked(op, d, r, x, scal, mode, sdtype, self.xext)
         if d.device.type == "cpu":
+            if self.xext is not None:
+                return cheb2_twin_xext(op, x_off, nx, d, r, x, scal, mode,
+                                       sdtype)
             return cheb2_twin(op, d, r, x, scal, mode, sdtype)
-        outs = [torch.empty(d.shape, dtype=dt, device=d.device)
+        outs = [torch.empty((nx, N, N), dtype=dt, device=d.device)
                 for dt in _out_dtypes(op, mode, sdtype)]
         optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
         sc = [float(s) for s in scal] + [0.0] * (5 - len(scal))
         # cheb2f0*: the kernel's pre-pass writes d0 = b / (theta diag)
         scratch = torch.empty_like(d) if r is None else None
         fn = _build.build().fn("pmg_cheb2", _suffix(op.dtype))
-        err = fn(d.data_ptr(), None if r is None else r.data_ptr(),
-                 None if x is None else x.data_ptr(), *optrs, *_bands(op),
-                 None if scratch is None else scratch.data_ptr(), *sc,
-                 op.n * op.degree, op.degree, MODES.index(mode), *self.tile,
-                 _flags(op, sdtype, r is not None, outs[0].dtype),
-                 _build.stream_handle(d.device))
-        _counted(LAUNCHES, op, mode, sdtype, err)
+        with torch.cuda.device(d.device):
+            err = fn(d.data_ptr(), None if r is None else r.data_ptr(),
+                     None if x is None else x.data_ptr(), *optrs,
+                     *_bands(op),
+                     None if scratch is None else scratch.data_ptr(), *sc,
+                     N, nx, x_off, int(self.xext is not None), op.degree,
+                     MODES.index(mode), *self.tile,
+                     _flags(op, sdtype, r is not None, outs[0].dtype),
+                     _build.stream_handle(d.device))
+        _counted(LAUNCHES, op, mode if self.xext is None else mode + "/xext",
+                 sdtype, err)
         return tuple(outs)
 
 
@@ -289,6 +311,72 @@ def cheb2_twin(op: CudaLaplaceOperator, d, r, x, scal, mode: str,
     else:
         outs = (x2,) if mode.endswith("l") else (r2, d2, x2)
     return tuple(o.to(dt) for o, dt in zip(outs, out_dt))
+
+
+def _x_window(op: CudaLaplaceOperator, start: int, count: int) -> tuple:
+    """The x factors of global trimmed rows start .. start + count - 1:
+    K's and M's bands and K's row sums zero, and the diagonal factors one,
+    on rows off the grid (the state is zero there)."""
+    N = op.n * op.degree
+    lo, hi = max(start, 0), min(start + count, N)
+
+    def take(a, fill):
+        out = torch.full(a.shape[:-1] + (count,), fill, dtype=a.dtype,
+                         device=a.device)
+        out[..., lo - start: hi - start] = a[..., lo:hi]
+        return out
+
+    return (take(op.kband, 0.0), take(op.ksum, 0.0), take(op.mband, 0.0),
+            take(op.dKt, 1.0), take(op.dMt, 1.0))
+
+
+def cheb2_twin_xext(op: CudaLaplaceOperator, x_off: int, nx: int, d, r, x,
+                    scal, mode: str, sdtype=None):
+    """:func:`cheb2_twin` on a shard's march of nx planes from global plane
+    ``x_off``: d (or b) with 2p planes of halo a side and r with p; step
+    one on the shard grown by p, step two on its own planes, with the
+    global x rows at the shard's offset."""
+    T, p = op.dtype, op.degree
+    out_dt = _out_dtypes(op, mode, state_dtype(op, sdtype))
+    d, r, x = (None if t is None else t.to(T) for t in (d, r, x))
+    c0a, c1a, c0b, c1b = scal[:4]
+    kw, sw, mw, dkw, dmw = _x_window(op, x_off - 2 * p, nx + 4 * p)
+    diag = diag_trimmed(op.dKt, op.dMt, dkw, dmw)
+    rh = p  # r's halo
+    if mode in ("cheb2f0", "cheb2f0l"):
+        r, rh = d, 2 * p
+        d = r / (scal[4] * diag)
+    if mode in ("cheb2f0", "cheb2f0l", "chebd2", "chebd2l"):
+        x = d[2 * p: 2 * p + nx]
+    bands, grade = (op.kband, op.ksum, op.mband), op.core == "mxu"
+    grown = slice(p, 3 * p + nx)  # step one: the shard grown by p
+    r1 = r[rh - p: rh + p + nx] - apply_trimmed(*bands, d, grade,
+                                                (kw, sw, mw))[grown]
+    d1 = c0a * d[grown] + (c1a / diag[grown]) * r1
+    own = slice(p, p + nx)
+    r2 = r1[own] - apply_trimmed(*bands, d1, grade,
+                                 (kw[:, grown], sw[grown], mw[:, grown]))[own]
+    d2 = c0b * d1[own] + (c1b / diag[2 * p: 2 * p + nx]) * r2
+    x2 = x + d1[own] + d2
+    outs = (x2,) if mode.endswith("l") else (r2, d2, x2)
+    return tuple(o.to(dt) for o, dt in zip(outs, out_dt))
+
+
+def make_cheb2_xext(op: CudaLaplaceOperator, x_off: int,
+                    nx: int) -> Cheb2Kernel:
+    """The pair kernel on one shard of the slab-sharded solve (the TPU
+    kernel's ``xext=True``, pallas_cheb2.py:142-151): ``op`` the global
+    operator, the shard's march nx planes from global plane ``x_off``.
+    Every output is the single-device pair's at the same plane."""
+    if op.dim != 3:
+        raise ValueError("the pair kernel B.2 is 3D only")
+    N = op.n * op.degree
+    if not (0 <= x_off and nx >= 1 and x_off + nx <= N):
+        raise ValueError(f"a march of {nx} planes from {x_off} leaves the "
+                         f"grid of {N}")
+    itemsize = torch.empty((), dtype=op.dtype).element_size()
+    return Cheb2Kernel(op=op, tile=cheb2_tile(op.degree, itemsize, N, nx=nx),
+                       xext=(x_off, nx))
 
 
 def make_cheb2(op: CudaLaplaceOperator,

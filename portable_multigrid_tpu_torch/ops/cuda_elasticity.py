@@ -160,6 +160,9 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     def kernel_scalars(self) -> tuple:
         return float(self.mu), float(self.lam)
 
+    def kernel_sizes(self) -> tuple:
+        return (self.n * self.degree,)
+
 
 def elasticity_twin(op: CudaElasticityOperator, mode: str, u: torch.Tensor,
                     ins=(), scal=()):

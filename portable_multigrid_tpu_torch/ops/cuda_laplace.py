@@ -154,17 +154,19 @@ def chunk_planes(N: int, columns: int, lead: int, per_sm: int = 1) -> int:
     return min(chunks, key=lambda lx: (cost(lx), -lx))
 
 
-def laplace_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
-    """(LX, TY, NW) of the B.1 launch for an N^3 grid, as laplace.cu
-    compiles it: NW = :func:`march_warps` warps of one block per SM, two
-    rows of the column each (TY = 2 NW), and x chunks of LX planes with 2p
-    lead-in planes."""
+def laplace_tile(p: int, itemsize: int, N: int,
+                 nx: int | None = None) -> tuple[int, int, int]:
+    """(LX, TY, NW) of the B.1 launch for an N^3 grid (``nx`` output
+    planes along x on a slab, N by default), as laplace.cu compiles it:
+    NW = :func:`march_warps` warps of one block per SM, two rows of the
+    column each (TY = 2 NW), and x chunks of LX planes with 2p lead-in
+    planes."""
     nw = march_warps(itemsize)
     ty = 2 * nw
     if march_smem_elems(p, ty) * itemsize > SMEM_LIMIT:
         raise ValueError(f"no laplace tile fits shared memory at p={p}")
     columns = -(-N // EZ) * -(-N // ty)
-    return chunk_planes(N, columns, 2 * p), ty, nw
+    return chunk_planes(N if nx is None else nx, columns, 2 * p), ty, nw
 
 
 def to_bands(W: np.ndarray, p: int) -> np.ndarray:
@@ -199,28 +201,41 @@ def banded(u: torch.Tensor, bands: torch.Tensor, axis: int,
 
 def apply_trimmed(kband: torch.Tensor, ksum: torch.Tensor,
                   mband: torch.Tensor, u: torch.Tensor,
-                  bf16_grade: bool = False) -> torch.Tensor:
+                  bf16_grade: bool = False, xbands=None) -> torch.Tensor:
     """M A M u on trimmed 3D state in the kernels' order, z, then y, then
     x: Kx (My Mz u) + Mx (Ky Mz u + My Kz u), every K contraction in
     difference form.  ``bf16_grade`` rounds each contraction's input to
-    bf16, as the ``"mxu"`` core and B.2's production grade do."""
+    bf16, as the ``"mxu"`` core and B.2's production grade do.
+    ``xbands`` (kband, ksum, mband of X rows) are the x factors where they
+    differ from the y-z ones: the output is the first X planes, and the
+    input may carry more (a slab's x-full input, a shard's window)."""
     rnd = round_bf16 if bf16_grade else (lambda t: t)
     u = rnd(u)
     b = rnd(banded(u, mband, 2))
     a = rnd(banded(u, kband, 2, ksum))
     mb = rnd(banded(b, mband, 1))
     s = rnd(banded(b, kband, 1, ksum) + banded(a, mband, 1))
-    return banded(mb, kband, 0, ksum) + banded(s, mband, 0)
+    if xbands is None:
+        return banded(mb, kband, 0, ksum) + banded(s, mband, 0)
+    kx, sx, mx = xbands
+    rows, extra = kx.shape[1], u.shape[0] - kx.shape[1]
+    kx, sx, mx = (torch.nn.functional.pad(t, (0, extra))
+                  for t in (kx, sx, mx))
+    return (banded(mb, kx, 0, sx) + banded(s, mx, 0))[:rows]
 
 
-def diag_trimmed(dKt: torch.Tensor, dMt: torch.Tensor) -> torch.Tensor:
+def diag_trimmed(dKt: torch.Tensor, dMt: torch.Tensor, dKx=None,
+                 dMx=None) -> torch.Tensor:
     """Separable diagonal on the trimmed grid (raw values on constrained
-    entries, as the kernels rebuild it)."""
+    entries, as the kernels rebuild it); ``dKx``/``dMx`` the x factors
+    where they differ from the y-z ones."""
+    dKx = dKt if dKx is None else dKx
+    dMx = dMt if dMx is None else dMx
     x = lambda v: v.reshape(-1, 1, 1)
     y = lambda v: v.reshape(1, -1, 1)
     z = lambda v: v.reshape(1, 1, -1)
-    return (x(dKt) * y(dMt) * z(dMt)
-            + x(dMt) * (y(dKt) * z(dMt) + y(dMt) * z(dKt)))
+    return (x(dKx) * y(dMt) * z(dMt)
+            + x(dMx) * (y(dKt) * z(dMt) + y(dMt) * z(dKt)))
 
 
 @dataclasses.dataclass
@@ -332,7 +347,7 @@ class CudaLaplaceOperator:
                  | (OUT_BF16 if len(out_dt) == 3
                     and out_dt[0] == torch.bfloat16 else 0)
                  | (ROUND_BF16 if self.core == "mxu" else 0))
-        return _launch(self, mode, u, ins, scal, out_dt, flags,
+        return _launch(self, MODES.index(mode), u, ins, scal, out_dt, flags,
                        launch_key(mode, self.core, sdtype))
 
     def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(),
@@ -353,12 +368,161 @@ class CudaLaplaceOperator:
         return laplace_tile(p, itemsize, N)
 
     def kernel_state(self) -> tuple:
-        """Operator arrays handed to the kernel, in its argument order."""
-        return self.kband, self.ksum, self.mband, self.dK1, self.dM1
+        """Operator arrays handed to the kernel, in its argument order: the
+        y-z factors, then the x factors (on the cube the same ones)."""
+        cube = self.kband, self.ksum, self.mband, self.dK1, self.dM1
+        return cube + cube
 
     def kernel_scalars(self) -> tuple:
         """Operator scalars handed to the kernel after its arrays."""
         return ()
+
+    def kernel_sizes(self) -> tuple:
+        """The grid's extents handed to the kernel before the degree: N and
+        (B.1) the output and input planes along x."""
+        N = self.n * self.degree
+        return N, N, N
+
+
+# the modes of a slab of the sharded solve (pallas_laplace.py:232-242), on
+# x-full input, and the kernel mode whose epilogue each runs
+SLAB_MODES = {"apply": "apply", "residual1f": "residual1t",
+              "residual3f": "residual3t", "chebf": "cheb"}
+
+
+@dataclasses.dataclass
+class CudaLaplaceSlab(CudaLaplaceOperator):
+    """B.1 on one shard's slab of the slab-sharded solve: the TPU kernel's
+    ``make_pallas_slab`` (``xmask="vector"``) with its modes ``chebf``,
+    ``residual3f`` and ``residual1f`` (:data:`SLAB_MODES`).
+
+    y and z are the cube's (N = n p trimmed points, the global factors);
+    x has factors of its own: the bands and K row sums of the slab-partial
+    1D assembly over its ``n_loc`` cells with the shard's slice of the
+    global x mask folded in (interior shard boundaries are unmasked, so
+    their rows carry only the slab's cells), and the shard's slices of the
+    global diagonal factors.  Every mode takes the x-FULL input, the
+    shard's L = n_loc p trimmed planes and its right neighbour's first
+    plane, (L + 1, N, N), and writes L planes: the slab's last plane, and
+    the left neighbour's cells on plane 0, are the caller's
+    (``parallel/sharding.py``).  The state is float32 or float64 in every
+    stream, at either core."""
+
+    n_loc: int = 0  # the slab's cells along x
+    xkband: torch.Tensor = None  # [2p+1, L] bands of the masked partial K
+    xksum: torch.Tensor = None  # [L] its row sums
+    xmband: torch.Tensor = None  # [2p+1, L] bands of the masked partial M
+    mask1x: torch.Tensor = None  # [L+1] the shard's slice of the x mask
+    dK1x: torch.Tensor = None  # [L+1] ... of the stiffness diagonal factor
+    dM1x: torch.Tensor = None  # [L+1] ... of the mass diagonal factor
+
+    @property
+    def grid_shape(self) -> tuple[int, ...]:
+        """The full slab, shared planes included."""
+        N = self.n * self.degree
+        return self.n_loc * self.degree + 1, N + 1, N + 1
+
+    @property
+    def trimmed_shape(self) -> tuple[int, ...]:
+        N = self.n * self.degree
+        return self.n_loc * self.degree, N, N
+
+    @property
+    def input_shape(self) -> tuple[int, ...]:
+        """The x-full input: one plane more than the trimmed state."""
+        L, N, _ = self.trimmed_shape
+        return L + 1, N, N
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return separable_mask((self.mask1x, self.mask1, self.mask1))
+
+    @property
+    def inv_diag(self) -> torch.Tensor:
+        return separable_inv_diag((self.mask1x, self.mask1, self.mask1),
+                                  (self.dK1x, self.dK1, self.dK1),
+                                  (self.dM1x, self.dM1, self.dM1))
+
+    def diag_trimmed(self) -> torch.Tensor:
+        L = self.trimmed_shape[0]
+        return diag_trimmed(self.dKt, self.dMt, self.dK1x[:L], self.dM1x[:L])
+
+    def run(self, mode: str, u: torch.Tensor, ins=(), scal=(), sdtype=None):
+        """One pass of a slab mode on the x-full ``u``: ``ins`` (rhs,) for
+        residual1f/residual3f and (r, x) for chebf, trimmed; ``scal``
+        (theta,) for residual3f and (c0, c1) for chebf."""
+        if mode not in SLAB_MODES:
+            raise ValueError(f"unknown slab mode {mode!r}: a slab runs "
+                             f"{tuple(SLAB_MODES)}")
+        if sdtype not in (None, self.dtype):
+            raise ValueError("a slab keeps its state in its own dtype")
+        base = SLAB_MODES[mode]
+        in_dt, out_dt = io_dtypes(base, self.dtype, self.dtype)
+        if len(ins) != len(in_dt) - 1:
+            raise ValueError(f"mode {mode!r} takes {len(in_dt) - 1} inputs")
+        _check(self, u, "u", shape=self.input_shape)
+        for k, t in enumerate(ins):
+            _check(self, t, f"input {k}")
+        if u.device.type == "cpu":
+            return self.twin(mode, u, ins, scal)
+        if not u.is_cuda:
+            raise ValueError(f"unsupported device {u.device}")
+        key = mode + "/slab" + ("/mxu" if self.core == "mxu" else "")
+        return _launch(self, MODES.index(base), u, ins, scal, out_dt,
+                       ROUND_BF16 if self.core == "mxu" else 0, key,
+                       self.trimmed_shape)
+
+    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(), sdtype=None):
+        raw = apply_trimmed(self.kband, self.ksum, self.mband, u,
+                            self.core == "mxu",
+                            (self.xkband, self.xksum, self.xmband))
+        L = self.trimmed_shape[0]
+        return twin_epilogue(self, SLAB_MODES[mode], raw, u[:L], ins, scal)
+
+    def kernel_state(self) -> tuple:
+        return (self.kband, self.ksum, self.mband, self.dK1, self.dM1,
+                self.xkband, self.xksum, self.xmband, self.dK1x, self.dM1x)
+
+    def kernel_sizes(self) -> tuple:
+        L, N, _ = self.trimmed_shape
+        return N, L, L + 1
+
+
+def cuda_laplace_slab_from_factors(degree: int, n: int, n_loc: int, m1, K1,
+                                   M1, gK, gM, mx, Kx, Mx, gKx, gMx,
+                                   dtype=torch.float32, device="cpu",
+                                   core: str = "banded") -> CudaLaplaceSlab:
+    """Pack a slab's operator (NumPy, float64): the global 1D factors of
+    y and z (``m1``, ``K1``, ``M1``, ``gK``, ``gM``, length n p + 1), and
+    the slab's x factors: the shard's slices ``mx``, ``gKx``, ``gMx`` of
+    the global mask and diagonal factors and the slab-partial assembly
+    ``Kx``, ``Mx`` over its n_loc cells, all of length n_loc p + 1.  The
+    x row sums come from the mask, as :func:`row_sums` takes them: the
+    rows of a partial assembly sum to zero as the global ones do.
+    ``core="mxu"`` rounds every band to bf16 and takes K's row sums from
+    the rounded bands."""
+    cube = cuda_laplace_from_factors(degree, n, m1, K1, M1, gK, gM, dtype,
+                                     device, core=core)
+    mx, Kx, Mx = (np.asarray(a, np.float64) for a in (mx, Kx, Mx))
+    L = n_loc * degree
+    xkband = to_bands(mx[:, None] * Kx * mx[None, :], degree)[:, :L]
+    xmband = to_bands(mx[:, None] * Mx * mx[None, :], degree)[:, :L]
+    xksum = row_sums(Kx, mx)
+    if core == "mxu":
+        xkband, xmband = (torch.as_tensor(b).to(torch.bfloat16).double()
+                          .numpy() for b in (xkband, xmband))
+        xksum = xkband.sum(axis=0)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
+                               device=device)
+
+    fields = {f.name: getattr(cube, f.name) for f in dataclasses.fields(cube)}
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    fields["tile"] = laplace_tile(degree, itemsize, n * degree, nx=L)
+    return CudaLaplaceSlab(**fields, n_loc=n_loc, xkband=t(xkband),
+                           xksum=t(xksum), xmband=t(xmband), mask1x=t(mx),
+                           dK1x=t(gKx), dM1x=t(gMx))
 
 
 def laplace_twin(op: CudaLaplaceOperator, mode: str, u: torch.Tensor,
@@ -392,18 +556,19 @@ def twin_epilogue(op, mode: str, raw: torch.Tensor, u: torch.Tensor, ins=(),
 
 
 def _check(op: CudaLaplaceOperator, t: torch.Tensor, what: str,
-           dtype=None) -> None:
-    """t on the operator's device, of the trimmed shape, contiguous and of
-    ``dtype`` (the operator's by default)."""
+           dtype=None, shape=None) -> None:
+    """t on the operator's device, of ``shape`` (the trimmed shape by
+    default), contiguous and of ``dtype`` (the operator's by default)."""
     dtype = op.dtype if dtype is None else dtype
+    shape = op.trimmed_shape if shape is None else tuple(shape)
     if t.device != op.device:
         raise ValueError(f"{what} on {t.device}, operator on {op.device}")
     if t.dtype != dtype:
         raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype} "
                          f"(operator {op.dtype})")
-    if tuple(t.shape) != op.trimmed_shape:
+    if tuple(t.shape) != shape:
         raise ValueError(f"{what} has shape {tuple(t.shape)}, "
-                         f"expected trimmed {op.trimmed_shape}")
+                         f"expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
 
@@ -416,22 +581,25 @@ def _suffix(dtype) -> str:
     raise ValueError(f"kernels take float32 or float64, not {dtype}")
 
 
-def _launch(op: CudaLaplaceOperator, mode: str, u: torch.Tensor, ins, scal,
-            out_dtypes, flags: int, key: str):
+def _launch(op: CudaLaplaceOperator, mode_index: int, u: torch.Tensor, ins,
+            scal, out_dtypes, flags: int, key: str, out_shape=None):
+    """Launch the operator's kernel in the mode of index ``mode_index`` on
+    ``u``'s device; outputs of ``out_shape`` (u's shape by default)."""
     fn = _build.build().fn(op.kernel, _suffix(op.dtype))
-    outs = [torch.empty(u.shape, dtype=dt, device=u.device)
+    shape = u.shape if out_shape is None else out_shape
+    outs = [torch.empty(shape, dtype=dt, device=u.device)
             for dt in out_dtypes]
     ptrs = [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
     optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
     c0, c1 = (list(map(float, scal)) + [0.0, 0.0])[:2]
-    N = op.n * op.degree
-    err = fn(u.data_ptr(), *ptrs, *optrs,
-             *(t.data_ptr() for t in op.kernel_state()),
-             *op.kernel_scalars(), c0, c1,
-             N, op.degree, MODES.index(mode), *op.tile, flags,
-             _build.stream_handle(u.device))
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), *ptrs, *optrs,
+                 *(t.data_ptr() for t in op.kernel_state()),
+                 *op.kernel_scalars(), c0, c1,
+                 *op.kernel_sizes(), op.degree, mode_index, *op.tile, flags,
+                 _build.stream_handle(u.device))
     if err:
-        raise RuntimeError(f"{op.kernel} kernel ({mode}) launch failed: "
+        raise RuntimeError(f"{op.kernel} kernel ({key}) launch failed: "
                            f"CUDA error {err}")
     op.launches[key] = op.launches.get(key, 0) + 1
     return tuple(outs)

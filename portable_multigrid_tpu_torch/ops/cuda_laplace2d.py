@@ -125,6 +125,12 @@ class CudaLaplace2D(CudaLaplaceOperator):
     def pick_tile(p: int, itemsize: int, N: int) -> tuple:
         return laplace2d_tile(p, itemsize, N)
 
+    def kernel_state(self) -> tuple:
+        return self.kband, self.ksum, self.mband, self.dK1, self.dM1
+
+    def kernel_sizes(self) -> tuple:
+        return (self.n * self.degree,)
+
 
 def laplace2d_twin(op: CudaLaplace2D, mode: str, u: torch.Tensor, ins=(),
                    scal=()):

@@ -62,7 +62,11 @@ def reject_variant(variant: str) -> None:
 
 
 def bcast(v: torch.Tensor, ax: int, dim: int) -> torch.Tensor:
-    """Reshape a per-axis 1D factor for broadcasting onto a dim-D grid."""
+    """Reshape a per-axis 1D factor for broadcasting onto a dim-D grid; a
+    factor of more dimensions comes shaped for it (a batch of slabs'
+    factors, ``parallel/sharding.py``) and is returned as it is."""
+    if v.ndim > 1:
+        return v
     shp = [1] * dim
     shp[ax] = v.shape[0]
     return v.reshape(shp)

@@ -8,10 +8,16 @@ iteration counts and solution L2 norms in the format of the JAX driver
 (programs/geometric_multigrid.py) and the reference (reference:
 source/geometric_multigrid/program.cc:189-199,354-355,395).
 
+With ``--sharded`` the solve is the slab-sharded one
+(``parallel/poisson.py`` ``ShardedGeometricPoisson``, its default variant
+``sumfac``, as the JAX driver's): one shard per CUDA card, or one shard on
+the CPU with ``--device cpu``.
+
 Usage:
   python -m portable_multigrid_tpu_torch.programs.geometric_multigrid
          [--dim 3] [--max-degree 7] [--cycles N]
          [--variant auto|kron|sumfac|dense] [--f32] [--rtol R] [--device cuda]
+         [--sharded]
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ def main(argv=None) -> list:
     ap.add_argument("--rtol", type=float, default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the solve over every card (one shard on "
+                         "the CPU with --device cpu)")
     args = ap.parse_args(argv)
 
     import torch
@@ -43,9 +52,15 @@ def main(argv=None) -> list:
     from portable_multigrid_tpu_torch.models.poisson import (
         GeometricMultigridPoisson,
     )
+    from portable_multigrid_tpu_torch.parallel.poisson import (
+        ShardedGeometricPoisson,
+    )
     from portable_multigrid_tpu_torch.programs import require_device
 
     device = require_device(args.device)
+    # every card, or the one device asked for
+    devices = (None if torch.device(device).type == "cuda"
+               else [torch.device(device)])
     dtype = torch.float32 if args.f32 else torch.float64
     rtol = args.rtol if args.rtol is not None else (1e-5 if args.f32 else 1e-12)
     cycles = args.cycles if args.cycles is not None else 9 - args.dim
@@ -58,10 +73,14 @@ def main(argv=None) -> list:
             # a 2D mesh starts one refinement finer, as in the JAX driver
             refinements = (3 - args.dim if args.dim < 3 else 0) + cycle + 1
             t0 = time.time()
-            prob = GeometricMultigridPoisson(
-                args.dim, degree, refinements, dtype=dtype,
-                variant=args.variant, device=device,
-            )
+            if args.sharded:
+                prob = ShardedGeometricPoisson(args.dim, degree, refinements,
+                                               devices=devices, dtype=dtype)
+            else:
+                prob = GeometricMultigridPoisson(
+                    args.dim, degree, refinements, dtype=dtype,
+                    variant=args.variant, device=device,
+                )
             stats.append(prob.solve(rtol=rtol, verbose=True)[1])
             print(f"  (wall: {time.time() - t0:.2f}s)")
             print()

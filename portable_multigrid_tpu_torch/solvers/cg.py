@@ -35,33 +35,41 @@ def cg(
     *,
     rtol: float = 1e-12,
     max_iter: int | None = None,
+    dot: Callable | None = None,
 ) -> CGResult:
     """Solve A x = b with preconditioned CG from x = 0.
 
     Stops when ||r||_2 <= rtol * ||b||_2, checked after each update, or
-    after ``max_iter`` (default ``b.numel()``) iterations."""
+    after ``max_iter`` (default ``b.numel()``) iterations.
+
+    ``dot`` overrides the inner product, the norm included: the sharded
+    solver passes its duplicate-plane-weighted dot summed over the shards
+    (``parallel/sharding.py``), the counterpart of the MPI allreduce in
+    deal.II's vector dots, as the JAX package's ``cg`` takes it."""
     if M is None:
         M = lambda v: v
     if max_iter is None:
         max_iter = b.numel()
-    norm = lambda v: torch.sqrt(_dot(v, v))
+    if dot is None:
+        dot = _dot
+    norm = lambda v: torch.sqrt(dot(v, v))
     x = torch.zeros_like(b)
     r = b
     threshold = float(rtol * norm(b))
     res = float(norm(r))
     z = M(r)
-    rz = _dot(r, z)
+    rz = dot(r, z)
     # a copy: a graphed preconditioner's next call may reuse z's storage
     p = z.clone()
     it = 0
     while res > threshold and it < max_iter:
         Ap = A(p)
-        alpha = rz / _dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         res_t = norm(r)
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
