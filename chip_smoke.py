@@ -180,14 +180,33 @@ or from the CUDA graph to the eager V-cycle):
      V-cycles in turns, busy shares, launches per sharded V-cycle; S = 8
      at Q4 r=4 (two-cell slabs); the float64 plain path at Q2 r=4 against
      the single-device solve; with two or more cards, the main path
-     across them.
+     across them;
+ 17. the 2D-pencil sharded solve as sx x sy pencils on one card — B.1's
+     pencil ``apply`` within BOUND of its twin and B.2's pencil pair
+     (``cheb2``, ``cheb2l``, ``cheb2f0``, ``cheb2f0l``; the exact grade
+     within BOUND, the production grade point by point) at p = 1..7,
+     r = 3 (odd p on the upper corner pencil of (2, 2), even p on an edge
+     pencil of (4, 2)), and at
+     Q4 r=6 on a corner (2, 2), an edge (4, 2) and an interior (4, 4)
+     pencil; every pair output equal to the single-device pair's at the
+     same points bit for bit (the count is logged and must be all); each
+     mode timed on the (2, 2) pencil of Q4 r=6 beside its bound;
+     ``Sharded2DGeometricPoisson(3, 4, 6, (2, 2), devices=[cuda:0] * 4,
+     float32, "auto")`` to rtol 1e-5 against the single-device model at
+     float32 state: the same CG count, x within SHARD_X_BOUND of max |x|,
+     L2 within 1e-5 of 0.0249871331, every mode of PENCIL_KEYS launched;
+     its eager V-cycle in turns with the single device's and phase 16's
+     slab-sharded one, busy shares, launches per V-cycle; (4, 2) at Q4
+     r=4; the float64 ``kron`` path at Q2 r=4 on (2, 2) against the
+     single-device solve (L2 within 1e-12).
 
 Every phase's seconds, and the total, are printed at the end.
 
 The line before the last is a JSON object with one entry per kernel and
 grade that its path launched (``cheb2lr`` from the ``PMG_CHEB2R=1`` solve
 of phase 5; ``laplace/slab``, ``laplace/slab/mxu`` and ``cheb2/xext/mxu``
-from phase 16's sharded solve); the last line is the result object.
+from phase 16's sharded solve; ``laplace/pencil`` and ``cheb2/pencil/mxu``
+from phase 17's pencil solve); the last line is the result object.
 """
 
 from __future__ import annotations
@@ -228,6 +247,11 @@ from portable_multigrid_tpu_torch.ops import (
     cuda_transfer,
 )
 from portable_multigrid_tpu_torch.ops.structured import exact_matmuls
+from portable_multigrid_tpu_torch.parallel.mesh2d import (
+    Sharded2DGeometricPoisson,
+    _build_pencil_cheb2,
+    _build_pencil_kernel,
+)
 from portable_multigrid_tpu_torch.parallel.poisson import (
     ShardedGeometricPoisson,
     _build_stacked_cheb2,
@@ -1927,16 +1951,18 @@ def sharded_cases(p: int, r: int, S: int, s: int, device):
                     t[lo:hi] for t in w.steps2(*g, m)))
 
 
-def sharded_compare(p: int, r: int, S: int, shards, device, errs) -> dict:
-    """Each mode of :func:`sharded_cases` against its twin on the given
-    shards: the exact modes within BOUND, B.1's mxu core within
-    BF16_BOUND, B.2's production grade point by point (:func:`flip_stats`
-    caps); every pair output also against the single-device pair's.
-    Returns the number of pair outputs equal to the single-device pair's
-    bit for bit, by grade, and of those compared."""
+def sharded_compare(p: int, r: int, S, shards, device, errs,
+                    cases=None) -> dict:
+    """Each mode of :func:`sharded_cases` (or of ``cases``, called as it
+    is, with S the mesh) against its twin on the given shards: the exact
+    modes within BOUND, B.1's mxu core within BF16_BOUND, B.2's
+    production grade point by point (:func:`flip_stats` caps); every pair
+    output also against the single-device pair's.  Returns the number of
+    pair outputs equal to the single-device pair's bit for bit, by grade,
+    and of those compared."""
     same = collections.Counter()
     for s in shards:
-        for name, c, single in sharded_cases(p, r, S, s, device):
+        for name, c, single in (cases or sharded_cases)(p, r, S, s, device):
             got, want = c.run(), c.twin()
             synchronize(device)
             worst = 0.0
@@ -1977,32 +2003,40 @@ def sharded_compare(p: int, r: int, S: int, shards, device, errs) -> dict:
     return same
 
 
-def time_sharded_modes(p: int, r: int, S: int, device) -> dict:
-    """Each phase 16 mode on an interior shard of the Q4 r=6 slab, in
-    float32: kernel and twin ms (CUDA events, median of 10), the bound
-    from the bytes of this call's inputs and outputs and the FMAs of its
-    stencil applications on the shard's output points."""
+def time_sharded_modes(p: int, r: int, S, device, s: int = 1,
+                       pencil: bool = False) -> dict:
+    """Each phase 16 mode on shard s of S at (p, r) (``pencil``: each
+    phase 17 mode on pencil s of the mesh S), in float32: kernel and twin
+    ms (CUDA events, median of 10), the bound from the bytes of this
+    call's inputs and outputs and the FMAs of its stencil applications on
+    the shard's output points."""
     times = {}
-    N = 2 ** r * p
-    for name, c, _ in sharded_cases(p, r, S, 1, device):
+    hy = int(pencil)  # a pencil's inputs extend y as a slab's extend x
+    for name, c, _ in (pencil_cases if pencil else sharded_cases)(
+            p, r, S, s, device):
         outs = c.run()
         t_k, t_t = cuda_ms(c.run), cuda_ms(c.twin)
-        L = outs[0].shape[0]
-        # the inputs: x-full u (L + 1 planes) and L-plane epilogue inputs
-        # for a slab; d and r with 2p and p planes of halo (b alone with
-        # 2p for cheb2f0) and L-plane x for a pair
+        Lx, Ly, N = outs[0].shape
+
+        def points(h):  # a march's points with h planes (and rows) a side
+            return (Lx + 2 * h) * (Ly + 2 * h * hy)
+
+        # the inputs: B.1's u with the shared plane (and row), and its
+        # epilogue inputs; d and r with 2p and p planes (and rows) of halo
+        # (b alone with 2p for cheb2f0) and x for a pair
         base = c.mode.partition("/")[0]
         if name == "laplace":
-            fields_in = (L + 1) + L * {"apply": 0, "residual1f": 1,
-                                       "residual3f": 1, "chebf": 2}[base]
+            points_in = (Lx + 1) * (Ly + hy) + Lx * Ly * {
+                "apply": 0, "residual1f": 1, "residual3f": 1,
+                "chebf": 2}[base]
             products = PRODUCTS["laplace"]
         else:
-            fields_in = ((L + 4 * p) if base.startswith("cheb2f0") else
-                         (L + 4 * p) + (L + 2 * p)
-                         + (L if base in ("cheb2", "cheb2l") else 0))
+            points_in = (points(2 * p)
+                         + (0 if base.startswith("cheb2f0") else points(p))
+                         + (Lx * Ly if base in ("cheb2", "cheb2l") else 0))
             products = PRODUCTS["cheb2"]
-        nbytes = 4 * N * N * (fields_in + L * len(outs))
-        b_ms, by = roofline(nbytes, products * (2 * p + 1) * L * N * N,
+        nbytes = 4 * N * (points_in + Lx * Ly * len(outs))
+        b_ms, by = roofline(nbytes, products * (2 * p + 1) * Lx * Ly * N,
                             "mxu" in c.mode)
         times[(name, c.mode)] = dict(ms=t_k, plain_ms=t_t, library_ms=None,
                                      bound_ms=b_ms, bound_by=by)
@@ -2027,31 +2061,41 @@ def f32_state_vcycle(prob) -> VCycle:
     return VCycle(levels=levels, fine_trimmed=prob.fine_trimmed)
 
 
-def sharded_launches() -> dict:
-    """The phase 16 kernels' launches by key since the last reset."""
+def sharded_launches(tags=("/slab", "/xext")) -> dict:
+    """The phase 16 kernels' launches by key since the last reset (phase
+    17's with ``tags`` ("/pencil",))."""
     return {name: {k: n for k, n in KERNELS[name]["counts"].items()
-                   if n and ("/slab" in k or "/xext" in k)}
+                   if n and any(t in k for t in tags)}
             for name in ("laplace", "cheb2")}
 
 
 def sharded_solve(card: str, devices, p: int, r: int, what: str,
-                  timing: bool = False):
-    """The kernel path's sharded solve against the single-device one at
-    the same grade, in float32 to rtol 1e-5: converged, the same CG count,
-    x within SHARD_X_BOUND of max |x|; returns (stats, the launches of
-    the solve by kernel and key, times)."""
+                  timing: bool = False, mesh: tuple | None = None):
+    """The kernel path's sharded solve (``mesh`` (sx, sy): the pencil
+    solve) against the single-device one at the same grade, in float32 to
+    rtol 1e-5: converged, the same CG count, x within SHARD_X_BOUND of
+    max |x|; returns (stats, the launches of the solve by kernel and key,
+    times).  With ``timing`` its eager V-cycle in turns with the single
+    device's, eager and graphed, and for a pencil solve with the slab
+    solve's over as many shards."""
     device = devices[0]
+    tags = ("/slab", "/xext") if mesh is None else ("/pencil",)
+    label = "sharded eager" if mesh is None else "pencil eager"
     reset_counts()
     t0 = time.perf_counter()
-    prob = ShardedGeometricPoisson(3, p, r, devices=devices,
-                                   dtype=torch.float32, variant="auto")
+    if mesh is None:
+        prob = ShardedGeometricPoisson(3, p, r, devices=devices,
+                                       dtype=torch.float32, variant="auto")
+    else:
+        prob = Sharded2DGeometricPoisson(3, p, r, mesh, devices=devices,
+                                         dtype=torch.float32, variant="auto")
     synchronize(device)
     t_setup = time.perf_counter() - t0
     t0 = time.perf_counter()
     x, st = prob.solve(rtol=1e-5, verbose=True)
     synchronize(device)
     t_solve = time.perf_counter() - t0
-    launches = sharded_launches()
+    launches = sharded_launches(tags)
     log(f"  {what}: setup {t_setup:.2f} s, solve {t_solve:.2f} s; launches "
         f"(construction and solve) {launches}")
     for name in ("laplace", "cheb2"):
@@ -2077,23 +2121,28 @@ def sharded_solve(card: str, devices, p: int, r: int, what: str,
     if timing:
         rhs = prob.rhs()
         mg = prob.preconditioner()
-        turns = time_turns({"sharded eager": mg, "single eager": v1,
-                            "single graphed": GraphedVCycle(v1)},
-                           {"sharded eager": rhs, "single eager": rhs1,
-                            "single graphed": rhs1})
+        vcycles = {label: mg, "single eager": v1,
+                   "single graphed": GraphedVCycle(v1)}
+        srcs = {label: rhs, "single eager": rhs1, "single graphed": rhs1}
+        if mesh is not None:
+            slab = ShardedGeometricPoisson(3, p, r, devices=devices,
+                                           dtype=torch.float32,
+                                           variant="auto")
+            vcycles["slab eager"] = slab.preconditioner()
+            srcs["slab eager"] = slab.rhs()
+        turns = time_turns(vcycles, srcs)
         n_dofs = st.n_dofs
         for name, ts in turns.items():
             log(f"  V-cycle {name:15s} (float32 state): {ts[0]:.3f} / "
                 f"{ts[1]:.3f} ms = {n_dofs / (min(ts) * 1e-3):.4e} DoF/s "
                 f"[{card}]")
-        wall = statistics.mean(turns["sharded eager"])
-        device_busy(mg, rhs, wall, "sharded eager")
+        device_busy(mg, rhs, statistics.mean(turns[label]), label)
         device_busy(v1, rhs1, statistics.mean(turns["single eager"]),
                     "single eager")
         reset_counts()
         mg.apply(rhs)
         synchronize(device)
-        log(f"  launches per sharded V-cycle: {sharded_launches()}")
+        log(f"  launches per {label[:-6]} V-cycle: {sharded_launches(tags)}")
         reset_counts()
         times = turns
     return st, launches, times
@@ -2124,7 +2173,7 @@ def phase_sharded(card: str, device, errs: dict, per_mode: dict) -> dict:
         log(f"  B.2 xext at the {grade} grade: {same[grade, 'bitwise']} of "
             f"{same[grade, 'outputs']} outputs equal to the single-device "
             f"pair's bit for bit")
-    times = time_sharded_modes(4, 6, SHARDS, device)
+    times = time_sharded_modes(4, 6, SHARDS, device, 1)
     st, launches, _ = sharded_solve(card, [device] * SHARDS, 4, 6,
                                     f"ShardedGeometricPoisson(3, 4, 6, "
                                     f"{SHARDS} shards, float32, auto)",
@@ -2166,6 +2215,139 @@ def phase_sharded(card: str, device, errs: dict, per_mode: dict) -> dict:
     else:
         log(f"  across cards: not run, this machine has {count} card")
     log("phase 16: ok")
+    return times
+
+
+# --------------------------------------------------------------------------
+# phase 17: the 2D-pencil sharded solve, sx x sy pencils on one card
+# --------------------------------------------------------------------------
+
+PENCIL_MESH = (2, 2)  # the pencil main path's mesh on one card
+# the pair modes of the pencil smoother (an odd step count's tail is a
+# cheb2l pair)
+PENCIL_PAIR_MODES = ("cheb2", "cheb2l", "cheb2f0", "cheb2f0l")
+# the keys phase 17's pencil main path must launch: B.1's pencil apply (CG,
+# residuals, the seeds of smooth) and B.2's pencil pairs at the production
+# grade
+PENCIL_KEYS = {"laplace": ("apply/pencil",),
+               "cheb2": ("cheb2/pencil/mxu", "cheb2l/pencil/mxu",
+                         "cheb2f0/pencil/mxu")}
+
+
+def pencil_window(t: torch.Tensor, x0: int, nx: int, y0: int,
+                  ny: int) -> torch.Tensor:
+    """Planes x0 .. x0 + nx - 1 and rows y0 .. y0 + ny - 1 of a trimmed
+    global field, zeros off the grid."""
+    return halo(halo(t, x0, x0 + nx).transpose(0, 1), y0,
+                y0 + ny).transpose(0, 1).contiguous()
+
+
+def pencil_cases(p: int, r: int, mesh: tuple, s: int, device):
+    """(kernel, :class:`Case`, single) for B.1's pencil ``apply`` and for
+    each mode of B.2's pencil pair (exact and production grade, float32
+    state) on pencil s of ``mesh`` at (p, r), float32: random global
+    fields, the pencil's inputs cut from them; ``single`` the
+    single-device pair's outputs at the pencil's points (the pencil's
+    must be the same bit for bit), else None."""
+    dtype = torch.float32
+    sp = space(p, r)
+    sx, sy = mesh
+    devices = [device] * (sx * sy)
+    rng = np.random.default_rng(s)
+    cube = cuda_laplace.make_cuda_laplace(sp, dtype, device)
+    u, rhs, x = global_fields(cube, rng, dtype, device)
+    op = _build_pencil_kernel(sp, mesh, devices, dtype).local[s]
+    Lx, Ly, _ = op.trimmed_shape
+    lx, ly = s // sy * Lx, s % sy * Ly
+    u_in = pencil_window(u, lx, Lx + 1, ly, Ly + 1)
+    yield "laplace", Case("apply/pencil", lambda: op.run("apply", u_in),
+                          lambda: op.twin("apply", u_in)), None
+    if _build_pencil_cheb2(sp, mesh, devices, dtype) is None:
+        return  # one-cell pencils: the smoother runs plain Chebyshev
+    own = (slice(lx, lx + Lx), slice(ly, ly + Ly))
+    for core in ("banded", "mxu"):
+        gop = cube if core == "banded" else cuda_laplace.make_cuda_laplace(
+            sp, dtype, device, core="mxu")
+        kern = cuda_cheb2.make_cheb2_pencil(gop, lx, Lx, ly, Ly)
+        whole = cuda_cheb2.make_cheb2(gop)
+        d = pencil_window(u, lx - 2 * p, Lx + 4 * p, ly - 2 * p, Ly + 4 * p)
+        rr = pencil_window(rhs, lx - p, Lx + 2 * p, ly - p, Ly + 2 * p)
+        xs = x[own].contiguous()
+        for mode in PENCIL_PAIR_MODES:
+            f0 = mode.startswith("cheb2f0")
+            has_x = mode in ("cheb2", "cheb2l")
+            a = (d, None if f0 else rr, xs if has_x else None,
+                 SCAL_PAIR_F0 if f0 else SCAL_PAIR)
+            g = (u, None if f0 else rhs, x if has_x else None, a[3])
+            key = cuda_laplace.launch_key(mode + "/pencil", gop.core, None)
+            yield "cheb2", Case(
+                key, lambda k=kern, a=a, m=mode: k.steps2(*a, m),
+                lambda o=gop, a=a, m=mode: cuda_cheb2.cheb2_twin_pencil(
+                    o, lx, Lx, ly, Ly, *a, m),
+                mags=(lambda o=gop, g=g, m=mode: tuple(
+                    t[own] for t in pair_magnitudes(o, *g, m)))
+                if core == "mxu" else None), \
+                (lambda w=whole, g=g, m=mode: tuple(
+                    t[own] for t in w.steps2(*g, m)))
+
+
+def phase_pencil(card: str, device, errs: dict, per_mode: dict) -> dict:
+    """Phase 17: the 2D-pencil sharded solve as sx x sy pencils on one
+    card."""
+    sx, sy = PENCIL_MESH
+    log(f"phase 17: 2D-pencil sharded solve, {sx} x {sy} pencils on one "
+        f"card ({card})")
+    same = collections.Counter()
+    # every degree at r = 3, the odd ones on the upper corner pencil of
+    # (2, 2), the even ones on an edge pencil of (4, 2)
+    cases = [(p, 3, (2, 2), 3) if p % 2 else (p, 3, (4, 2), 2)
+             for p in range(1, 8)]
+    # the main path's fine pencils: a corner (2, 2), an edge (4, 2) and an
+    # interior one (4, 4)
+    cases += [(4, 6, (2, 2), 0), (4, 6, (4, 2), 2), (4, 6, (4, 4), 6)]
+    for p, r, mesh, s in cases:
+        same.update(sharded_compare(p, r, mesh, (s,), device, errs,
+                                    cases=pencil_cases))
+    for grade in ("exact", "mxu"):
+        log(f"  B.2 pencil at the {grade} grade: {same[grade, 'bitwise']} of "
+            f"{same[grade, 'outputs']} outputs equal to the single-device "
+            f"pair's bit for bit")
+        if same[grade, "bitwise"] != same[grade, "outputs"]:
+            raise RuntimeError(f"B.2 pencil at the {grade} grade: not every "
+                               f"output is the single-device pair's")
+    times = time_sharded_modes(4, 6, PENCIL_MESH, device, 0, pencil=True)
+    devices = [device] * (sx * sy)
+    st, launches, _ = sharded_solve(card, devices, 4, 6,
+                                    f"Sharded2DGeometricPoisson(3, 4, 6, "
+                                    f"{PENCIL_MESH}, float32, auto)",
+                                    timing=True, mesh=PENCIL_MESH)
+    l2_rel = abs(st.solution_l2_norm / GOLDEN_L2_Q4_R6 - 1.0)
+    log(f"  L2 {st.solution_l2_norm:.10f}, rel diff {l2_rel:.2e} from the "
+        f"golden {GOLDEN_L2_Q4_R6}")
+    if l2_rel > F32_L2_BOUND_3D:
+        raise RuntimeError(f"pencil main path L2 off by {l2_rel:.2e}")
+    for name, keys in PENCIL_KEYS.items():
+        missing = [k for k in keys if not launches[name].get(k)]
+        if missing:
+            raise RuntimeError(f"pencil main path: {name} never launched "
+                               f"{missing}")
+        per_mode[name].update(launches[name])
+    sharded_solve(card, [device] * 8, 4, 4, "Sharded2DGeometricPoisson(3, "
+                  "4, 4, (4, 2), float32, auto)", mesh=(4, 2))
+    # the plain path in float64 against the single-device solve
+    _, st = Sharded2DGeometricPoisson(3, 2, 4, PENCIL_MESH,
+                                      devices=devices).solve()
+    _, st1 = GeometricMultigridPoisson(3, 2, 4, torch.float64, "auto",
+                                       device).solve()
+    rel = abs(st.solution_l2_norm / st1.solution_l2_norm - 1.0)
+    log(f"  Sharded2DGeometricPoisson(3, 2, 4, {PENCIL_MESH}, float64, "
+        f"kron): {st.iterations} CG iterations (single device "
+        f"{st1.iterations}), L2 {st.solution_l2_norm!r}, rel diff {rel:.2e}")
+    if not (st.converged and st.iterations == st1.iterations
+            and rel <= 1e-12):
+        raise RuntimeError("pencil float64 plain path does not match the "
+                           "single-device solve")
+    log("phase 17: ok")
     return times
 
 
@@ -2236,6 +2418,8 @@ def main(argv: list[str]) -> int:
     timed(15, phase_variants, card, device, 6, 5)
     torch.cuda.empty_cache()
     times.update(timed(16, phase_sharded, card, device, errs, per_mode))
+    torch.cuda.empty_cache()
+    times.update(timed(17, phase_pencil, card, device, errs, per_mode))
     torch.cuda.empty_cache()
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items()))

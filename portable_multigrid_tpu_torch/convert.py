@@ -18,7 +18,10 @@ identical state and identical Chebyshev bounds:
     ``cheb2lr`` kernel (``op_cheb2r``);
   * the sharded solve's levels (:func:`sharded_levels`): the JAX package's
     ``ShardedGeometricPoisson.levels_stacked``, every array with a leading
-    shard axis, into the port's per-shard objects on a list of devices.
+    shard axis, into the port's per-shard objects on a list of devices;
+    and the pencil solve's (:func:`pencil_levels`): its
+    ``Sharded2DGeometricPoisson.levels_stacked``, every array with two
+    leading (sx, sy) mesh axes.
 """
 
 from __future__ import annotations
@@ -151,9 +154,9 @@ def smoother(op, *, degree: int, theta, delta, fused: bool = False,
     return Chebyshev(degree=int(degree), op=op, theta=theta, delta=delta)
 
 
-def _shard_operator(op, s: int, dtype, device) -> LaplaceOperator:
+def _shard_operator(op, s, dtype, device) -> LaplaceOperator:
     """Shard s of a stacked plain ``LaplaceOperator`` (per-axis ``n`` and
-    1D factors)."""
+    1D factors); s an index, or (i, j) on a pencil mesh."""
     def t(a):
         return None if a is None else _t(np.asarray(a)[s], dtype, device)
 
@@ -167,8 +170,8 @@ def _shard_operator(op, s: int, dtype, device) -> LaplaceOperator:
         qmetric=t(op.qmetric))
 
 
-def _shard_transfer(tr, s: int, dtype, device) -> Transfer:
-    """Shard s of a stacked ``Transfer``."""
+def _shard_transfer(tr, s, dtype, device) -> Transfer:
+    """Shard s of a stacked ``Transfer`` (s as in :func:`_shard_operator`)."""
     def t(a):
         return _t(np.asarray(a)[s], dtype, device)
 
@@ -284,5 +287,112 @@ def sharded_levels(levels, devices, n_replicated: int,
             tr = ShardedTransfer(local=tuple(
                 _shard_transfer(jtr, s, dtype, dev)
                 for s, dev in enumerate(devices)))
+        out.append(MGLevel(op=op, smoother=smoother, transfer=tr))
+    return tuple(out)
+
+
+def _kernel_pencils(stacked, devices, mesh: tuple, dtype):
+    """The port's B.1 pencils of a JAX ``ShardedPallas2DLaplace`` level: as
+    :func:`_kernel_slabs`, the 1D matrices from the level's geometry and
+    each shard's slices of the x and y masks and diagonal factors the JAX
+    arrays; its thin rows must agree with the port's."""
+    from .fem.mesh import HyperCubeMesh
+    from .fem.space import FESpace
+    from .parallel.mesh2d import _build_pencil_kernel
+
+    loc = stacked.local
+    p, n = loc.degree, loc.n[2]
+    sx, sy = mesh
+    space = FESpace(HyperCubeMesh(3, int(np.log2(n))), p)
+    sliced = [tuple(tuple(np.asarray(v[ax], np.float64)[s // sy, s % sy]
+                          for v in (loc.mask1, loc.dK1, loc.dM1))
+                    for ax in (0, 1)) for s in range(sx * sy)]
+    op = _build_pencil_kernel(space, mesh, devices, dtype, sliced)
+    for s in range(sx * sy):
+        for ax, thin in enumerate((op.thin_x, op.thin_y)):
+            cols = sliced[s][ax][0][-(p + 1):]
+            for got, want in ((thin[s][0], (stacked.thin_kx, stacked.thin_ky)
+                               [ax]), (thin[s][1], (stacked.thin_mx,
+                                                    stacked.thin_my)[ax])):
+                want = np.asarray(want)[s // sy, s % sy]
+                if not np.allclose(got.cpu().numpy(), want * cols,
+                                   rtol=1e-5, atol=1e-5 * np.abs(want).max()):
+                    raise ValueError("the JAX level's thin rows are not the "
+                                     "port's pencil rows")
+    return op
+
+
+def pencil_levels(levels, devices, n_replicated: int, mesh_shape: tuple,
+                  dtype=torch.float64) -> tuple:
+    """The port's pencil levels (``parallel/mesh2d.py``) from the JAX
+    package's ``Sharded2DGeometricPoisson.levels_stacked`` as NumPy arrays
+    with leading (sx, sy) axes, on ``devices`` (one per shard, row-major
+    over the mesh), the first ``n_replicated`` levels replicated: plain
+    operators and transfers from their arrays, pencil by pencil (a
+    replicated level from pencil (0, 0)'s, one per device); a
+    ``ShardedPallas2DLaplace`` level as B.1's pencils
+    (:func:`_kernel_pencils`), its pair smoother with B.2's pencil pairs;
+    every smoother with the JAX level's degree and bounds."""
+    from .fem.mesh import HyperCubeMesh
+    from .fem.space import FESpace
+    from .parallel.mesh2d import (
+        Gather2DTransfer,
+        ShardedFused2DChebyshev,
+        _build_pencil_cheb2,
+    )
+    from .parallel.sharding import (
+        Replicated,
+        ShardedLaplaceOperator,
+        ShardedTransfer,
+        per_device,
+    )
+    from .solvers.vcycle import MGLevel
+
+    sx, sy = mesh_shape
+    devices = list(devices)[: sx * sy]
+    at = [(s // sy, s % sy) for s in range(sx * sy)]
+    out = []
+    for i, lvl in enumerate(levels):
+        jop, jsm, jtr = lvl.op, lvl.smoother, lvl.transfer
+        if i < n_replicated:
+            op = Replicated(per_device(
+                lambda dev: _shard_operator(jop, (0, 0), dtype, dev),
+                devices))
+        elif type(jop).__name__ == "ShardedPallas2DLaplace":
+            op = _kernel_pencils(jop, devices, mesh_shape, dtype)
+        else:
+            op = ShardedLaplaceOperator(local=tuple(
+                _shard_operator(jop, k, dtype, dev)
+                for k, dev in zip(at, devices)), mesh=(sx, sy))
+        theta = float(np.asarray(jsm.theta)[0, 0])
+        delta = float(np.asarray(jsm.delta)[0, 0])
+        if type(jsm).__name__ == "ShardedFused2DChebyshev":
+            loc = op.local[0]
+            space = FESpace(HyperCubeMesh(3, int(np.log2(loc.n))),
+                            loc.degree)
+            smoother = ShardedFused2DChebyshev(
+                degree=int(jsm.degree), op=op,
+                op_cheb2=_build_pencil_cheb2(space, mesh_shape, devices,
+                                             dtype),
+                theta=theta, delta=delta)
+        else:
+            smoother = Chebyshev(degree=int(jsm.degree), op=op, theta=theta,
+                                 delta=delta)
+        if jtr is None:
+            tr = None
+        elif type(jtr).__name__ == "Gather2DTransfer":
+            tr = Gather2DTransfer(
+                local=per_device(lambda dev: _shard_transfer(
+                    jtr.local, (0, 0), dtype, dev), devices),
+                mesh=(sx, sy), stride=(int(jtr.stride_x), int(jtr.stride_y)),
+                n_points=(int(jtr.nx_pts), int(jtr.ny_pts)))
+        elif i < n_replicated:
+            tr = Replicated(per_device(
+                lambda dev: _shard_transfer(jtr, (0, 0), dtype, dev),
+                devices))
+        else:
+            tr = ShardedTransfer(local=tuple(
+                _shard_transfer(jtr, k, dtype, dev)
+                for k, dev in zip(at, devices)), mesh=(sx, sy))
         out.append(MGLevel(op=op, smoother=smoother, transfer=tr))
     return tuple(out)

@@ -8,8 +8,9 @@
 // Cheb2Kernel.steps2 (modes cheb2, cheb2l, chebd2, chebd2l, cheb2f0,
 // cheb2f0l and, on a rout=True kernel, cheb2lr, at its exact=True grade and
 // at its production grade, with the recurrence state in float or bf16;
-// the pair's modes also on a shard of the slab-sharded solve, xext=True:
-// March below).
+// the pair's modes also on a shard of the slab-sharded solve, xext=True,
+// and on a pencil of the 2D-pencil sharded solve, xext=True and
+// yext=True: March below).
 // On trimmed state it computes
 //     r1 = r  - A d      d1 = c0a d  + (c1a / diag) r1
 //     r2 = r1 - A d1     d2 = c0b d1 + (c1b / diag) r2
@@ -170,8 +171,8 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
              const T* __restrict__ kb, const T* __restrict__ mb,
              const T* __restrict__ ks, const T* __restrict__ dk,
              const T* __restrict__ dm, T c0a, T c1a, T c0b, T c1b, int N_,
-             int NX_, int XOFF_, int HD, int HR, int mode, int LX,
-             int flags) {
+             int NX_, int XOFF_, int HD, int HR, int NY_, int YOFF_, int HDY,
+             int HRY, int mode, int LX, int flags) {
   constexpr int S = kStages<ROUT>, R = 2 * P + 1;
   constexpr int TY = tile_ty<T, P, ROUT>(), NW = tile_warps<T, P, ROUT>();
   constexpr int G = (S - 1) * P;  // step one's growth of the column
@@ -198,14 +199,20 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
   T* ring3 = zb3 + 4 * E2 * kEZ;            // ROUT: [R][2][TY][32]
   T* lag2 = ring3 + R * 2 * TY * kEZ;       // ROUT: [P+1][TY][32]  r2
   // the grid is N^3; the block marches local x planes, NX of them from
-  // global plane XOFF, and d (r) carries HD (HR) planes of halo a side
-  const int64_t N = N_, NX = NX_, XOFF = XOFF_;
+  // global plane XOFF, over the NY local y rows from global row YOFF, and
+  // d (r) carries HD (HR) planes and HDY (HRY) rows of halo a side
+  const int64_t N = N_, NX = NX_, XOFF = XOFF_, NY = NY_, YOFF = YOFF_;
+  const int64_t DY = NY + 2 * HDY, RY = NY + 2 * HRY;  // d's and r's rows
   const int lane = threadIdx.x % kEZ, w = threadIdx.x / kEZ;
   const int64_t z0 = (int64_t)blockIdx.x * TZ, y0 = (int64_t)blockIdx.y * TY;
   const int64_t x0 = (int64_t)blockIdx.z * LX;
   const int64_t xend = x0 + LX < NX ? x0 + LX : NX;
   // local plane x lies on the grid
   auto on_grid = [&](int64_t xl) { return XOFF + xl >= 0 && XOFF + xl < N; };
+  // local row y lies on the grid
+  auto on_grid_y = [&](int64_t yl) {
+    return YOFF + yl >= 0 && YOFF + yl < N;
+  };
   const int64_t xs = x0 - G - P, xe = xend + G + P;
   const int64_t gz = z0 - G + lane;  // the thread's z row, all march long
   const bool zok = gz >= 0 && gz < N;
@@ -231,8 +238,8 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
   // (q < TY: row G + q), then the 2P rows of each halo band k = 0 .. S - 2
   // around them, inner first; -1 past the column.  Row e lies y0 - G + e
   // on the grid; the rows q < E2 are step two's, q < TY the interior.
-  // The diagonal at (x, y, z) is dK_x ay + dM_x by with the y-z factors
-  // below.
+  // The local row y0 - G + e lies YOFF rows further on the grid.  The
+  // diagonal at (x, y, z) is dK_x ay + dM_x by with the y-z factors below.
   int ey[R1];
   Row<T, P> yr[R1];
   T ay[R1], by[R1];
@@ -249,7 +256,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
     } else {
       ey[j] = q >= EY ? -1 : q < TY ? P + q : h < P ? h : h + TY;
     }
-    const int64_t gy = ey[j] < 0 ? -1 : y0 - G + ey[j];
+    const int64_t gy = ey[j] < 0 ? -1 : YOFF + y0 - G + ey[j];
     yr[j].load(kb, mb, ks, N, gy);
     const bool ok = zok && gy >= 0 && gy < N;
     ay[j] = ok ? dm[gy] * dm[gz] : T(0);
@@ -265,6 +272,14 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
   // three's x3 = xn - 3 - 3P)
   const T* dT = static_cast<const T*>(d);
   const T* rT = static_cast<const T*>(r);
+  // local row y of d (of r) on the grid and within its halo; rows past
+  // the halo feed only rows past the march's last, never written
+  auto d_row = [&](int64_t yl) {
+    return on_grid_y(yl) && yl >= -HDY && yl < NY + HDY;
+  };
+  auto r_row = [&](int64_t yl) {
+    return on_grid_y(yl) && yl >= -HRY && yl < NY + HRY;
+  };
   auto load_plane = [&](int64_t xn, int b) {
     if (xn < xe) {
       const bool xok = on_grid(xn);
@@ -273,11 +288,11 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
         for (int k = 0; k < KR; ++k) {
           const int rw = w + k * NW;
           const int64_t yy = y0 - G - P + rw;
-          const bool yok = xok && rw < WY && yy >= 0 && yy < N;
+          const bool yok = xok && rw < WY && d_row(yy);
 #pragma unroll
           for (int kc = 0; kc < KC; ++kc) {
             const int64_t zz = z0 - G - P + lane + kc * kEZ;
-            sw[k][kc] = stage_bits(d, ((xn + HD) * N + yy) * N + zz,
+            sw[k][kc] = stage_bits(d, ((xn + HD) * DY + yy + HDY) * N + zz,
                                    yok && zz >= 0 && zz < N, ibf);
           }
         }
@@ -285,12 +300,13 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
         T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
         for (int rw = w; rw < WY; rw += NW) {
           const int64_t yy = y0 - G - P + rw;
-          const bool yok = xok && yy >= 0 && yy < N;
+          const bool yok = xok && d_row(yy);
           for (int c = lane; c < WZ; c += kEZ) {
             const int64_t zz = z0 - G - P + c;
             const bool ok = yok && zz >= 0 && zz < N;
-            cp_async_elem(dst + rw * WZ + c,
-                          ok ? dT + ((xn + HD) * N + yy) * N + zz : dT, ok);
+            cp_async_elem(
+                dst + rw * WZ + c,
+                ok ? dT + ((xn + HD) * DY + yy + HDY) * N + zz : dT, ok);
           }
         }
       }
@@ -300,20 +316,20 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
 #pragma unroll
       for (int j = 0; j < R1; ++j) {
         if (ey[j] < 0) continue;
-        const int64_t gy = y0 - G + ey[j];
-        const bool ok = zok && gy >= 0 && gy < N;
-        const int64_t gr = ((x1 + HR) * N + gy) * N + gz;
-        const int64_t gd = ((x1 + HD) * N + gy) * N + gz;
+        const int64_t yl = y0 - G + ey[j];
+        const bool okr = zok && r_row(yl), okd = zok && d_row(yl);
+        const int64_t gr = ((x1 + HR) * RY + yl + HRY) * N + gz;
+        const int64_t gd = ((x1 + HD) * DY + yl + HDY) * N + gz;
         const int e = (b * EY + ey[j]) * kEZ + lane;
         // the epilogues' r and d as stored, never rounded
         if (ibf) {
           if constexpr (BF) {
-            se[0][j] = stage_bits(r, gr, ok, true);
-            se[1][j] = stage_bits(d, gd, ok, true);
+            se[0][j] = stage_bits(r, gr, okr, true);
+            se[1][j] = stage_bits(d, gd, okd, true);
           }
         } else {
-          cp_async_elem(rbuf + e, ok ? rT + gr : rT, ok);
-          cp_async_elem(dbuf + e, ok ? dT + gd : dT, ok);
+          cp_async_elem(rbuf + e, okr ? rT + gr : rT, okr);
+          cp_async_elem(dbuf + e, okd ? dT + gd : dT, okd);
         }
       }
     }
@@ -321,8 +337,10 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
 #pragma unroll
       for (int j = 0; j < R1; ++j) {
         const int q = w + j * NW;
-        if (q < TY && y0 + q < N) {
-          const int64_t g = ((x2 + (x_is_x ? 0 : HD)) * N + y0 + q) * N + gz;
+        if (q < TY && y0 + q < NY) {
+          const int64_t g =
+              x_is_x ? (x2 * NY + y0 + q) * N + gz
+                     : ((x2 + HD) * DY + y0 + q + HDY) * N + gz;
           if (xbf) {
             if constexpr (BF) se[2][j] = stage_bits(xsrc, g, true, true);
           } else {
@@ -386,7 +404,7 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
 #pragma unroll
         for (int j = 0; j < R1; ++j) {
           const int q = w + j * NW;
-          if (q < TY && y0 + q < N)
+          if (q < TY && y0 + q < NY)
             xbuf[(b * TY + q) * kEZ + lane] = unstage(se[2][j], true, false);
         }
       }
@@ -443,10 +461,10 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
           T* slot = ring3 + s3 * 2 * TY * kEZ + q * kEZ + lane;
           slot[0] = rnd ? round_bf16(mbv) : mbv;
           slot[TY * kEZ] = rnd ? round_bf16(sv) : sv;
-          if (!out_x || y0 + q >= N) continue;
+          if (!out_x || y0 + q >= NY) continue;
           const T raw = contract_x<T, P>(xr, ring3 + q * kEZ + lane,
                                          2 * TY * kEZ, TY * kEZ, base);
-          const int64_t g = (x3 * N + y0 + q) * N + gz;
+          const int64_t g = (x3 * NY + y0 + q) * N + gz;
           static_cast<T*>(out1)[g] =
               lag2[(ls * TY + q) * kEZ + lane] - raw;
         }
@@ -477,12 +495,12 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
             T* slot = ring2 + s2 * 2 * TY * kEZ + q * kEZ + lane;
             slot[0] = rnd ? round_bf16(mbv) : mbv;
             slot[TY * kEZ] = rnd ? round_bf16(sv) : sv;
-            if (!out_x || y0 + q >= N) continue;
+            if (!out_x || y0 + q >= NY) continue;
             const T raw = contract_x<T, P>(xr, ring2 + q * kEZ + lane,
                                            2 * TY * kEZ, TY * kEZ, base);
             const T* lg = lag + ls * 2 * TY * kEZ + q * kEZ + lane;
             const T r1 = lg[0], d1 = lg[TY * kEZ];
-            const int64_t g = (x2 * N + y0 + q) * N + gz;
+            const int64_t g = (x2 * NY + y0 + q) * N + gz;
             const T diag = dkx * ay[j] + dmx * by[j];
             const T r2 = r1 - raw;
             const T d2 = c0b * d1 + (c1b / diag) * r2;
@@ -521,9 +539,9 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
             slot[0] = rnd ? round_bf16(mbv) : mbv;
             slot[E2 * kEZ] = rnd ? round_bf16(sv) : sv;
             if (!out_x) continue;
-            const int64_t gy = y0 - G + ey[j];
+            const int64_t yl = y0 - G + ey[j];
             T r2 = T(0), d2 = T(0);
-            if (on_grid(x2) && gy >= 0 && gy < N && zok) {
+            if (on_grid(x2) && on_grid_y(yl) && zok) {
               const T raw = contract_x<T, P>(xr, ring2 + e2 * kEZ + lane,
                                              2 * E2 * kEZ, E2 * kEZ, base);
               const T* lg = lag + ls * 2 * E2 * kEZ + e2 * kEZ + lane;
@@ -532,8 +550,8 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
               r2 = r1 - raw;
               d2 = c0b * d1 + (c1b / diag) * r2;
               // x2 final on the interior; r2 kept for step three
-              if (x_in && q < TY && lane_in) {
-                const int64_t g = (x2 * N + gy) * N + gz;
+              if (x_in && q < TY && lane_in && yl < NY) {
+                const int64_t g = (x2 * NY + yl) * N + gz;
                 static_cast<T*>(out0)[g] =
                     xbuf[(b * TY + q) * kEZ + lane] + d1 + d2;
                 lag2[(ls * TY + q) * kEZ + lane] = r2;
@@ -611,9 +629,8 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
 #pragma unroll
     for (int j = 0; j < R1; ++j) {
       if (ey[j] < 0) continue;
-      const int64_t gy = y0 - G + ey[j];
       T r1 = T(0), d1 = T(0);
-      if (xok && gy >= 0 && gy < N && zok) {
+      if (xok && on_grid_y(y0 - G + ey[j]) && zok) {
         const T raw = contract_x<T, P>(xr, ring1 + ey[j] * kEZ + lane,
                                        2 * EY * kEZ, EY * kEZ, base);
         const int e = (b * EY + ey[j]) * kEZ + lane;
@@ -657,15 +674,20 @@ cheb2_kernel(const void* __restrict__ d, const void* __restrict__ r,
 }
 
 // Where a launch marches: the grid is N^3; the block grid covers NX local
-// x planes from global plane XOFF, and d (r) arrives with HD (HR) planes
-// of halo a side.  The cube: NX = N, XOFF = HD = HR = 0.  A shard of the
+// x planes from global plane XOFF and NY local y rows from global row
+// YOFF, and d (r) arrives with HD (HR) planes and HDY (HRY) rows of halo a
+// side.  The cube: NX = NY = N, XOFF = YOFF = 0, no halo.  A shard of the
 // slab-sharded solve (the TPU kernel's xext=True, pallas_cheb2.py:142-151):
 // NX = n_loc p, XOFF its first plane, and d and r extended by the
 // neighbours' planes (zeros at the global ends), 2p and p a side; the x
 // rows are the global ones, read at the shard's offset, so every output is
-// the single-device pair's at the same plane.
+// the single-device pair's at the same plane.  A pencil of the 2D-pencil
+// solve (xext and yext, pallas_cheb2.py:152-160) does the same along y as
+// well: NY = n_loc_y p rows from YOFF, d and r extended by 2p and p rows a
+// side (the TPU kernel's 8-rounded y halos are a lane rule of its own),
+// and every thread's y rows are the global rows YOFF + its local ones.
 struct March {
-  int N, NX, XOFF, HD, HR;
+  int N, NX, XOFF, HD, HR, NY, YOFF, HDY, HRY;
 };
 
 template <typename T, int P, bool BF, bool ROUT>
@@ -677,7 +699,7 @@ int launch_p(const void* d, const void* r, const T* x, void* out0, void* out1,
   constexpr int kTY = tile_ty<T, P, ROUT>(), kNW = tile_warps<T, P, ROUT>();
   static_assert(kTY > 0, "no pair tile fits shared memory");
   // the host's tile must be the one this instance was compiled for
-  if (TY != kTY || NW != kNW || LX < 1 || g.NX < 1)
+  if (TY != kTY || NW != kNW || LX < 1 || g.NX < 1 || g.NY < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)smem_elems(P, kTY, kStages<ROUT>) * sizeof(T);
@@ -689,12 +711,13 @@ int launch_p(const void* d, const void* r, const T* x, void* out0, void* out1,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int TZ = kEZ - 2 * (kStages<ROUT> - 1) * P;
-  const dim3 grid((unsigned)ceil_div(g.N, TZ), (unsigned)ceil_div(g.N, kTY),
+  const dim3 grid((unsigned)ceil_div(g.N, TZ), (unsigned)ceil_div(g.NY, kTY),
                   (unsigned)ceil_div(g.NX, LX));
   cheb2_kernel<T, P, BF, ROUT>
       <<<grid, kPairThreads<T, P, ROUT>, smem, (cudaStream_t)stream>>>(
           d, r, x, out0, out1, out2, kb, mb, ks, dk, dm, (T)c0a, (T)c1a,
-          (T)c0b, (T)c1b, g.N, g.NX, g.XOFF, g.HD, g.HR, mode, LX, flags);
+          (T)c0b, (T)c1b, g.N, g.NX, g.XOFF, g.HD, g.HR, g.NY, g.YOFF, g.HDY,
+          g.HRY, mode, LX, flags);
   return (int)cudaGetLastError();
 }
 

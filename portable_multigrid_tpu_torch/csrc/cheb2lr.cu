@@ -22,8 +22,9 @@ int launch_rout(const void* d, const void* r, const T* x, T* x2, T* rout,
     if constexpr (tile_ty<T, PP, true>() > 0)                              \
       return launch_grade<T, PP, true>(d, r, x, x2, rout, nullptr, kb, mb, \
                                        ks, dk, dm, c0a, c1a, c0b, c1b,     \
-                                       March{N, N, 0, 0, 0}, kCheb2LR, LX, \
-                                       TY, NW, flags, stream);             \
+                                       March{N, N, 0, 0, 0, N, 0, 0, 0},   \
+                                       kCheb2LR, LX, TY, NW, flags,        \
+                                       stream);                            \
     return (int)cudaErrorInvalidValue;
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)

@@ -24,6 +24,13 @@
 // neighbour's first plane).  The output drops the slab's last plane, whose
 // partial row the caller completes.  The modes run the epilogues of apply,
 // residual1t, residual3t and cheb on that geometry (the Operator struct).
+// The pencil of the 2D-pencil sharded solve (CudaLaplacePencil; the TPU
+// kernel's make_pallas_slab2d, pallas_laplace.py:1020, xmask and ymask
+// "vector") gives y the same: factors of its own over NY = n_loc_y p
+// output rows from an input of NYI = NY + 1 rows, so that the output
+// drops the pencil's last x plane and last y row; z keeps the global
+// factors.  The cube passes its factors for all three axes and the slab
+// the global ones for y, so that their arithmetic is the one before.
 //
 // The JAX package's smoother grade (float only; StateFlags in common.cuh):
 //   * bf16 state: in the cheb family u (= d) and in1 (= r) are stored in
@@ -113,11 +120,13 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
                void* __restrict__ out1, T* __restrict__ out2,
                const T* __restrict__ kb, const T* __restrict__ ks,
                const T* __restrict__ mb, const T* __restrict__ dk,
-               const T* __restrict__ dm, const T* __restrict__ xkb,
-               const T* __restrict__ xks, const T* __restrict__ xmb,
-               const T* __restrict__ xdk, const T* __restrict__ xdm, T c0,
-               T c1, int N_, int NX_, int NXI_, int mode, int LX,
-               int flags) {
+               const T* __restrict__ dm, const T* __restrict__ ykb,
+               const T* __restrict__ yks, const T* __restrict__ ymb,
+               const T* __restrict__ ydk, const T* __restrict__ ydm,
+               const T* __restrict__ xkb, const T* __restrict__ xks,
+               const T* __restrict__ xmb, const T* __restrict__ xdk,
+               const T* __restrict__ xdm, T c0, T c1, int N_, int NY_,
+               int NYI_, int NX_, int NXI_, int mode, int LX, int flags) {
   constexpr int R = 2 * P + 1, NW = kWarps<T>, TY = kTY<T>, RW = TY / NW;
   constexpr int WY = TY + 2 * P, WZ = kEZ + 2 * P, XH = xrow_elems(P);
   constexpr int TP = TY * kEZ;  // one plane of the column
@@ -127,8 +136,9 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
   T* ring = zb + 4 * WY * kEZ;              // [R][2][TY][32]  MB, S
   T* ebuf = ring + R * 2 * TP;              // [2][3][TY][32]  u, r, x
   T* xrow = ebuf + 6 * TP;                  // [3][XH]
-  // y and z extent N; NX output planes along x, from NXI input planes
-  const int64_t N = N_, NX = NX_, NXI = NXI_;
+  // z extent N; NY output rows along y from NYI input rows, NX output
+  // planes along x from NXI input planes
+  const int64_t N = N_, NY = NY_, NYI = NYI_, NX = NX_, NXI = NXI_;
   const int lane = threadIdx.x % kEZ, w = threadIdx.x / kEZ;
   const int64_t z0 = (int64_t)blockIdx.x * kEZ, y0 = (int64_t)blockIdx.y * TY;
   const int64_t x0 = (int64_t)blockIdx.z * LX;
@@ -157,10 +167,10 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
 #pragma unroll
   for (int j = 0; j < RW; ++j) {
     const int64_t gy = y0 + qw + j;
-    yr[j].load(kb, mb, ks, N, gy);
-    const bool ok = zok && gy < N;
-    ay[j] = ok ? dm[gy] * dm[gz] : T(0);
-    by[j] = ok ? dk[gy] * dm[gz] + dm[gy] * dk[gz] : T(0);
+    yr[j].load(ykb, ymb, yks, NY, gy);
+    const bool ok = zok && gy < NY;
+    ay[j] = ok ? ydm[gy] * dm[gz] : T(0);
+    by[j] = ok ? ydk[gy] * dm[gz] + ydm[gy] * dk[gz] : T(0);
   }
   Row<T, P> zr;
   zr.load(kb, mb, ks, N, gz);
@@ -176,11 +186,11 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
         for (int k = 0; k < KR; ++k) {
           const int rw = w + k * NW;
           const int64_t yy = y0 - P + rw;
-          const bool yok = xok && rw < WY && yy >= 0 && yy < N;
+          const bool yok = xok && rw < WY && yy >= 0 && yy < NYI;
 #pragma unroll
           for (int kc = 0; kc < KC; ++kc) {
             const int64_t zz = z0 - P + lane + kc * kEZ;
-            sw[k][kc] = stage_bits(u, (xn * N + yy) * N + zz,
+            sw[k][kc] = stage_bits(u, (xn * NYI + yy) * N + zz,
                                    yok && zz >= 0 && zz < N, ibf);
           }
         }
@@ -188,14 +198,13 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
         T* dst = win + (int)((xn - xs) % 3) * WY * WZ;
         for (int rw = w; rw < WY; rw += NW) {
           const int64_t yy = y0 - P + rw;
-          const bool yok = xok && yy >= 0 && yy < N;
+          const bool yok = xok && yy >= 0 && yy < NYI;
           for (int c = lane; c < WZ; c += kEZ) {
             const int64_t zz = z0 - P + c;
             const bool ok = yok && zz >= 0 && zz < N;
+            const T* src = static_cast<const T*>(u);
             cp_async_elem(dst + rw * WZ + c,
-                          ok ? static_cast<const T*>(u) + (xn * N + yy) * N + zz
-                             : static_cast<const T*>(u),
-                          ok);
+                          ok ? src + (xn * NYI + yy) * N + zz : src, ok);
           }
         }
       }
@@ -206,17 +215,19 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
 #pragma unroll
         for (int j = 0; j < RW; ++j) {
           const int q = qw + j;
-          if (y0 + q >= N) continue;
-          const int64_t g = (xo * N + y0 + q) * N + gz;
+          if (y0 + q >= NY) continue;
+          // u at the output point (its input row), and in1, in2 there
+          const int64_t gu = (xo * NYI + y0 + q) * N + gz,
+                        g = (xo * NY + y0 + q) * N + gz;
           T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
           // the epilogue's u and r as stored, never rounded
           if (ibf) {
             if constexpr (BF) {
-              se[0][j] = stage_bits(u, g, need_u, true);
+              se[0][j] = stage_bits(u, gu, need_u, true);
               se[1][j] = stage_bits(in1, g, need_r, true);
             }
           } else {
-            if (need_u) cp_async_elem(e, static_cast<const T*>(u) + g, true);
+            if (need_u) cp_async_elem(e, static_cast<const T*>(u) + gu, true);
             if (need_r)
               cp_async_elem(e + TP, static_cast<const T*>(in1) + g, true);
           }
@@ -259,7 +270,7 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
 #pragma unroll
         for (int j = 0; j < RW; ++j) {
           const int q = qw + j;
-          if (y0 + q >= N) continue;
+          if (y0 + q >= NY) continue;
           T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
           if (need_u) e[0] = unstage(se[0][j], true, false);
           if (need_r) e[TP] = unstage(se[1][j], true, false);
@@ -332,12 +343,12 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
 #pragma unroll
     for (int j = 0; j < RW; ++j) {
       const int q = qw + j;
-      if (y0 + q >= N) continue;
+      if (y0 + q >= NY) continue;
       const T raw = contract_x<T, P>(xr, ring + q * kEZ + lane, 2 * TP, TP,
                                      base);
       const T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
       laplace_epilogue(
-          mode, (xo * N + y0 + q) * N + gz, raw,
+          mode, (xo * NY + y0 + q) * N + gz, raw,
           [&](int k) { return e[k * TP]; }, out0, out1, out2, c0, c1,
           [&] { return dkx * ay[j] + dmx * by[j]; }, obf);
     }
@@ -345,16 +356,20 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
 }
 
 // The operator's arrays and the launch geometry, as the host hands them
-// over: the y-z factors (kb, ks, mb, dk, dm) of extent N and the x factors
-// (xkb, xks, xmb; xdk, xdm) of NX rows, NX output planes from NXI input
-// planes.  On the cube the x factors are the y-z ones and NX = NXI = N;
-// on a slab of the sharded solve they are the slab's own (a partial
-// assembly over its cells, the per-shard slices of the diagonal factors)
-// and NXI = NX + 1 (the input is x-full).
+// over: the z factors (kb, ks, mb, dk, dm) of extent N, the y factors
+// (ykb, yks, ymb; ydk, ydm) of NY rows, NY output rows from NYI input
+// rows, and the x factors (xkb, xks, xmb; xdk, xdm) of NX rows, NX output
+// planes from NXI input planes.  On the cube every axis has the z factors
+// and NX = NXI = NY = NYI = N; on a slab of the sharded solve x has the
+// slab's own (a partial assembly over its cells, the per-shard slices of
+// the diagonal factors) and NXI = NX + 1 (the input is x-full); on a
+// pencil of the 2D-pencil solve y has the pencil's own too and
+// NYI = NY + 1.
 template <typename T>
 struct Operator {
-  const T *kb, *ks, *mb, *dk, *dm, *xkb, *xks, *xmb, *xdk, *xdm;
-  int N, NX, NXI;
+  const T *kb, *ks, *mb, *dk, *dm, *ykb, *yks, *ymb, *ydk, *ydm, *xkb, *xks,
+      *xmb, *xdk, *xdm;
+  int N, NY, NYI, NX, NXI;
 };
 
 template <typename T, int P, bool BF>
@@ -368,7 +383,7 @@ int launch_p(const void* u, const void* in1, const T* in2, void* out0,
   // the host's tile must be the one this instance was compiled for
   if (TY != kRows || NW != kNW || LX < 1 || mode < kApply ||
       mode > kChebDL || (flags && sizeof(T) != 4) || op.NX < 1 ||
-      op.NXI < op.NX)
+      op.NXI < op.NX || op.NY < 1 || op.NYI < op.NY)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem((const void*)laplace_kernel<T, P, BF>, smem);
   if (err == cudaSuccess)
@@ -377,12 +392,13 @@ int launch_p(const void* u, const void* in1, const T* in2, void* out0,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ceil_div(op.N, kEZ),
-                  (unsigned)ceil_div(op.N, kRows),
+                  (unsigned)ceil_div(op.NY, kRows),
                   (unsigned)ceil_div(op.NX, LX));
   laplace_kernel<T, P, BF><<<grid, kNW * 32, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, op.kb, op.ks, op.mb, op.dk, op.dm,
-      op.xkb, op.xks, op.xmb, op.xdk, op.xdm, (T)c0, (T)c1, op.N, op.NX,
-      op.NXI, mode, LX, flags);
+      op.ykb, op.yks, op.ymb, op.ydk, op.ydm, op.xkb, op.xks, op.xmb, op.xdk,
+      op.xdm, (T)c0, (T)c1, op.N, op.NY, op.NYI, op.NX, op.NXI, mode, LX,
+      flags);
   return (int)cudaGetLastError();
 }
 
@@ -423,19 +439,23 @@ int launch(const void* u, const void* in1, const T* in2, void* out0,
 // (LX, TY, NW): LX output planes per block along x, TY rows of the block's
 // y-z column and NW warps (the compiled tile of laplace_tile); flags: the
 // StateFlags of the launch (float only).  u, in1, out0 and out1 are float
-// or bf16 as the flags say.  kb .. dm: the y-z factors (extent N); xkb ..
-// xdm: the x factors (NX rows); NX output planes from NXI input planes
+// or bf16 as the flags say.  kb .. dm: the z factors (extent N); ykb ..
+// ydm: the y factors (NY rows); xkb .. xdm: the x factors (NX rows); NY
+// output rows from NYI input rows, NX output planes from NXI input planes
 // (the Operator struct above).
 #define PMG_LAPLACE_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* u, const void* in1, const T* in2,         \
                       void* out0, void* out1, T* out2, const T* kb,         \
                       const T* ks, const T* mb, const T* dk, const T* dm,   \
-                      const T* xkb, const T* xks, const T* xmb,             \
-                      const T* xdk, const T* xdm, double c0, double c1,     \
-                      int N, int NX, int NXI, int p, int mode, int LX,      \
+                      const T* ykb, const T* yks, const T* ymb,             \
+                      const T* ydk, const T* ydm, const T* xkb,             \
+                      const T* xks, const T* xmb, const T* xdk,             \
+                      const T* xdm, double c0, double c1, int N, int NY,    \
+                      int NYI, int NX, int NXI, int p, int mode, int LX,    \
                       int TY, int NW, int flags, void* stream) {            \
-    const Operator<T> op{kb, ks, mb, dk, dm, xkb, xks, xmb, xdk, xdm,       \
-                         N,  NX, NXI};                                      \
+    const Operator<T> op{kb,  ks,  mb,  dk,  dm, ykb, yks, ymb,             \
+                         ydk, ydm, xkb, xks, xmb, xdk, xdm,                 \
+                         N,   NY,  NYI, NX,  NXI};                          \
     return launch<T>(u, in1, in2, out0, out1, out2, op, c0, c1, p, mode,    \
                      LX, TY, NW, flags, stream);                            \
   }

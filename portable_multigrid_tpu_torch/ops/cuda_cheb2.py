@@ -98,10 +98,12 @@ def cheb2_smem_elems(p: int, ty: int, stages: int = 2) -> int:
 
 
 def cheb2_tile(p: int, itemsize: int, N: int, rout: bool = False,
-               nx: int | None = None) -> tuple[int, int, int]:
+               nx: int | None = None,
+               ny: int | None = None) -> tuple[int, int, int]:
     """(LX, TY, NW) of the launch for an N^3 grid (``nx`` output planes
-    along x on a shard's march, N by default), as cheb2.cuh's tile_ty /
-    tile_warps compile it; ``rout``: the ``cheb2lr`` instance's.
+    along x on a shard's march, ``ny`` output rows along y on a pencil's,
+    N by default), as cheb2.cuh's tile_ty / tile_warps compile it;
+    ``rout``: the ``cheb2lr`` instance's.
 
     Step one runs on the column grown by G = p (2p with ``rout``).  TY:
     the largest candidate whose TY + 2G grown rows the block's warps own
@@ -118,7 +120,7 @@ def cheb2_tile(p: int, itemsize: int, N: int, rout: bool = False,
         raise ValueError(f"no {kind} tile fits one block at p={p} in "
                          f"{8 * itemsize}-bit floats")
     G = (2 if rout else 1) * p
-    columns = -(-N // (EZ - 2 * G)) * -(-N // ty)
+    columns = -(-N // (EZ - 2 * G)) * -(-(N if ny is None else ny) // ty)
     return (chunk_planes(N if nx is None else nx, columns, 2 * (G + p)), ty,
             (ty + 2 * G + 1) // 2)
 
@@ -145,11 +147,12 @@ def cheb2_fits(op: CudaLaplaceOperator, rout: bool = False) -> bool:
     return _tile_ty(op.degree, itemsize, rout) is not None
 
 
-def _checked(op, d, r, x, scal, mode, sdtype, xext=None):
+def _checked(op, d, r, x, scal, mode, sdtype, xext=None, yext=None):
     """The state dtype of a pass of ``mode`` on ``op``'s level after
     checking its inputs (r None iff the pass starts from the rhs; x given
     iff it is read); on a shard's march ``xext`` = (x_off, nx), with d
-    and r extended by their halos."""
+    and r extended by their halos, and on a pencil's also ``yext`` =
+    (y_off, ny), likewise along y."""
     from_rhs = mode in ("cheb2f0", "cheb2f0l")
     if (r is None) != from_rhs:
         raise ValueError(f"mode {mode!r}: r must be given iff not from rhs")
@@ -161,12 +164,14 @@ def _checked(op, d, r, x, scal, mode, sdtype, xext=None):
     sdtype = state_dtype(op, sdtype)
     N, p = op.n * op.degree, op.degree
     nx = N if xext is None else xext[1]
-    halo = (0, 0) if xext is None else (2 * p, p)
+    ny = N if yext is None else yext[1]
+    hx = 0 if xext is None else 1
+    hy = 0 if yext is None else 1
     for name, t, dt, h in (("d", d, op.dtype if from_rhs else sdtype,
-                            halo[0]), ("r", r, sdtype, halo[1]),
+                            2 * p), ("r", r, sdtype, p),
                            ("x", x, op.dtype, 0)):
         if t is not None:
-            _check(op, t, name, dt, (nx + 2 * h, N, N))
+            _check(op, t, name, dt, (nx + 2 * h * hx, ny + 2 * h * hy, N))
     if not (d.device.type == "cpu" or d.is_cuda):
         raise ValueError(f"unsupported device {d.device}")
     return sdtype
@@ -198,11 +203,13 @@ def _counted(counts: dict, op, mode, sdtype, err) -> None:
 class Cheb2Kernel:
     """Two-step fused recurrence on the operator ``op``'s level; with
     ``xext`` = (x_off, nx) on one shard of the slab-sharded solve
-    (:func:`make_cheb2_xext`)."""
+    (:func:`make_cheb2_xext`), with ``yext`` = (y_off, ny) as well on one
+    pencil of the 2D-pencil solve (:func:`make_cheb2_pencil`)."""
 
     op: CudaLaplaceOperator
     tile: tuple  # (LX, TY, NW) of cheb2_tile
     xext: tuple | None = None
+    yext: tuple | None = None
 
     def steps2(self, d, r, x, scal, mode: str = "cheb2", sdtype=None):
         """One pass of ``mode``; returns (r2, d2, x2), or (x2,) for "l"
@@ -210,7 +217,8 @@ class Cheb2Kernel:
         operator's dtype).  On a shard (``xext``) d arrives with 2p planes
         of halo a side and r with p, the neighbours' planes or zeros at
         the global ends (b of the cheb2f0 modes in d's slot, with 2p), and
-        x and the outputs are the shard's nx planes."""
+        x and the outputs are the shard's nx planes; on a pencil
+        (``yext`` too) likewise along y, with 2p and p rows a side."""
         if mode not in MODES:
             raise ValueError(f"unknown cheb2 mode {mode!r}"
                              + (": cheb2lr runs on make_cheb2(op, rout=True)"
@@ -218,13 +226,18 @@ class Cheb2Kernel:
         op = self.op
         N = op.n * op.degree
         x_off, nx = (0, N) if self.xext is None else self.xext
-        sdtype = _checked(op, d, r, x, scal, mode, sdtype, self.xext)
+        y_off, ny = (0, N) if self.yext is None else self.yext
+        sdtype = _checked(op, d, r, x, scal, mode, sdtype, self.xext,
+                          self.yext)
         if d.device.type == "cpu":
+            if self.yext is not None:
+                return cheb2_twin_pencil(op, x_off, nx, y_off, ny, d, r, x,
+                                         scal, mode, sdtype)
             if self.xext is not None:
                 return cheb2_twin_xext(op, x_off, nx, d, r, x, scal, mode,
                                        sdtype)
             return cheb2_twin(op, d, r, x, scal, mode, sdtype)
-        outs = [torch.empty((nx, N, N), dtype=dt, device=d.device)
+        outs = [torch.empty((nx, ny, N), dtype=dt, device=d.device)
                 for dt in _out_dtypes(op, mode, sdtype)]
         optrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
         sc = [float(s) for s in scal] + [0.0] * (5 - len(scal))
@@ -236,12 +249,14 @@ class Cheb2Kernel:
                      None if x is None else x.data_ptr(), *optrs,
                      *_bands(op),
                      None if scratch is None else scratch.data_ptr(), *sc,
-                     N, nx, x_off, int(self.xext is not None), op.degree,
+                     N, nx, x_off, int(self.xext is not None), ny, y_off,
+                     int(self.yext is not None), op.degree,
                      MODES.index(mode), *self.tile,
                      _flags(op, sdtype, r is not None, outs[0].dtype),
                      _build.stream_handle(d.device))
-        _counted(LAUNCHES, op, mode if self.xext is None else mode + "/xext",
-                 sdtype, err)
+        where = ("/pencil" if self.yext is not None
+                 else "/xext" if self.xext is not None else "")
+        _counted(LAUNCHES, op, mode + where, sdtype, err)
         return tuple(outs)
 
 
@@ -336,27 +351,62 @@ def cheb2_twin_xext(op: CudaLaplaceOperator, x_off: int, nx: int, d, r, x,
     ``x_off``: d (or b) with 2p planes of halo a side and r with p; step
     one on the shard grown by p, step two on its own planes, with the
     global x rows at the shard's offset."""
+    N = op.n * op.degree
+    return _cheb2_twin_ext(op, (x_off, nx, 1), (0, N, 0), d, r, x, scal,
+                           mode, sdtype)
+
+
+def cheb2_twin_pencil(op: CudaLaplaceOperator, x_off: int, nx: int,
+                      y_off: int, ny: int, d, r, x, scal, mode: str,
+                      sdtype=None):
+    """:func:`cheb2_twin_xext` on a pencil's march of nx planes from global
+    plane ``x_off`` over ny rows from global row ``y_off``: d (or b) with
+    2p planes and 2p rows of halo a side, r with p; step one on the pencil
+    grown by p along x and y, step two on its own points, with the global
+    x and y rows at the pencil's offsets."""
+    return _cheb2_twin_ext(op, (x_off, nx, 1), (y_off, ny, 1), d, r, x,
+                           scal, mode, sdtype)
+
+
+def _cheb2_twin_ext(op: CudaLaplaceOperator, xw: tuple, yw: tuple, d, r, x,
+                    scal, mode: str, sdtype):
+    """The pair on a march of ``xw`` = (x_off, nx, hx) planes and ``yw`` =
+    (y_off, ny, hy) rows: h = 1 on an axis whose inputs carry halos and
+    whose step one runs grown by p, h = 0 on one marched whole."""
     T, p = op.dtype, op.degree
     out_dt = _out_dtypes(op, mode, state_dtype(op, sdtype))
     d, r, x = (None if t is None else t.to(T) for t in (d, r, x))
     c0a, c1a, c0b, c1b = scal[:4]
-    kw, sw, mw, dkw, dmw = _x_window(op, x_off - 2 * p, nx + 4 * p)
-    diag = diag_trimmed(op.dKt, op.dMt, dkw, dmw)
+    (x_off, nx, hx), (y_off, ny, hy) = xw, yw
+    kw, sw, mw, dkw, dmw = _x_window(op, x_off - 2 * p * hx, nx + 4 * p * hx)
+    kyw, syw, myw, dkyw, dmyw = _x_window(op, y_off - 2 * p * hy,
+                                          ny + 4 * p * hy)
+    diag = diag_trimmed(op.dKt, op.dMt, dkw, dmw, dkyw, dmyw)
+
+    def cut(halo: int, grow: int) -> tuple:
+        """Planes and rows of the march grown by ``grow`` (on the axes
+        with halos) within arrays with ``halo`` of them a side."""
+        lo = halo - grow
+        return (slice(lo * hx, lo * hx + nx + 2 * grow * hx),
+                slice(lo * hy, lo * hy + ny + 2 * grow * hy))
+
     rh = p  # r's halo
     if mode in ("cheb2f0", "cheb2f0l"):
         r, rh = d, 2 * p
         d = r / (scal[4] * diag)
     if mode in ("cheb2f0", "cheb2f0l", "chebd2", "chebd2l"):
-        x = d[2 * p: 2 * p + nx]
+        x = d[cut(2 * p, 0)]
     bands, grade = (op.kband, op.ksum, op.mband), op.core == "mxu"
-    grown = slice(p, 3 * p + nx)  # step one: the shard grown by p
-    r1 = r[rh - p: rh + p + nx] - apply_trimmed(*bands, d, grade,
-                                                (kw, sw, mw))[grown]
+    grown = cut(2 * p, p)  # step one: the march grown by p
+    r1 = r[cut(rh, p)] - apply_trimmed(*bands, d, grade, (kw, sw, mw),
+                                       (kyw, syw, myw))[grown]
     d1 = c0a * d[grown] + (c1a / diag[grown]) * r1
-    own = slice(p, p + nx)
+    gx, gy = grown
+    own = cut(p, 0)
     r2 = r1[own] - apply_trimmed(*bands, d1, grade,
-                                 (kw[:, grown], sw[grown], mw[:, grown]))[own]
-    d2 = c0b * d1[own] + (c1b / diag[2 * p: 2 * p + nx]) * r2
+                                 (kw[:, gx], sw[gx], mw[:, gx]),
+                                 (kyw[:, gy], syw[gy], myw[:, gy]))[own]
+    d2 = c0b * d1[own] + (c1b / diag[cut(2 * p, 0)]) * r2
     x2 = x + d1[own] + d2
     outs = (x2,) if mode.endswith("l") else (r2, d2, x2)
     return tuple(o.to(dt) for o, dt in zip(outs, out_dt))
@@ -377,6 +427,24 @@ def make_cheb2_xext(op: CudaLaplaceOperator, x_off: int,
     itemsize = torch.empty((), dtype=op.dtype).element_size()
     return Cheb2Kernel(op=op, tile=cheb2_tile(op.degree, itemsize, N, nx=nx),
                        xext=(x_off, nx))
+
+
+def make_cheb2_pencil(op: CudaLaplaceOperator, x_off: int, nx: int,
+                      y_off: int, ny: int) -> Cheb2Kernel:
+    """The pair kernel on one pencil of the 2D-pencil sharded solve (the
+    TPU kernel's ``xext=True`` and ``yext=True``, pallas_cheb2.py:142-160):
+    ``op`` the global operator, the pencil's march nx planes from global
+    plane ``x_off`` over ny rows from global row ``y_off``.  Every output
+    is the single-device pair's at the same point."""
+    kern = make_cheb2_xext(op, x_off, nx)
+    N = op.n * op.degree
+    if not (0 <= y_off and ny >= 1 and y_off + ny <= N):
+        raise ValueError(f"a march over {ny} rows from {y_off} leaves the "
+                         f"grid of {N}")
+    itemsize = torch.empty((), dtype=op.dtype).element_size()
+    return dataclasses.replace(
+        kern, tile=cheb2_tile(op.degree, itemsize, N, nx=nx, ny=ny),
+        yext=(y_off, ny))
 
 
 def make_cheb2(op: CudaLaplaceOperator,

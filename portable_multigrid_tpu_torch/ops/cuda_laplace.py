@@ -154,18 +154,18 @@ def chunk_planes(N: int, columns: int, lead: int, per_sm: int = 1) -> int:
     return min(chunks, key=lambda lx: (cost(lx), -lx))
 
 
-def laplace_tile(p: int, itemsize: int, N: int,
-                 nx: int | None = None) -> tuple[int, int, int]:
+def laplace_tile(p: int, itemsize: int, N: int, nx: int | None = None,
+                 ny: int | None = None) -> tuple[int, int, int]:
     """(LX, TY, NW) of the B.1 launch for an N^3 grid (``nx`` output
-    planes along x on a slab, N by default), as laplace.cu compiles it:
-    NW = :func:`march_warps` warps of one block per SM, two rows of the
-    column each (TY = 2 NW), and x chunks of LX planes with 2p lead-in
-    planes."""
+    planes along x on a slab or a pencil, ``ny`` output rows along y on a
+    pencil, N by default), as laplace.cu compiles it: NW =
+    :func:`march_warps` warps of one block per SM, two rows of the column
+    each (TY = 2 NW), and x chunks of LX planes with 2p lead-in planes."""
     nw = march_warps(itemsize)
     ty = 2 * nw
     if march_smem_elems(p, ty) * itemsize > SMEM_LIMIT:
         raise ValueError(f"no laplace tile fits shared memory at p={p}")
-    columns = -(-N // EZ) * -(-N // ty)
+    columns = -(-N // EZ) * -(-(N if ny is None else ny) // ty)
     return chunk_planes(N if nx is None else nx, columns, 2 * p), ty, nw
 
 
@@ -199,43 +199,58 @@ def banded(u: torch.Tensor, bands: torch.Tensor, axis: int,
     return torch.movedim(out, 0, axis)
 
 
+def _padded_bands(bands, length: int) -> tuple:
+    """(kband, ksum, mband) of some rows, zero-extended to ``length``
+    rows."""
+    extra = length - bands[0].shape[1]
+    return tuple(torch.nn.functional.pad(t, (0, extra)) for t in bands)
+
+
 def apply_trimmed(kband: torch.Tensor, ksum: torch.Tensor,
                   mband: torch.Tensor, u: torch.Tensor,
-                  bf16_grade: bool = False, xbands=None) -> torch.Tensor:
+                  bf16_grade: bool = False, xbands=None,
+                  ybands=None) -> torch.Tensor:
     """M A M u on trimmed 3D state in the kernels' order, z, then y, then
     x: Kx (My Mz u) + Mx (Ky Mz u + My Kz u), every K contraction in
     difference form.  ``bf16_grade`` rounds each contraction's input to
     bf16, as the ``"mxu"`` core and B.2's production grade do.
     ``xbands`` (kband, ksum, mband of X rows) are the x factors where they
-    differ from the y-z ones: the output is the first X planes, and the
-    input may carry more (a slab's x-full input, a shard's window)."""
+    differ from the z ones: the output is the first X planes, and the
+    input may carry more (a slab's x-full input, a shard's window);
+    ``ybands`` (of Y rows) likewise along y (a pencil's)."""
     rnd = round_bf16 if bf16_grade else (lambda t: t)
     u = rnd(u)
     b = rnd(banded(u, mband, 2))
     a = rnd(banded(u, kband, 2, ksum))
-    mb = rnd(banded(b, mband, 1))
-    s = rnd(banded(b, kband, 1, ksum) + banded(a, mband, 1))
+    if ybands is None:
+        mb = rnd(banded(b, mband, 1))
+        s = rnd(banded(b, kband, 1, ksum) + banded(a, mband, 1))
+    else:
+        ky, sy, my = _padded_bands(ybands, u.shape[1])
+        rows = ybands[0].shape[1]
+        mb = rnd(banded(b, my, 1))[:, :rows]
+        s = rnd(banded(b, ky, 1, sy) + banded(a, my, 1))[:, :rows]
     if xbands is None:
         return banded(mb, kband, 0, ksum) + banded(s, mband, 0)
-    kx, sx, mx = xbands
-    rows, extra = kx.shape[1], u.shape[0] - kx.shape[1]
-    kx, sx, mx = (torch.nn.functional.pad(t, (0, extra))
-                  for t in (kx, sx, mx))
-    return (banded(mb, kx, 0, sx) + banded(s, mx, 0))[:rows]
+    kx, sx, mx = _padded_bands(xbands, u.shape[0])
+    return (banded(mb, kx, 0, sx) + banded(s, mx, 0))[:xbands[0].shape[1]]
 
 
 def diag_trimmed(dKt: torch.Tensor, dMt: torch.Tensor, dKx=None,
-                 dMx=None) -> torch.Tensor:
+                 dMx=None, dKy=None, dMy=None) -> torch.Tensor:
     """Separable diagonal on the trimmed grid (raw values on constrained
-    entries, as the kernels rebuild it); ``dKx``/``dMx`` the x factors
-    where they differ from the y-z ones."""
+    entries, as the kernels rebuild it); ``dKx``/``dMx`` and
+    ``dKy``/``dMy`` the x and y factors where they differ from the z
+    ones."""
     dKx = dKt if dKx is None else dKx
     dMx = dMt if dMx is None else dMx
+    dKy = dKt if dKy is None else dKy
+    dMy = dMt if dMy is None else dMy
     x = lambda v: v.reshape(-1, 1, 1)
     y = lambda v: v.reshape(1, -1, 1)
     z = lambda v: v.reshape(1, 1, -1)
-    return (x(dKx) * y(dMt) * z(dMt)
-            + x(dMx) * (y(dKt) * z(dMt) + y(dMt) * z(dKt)))
+    return (x(dKx) * y(dMy) * z(dMt)
+            + x(dMx) * (y(dKy) * z(dMt) + y(dMy) * z(dKt)))
 
 
 @dataclasses.dataclass
@@ -369,9 +384,9 @@ class CudaLaplaceOperator:
 
     def kernel_state(self) -> tuple:
         """Operator arrays handed to the kernel, in its argument order: the
-        y-z factors, then the x factors (on the cube the same ones)."""
+        z, the y and the x factors (on the cube the same ones)."""
         cube = self.kband, self.ksum, self.mband, self.dK1, self.dM1
-        return cube + cube
+        return cube * 3
 
     def kernel_scalars(self) -> tuple:
         """Operator scalars handed to the kernel after its arrays."""
@@ -379,9 +394,9 @@ class CudaLaplaceOperator:
 
     def kernel_sizes(self) -> tuple:
         """The grid's extents handed to the kernel before the degree: N and
-        (B.1) the output and input planes along x."""
+        (B.1) the output and input rows along y, then along x."""
         N = self.n * self.degree
-        return N, N, N
+        return N, N, N, N, N
 
 
 # the modes of a slab of the sharded solve (pallas_laplace.py:232-242), on
@@ -480,12 +495,129 @@ class CudaLaplaceSlab(CudaLaplaceOperator):
         return twin_epilogue(self, SLAB_MODES[mode], raw, u[:L], ins, scal)
 
     def kernel_state(self) -> tuple:
-        return (self.kband, self.ksum, self.mband, self.dK1, self.dM1,
-                self.xkband, self.xksum, self.xmband, self.dK1x, self.dM1x)
+        cube = self.kband, self.ksum, self.mband, self.dK1, self.dM1
+        return cube * 2 + (self.xkband, self.xksum, self.xmband, self.dK1x,
+                           self.dM1x)
 
     def kernel_sizes(self) -> tuple:
         L, N, _ = self.trimmed_shape
-        return N, L, L + 1
+        return N, N, N, L, L + 1
+
+
+@dataclasses.dataclass
+class CudaLaplacePencil(CudaLaplaceSlab):
+    """B.1 on one pencil of the 2D-pencil sharded solve: the TPU kernel's
+    ``make_pallas_slab2d`` (pallas_laplace.py:1020, ``xmask`` and ``ymask``
+    ``"vector"``) in its one mode on that path, ``apply``, at the exact
+    core.
+
+    x is the slab's (:class:`CudaLaplaceSlab`); y has factors of its own in
+    the same way: the bands and K row sums of the partial 1D assembly over
+    the pencil's ``n_loc_y`` cells with the shard's slice of the global y
+    mask folded in, and the shard's slices of the diagonal factors; z keeps
+    the global factors.  ``apply`` takes the x-and-y-FULL input, the
+    pencil's Lx x Ly trimmed points and its neighbours' shared plane and
+    row, (Lx + 1, Ly + 1, N), and writes (Lx, Ly, N): the pencil's last x
+    plane and last y row, and its neighbours' cells on plane 0 and row 0,
+    are the caller's (``parallel/mesh2d.py``)."""
+
+    n_loc_y: int = 0  # the pencil's cells along y
+    ykband: torch.Tensor = None  # [2p+1, Ly] bands of the masked partial K
+    yksum: torch.Tensor = None  # [Ly] its row sums
+    ymband: torch.Tensor = None  # [2p+1, Ly] bands of the masked partial M
+    mask1y: torch.Tensor = None  # [Ly+1] the shard's slice of the y mask
+    dK1y: torch.Tensor = None  # [Ly+1] ... of the stiffness diagonal factor
+    dM1y: torch.Tensor = None  # [Ly+1] ... of the mass diagonal factor
+
+    @property
+    def grid_shape(self) -> tuple[int, ...]:
+        """The full pencil, shared planes and rows included."""
+        p = self.degree
+        return self.n_loc * p + 1, self.n_loc_y * p + 1, self.n * p + 1
+
+    @property
+    def trimmed_shape(self) -> tuple[int, ...]:
+        p = self.degree
+        return self.n_loc * p, self.n_loc_y * p, self.n * p
+
+    @property
+    def input_shape(self) -> tuple[int, ...]:
+        """The x-and-y-full input: a plane and a row more than the trimmed
+        state."""
+        Lx, Ly, N = self.trimmed_shape
+        return Lx + 1, Ly + 1, N
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return separable_mask((self.mask1x, self.mask1y, self.mask1))
+
+    @property
+    def inv_diag(self) -> torch.Tensor:
+        return separable_inv_diag((self.mask1x, self.mask1y, self.mask1),
+                                  (self.dK1x, self.dK1y, self.dK1),
+                                  (self.dM1x, self.dM1y, self.dM1))
+
+    def diag_trimmed(self) -> torch.Tensor:
+        Lx, Ly, _ = self.trimmed_shape
+        return diag_trimmed(self.dKt, self.dMt, self.dK1x[:Lx],
+                            self.dM1x[:Lx], self.dK1y[:Ly], self.dM1y[:Ly])
+
+    def run(self, mode: str, u: torch.Tensor, ins=(), scal=(), sdtype=None):
+        """``apply`` on the x-and-y-full ``u``; returns (raw,)."""
+        if mode != "apply":
+            raise ValueError(f"unknown pencil mode {mode!r}: a pencil runs "
+                             f"'apply'")
+        if ins or scal or sdtype not in (None, self.dtype):
+            raise ValueError("a pencil's apply takes u alone")
+        _check(self, u, "u", shape=self.input_shape)
+        if u.device.type == "cpu":
+            return self.twin(mode, u)
+        if not u.is_cuda:
+            raise ValueError(f"unsupported device {u.device}")
+        return _launch(self, MODES.index("apply"), u, (), (), (self.dtype,),
+                       0, "apply/pencil", self.trimmed_shape)
+
+    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(), sdtype=None):
+        return (apply_trimmed(self.kband, self.ksum, self.mband, u, False,
+                              (self.xkband, self.xksum, self.xmband),
+                              (self.ykband, self.yksum, self.ymband)),)
+
+    def kernel_state(self) -> tuple:
+        return ((self.kband, self.ksum, self.mband, self.dK1, self.dM1,
+                 self.ykband, self.yksum, self.ymband, self.dK1y, self.dM1y,
+                 self.xkband, self.xksum, self.xmband, self.dK1x,
+                 self.dM1x))
+
+    def kernel_sizes(self) -> tuple:
+        Lx, Ly, N = self.trimmed_shape
+        return N, Ly, Ly + 1, Lx, Lx + 1
+
+
+def cuda_laplace_pencil_from_factors(degree: int, n: int, n_loc: tuple, m1,
+                                     K1, M1, gK, gM, xs: tuple, ys: tuple,
+                                     dtype=torch.float32, device="cpu"
+                                     ) -> CudaLaplacePencil:
+    """Pack a pencil's operator (NumPy, float64) at the exact core: the
+    global 1D factors of z (``m1``, ``K1``, ``M1``, ``gK``, ``gM``, length
+    n p + 1), and per sharded axis, for the pencil's ``n_loc`` = (cells
+    along x, along y), ``xs`` and ``ys`` = (mask slice, partial K, partial
+    M, dK slice, dM slice), each of length n_loc p + 1
+    (:func:`partial_bands`)."""
+    slab = cuda_laplace_slab_from_factors(degree, n, n_loc[0], m1, K1, M1,
+                                          gK, gM, *xs, dtype, device)
+    ykband, yksum, ymband = partial_bands(*ys[:3], degree)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
+                               device=device)
+
+    fields = {f.name: getattr(slab, f.name) for f in dataclasses.fields(slab)}
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    fields["tile"] = laplace_tile(degree, itemsize, n * degree,
+                                  nx=n_loc[0] * degree, ny=n_loc[1] * degree)
+    return CudaLaplacePencil(**fields, n_loc_y=n_loc[1], ykband=t(ykband),
+                             yksum=t(yksum), ymband=t(ymband),
+                             mask1y=t(ys[0]), dK1y=t(ys[3]), dM1y=t(ys[4]))
 
 
 def cuda_laplace_slab_from_factors(degree: int, n: int, n_loc: int, m1, K1,
@@ -503,15 +635,8 @@ def cuda_laplace_slab_from_factors(degree: int, n: int, n_loc: int, m1, K1,
     the rounded bands."""
     cube = cuda_laplace_from_factors(degree, n, m1, K1, M1, gK, gM, dtype,
                                      device, core=core)
-    mx, Kx, Mx = (np.asarray(a, np.float64) for a in (mx, Kx, Mx))
     L = n_loc * degree
-    xkband = to_bands(mx[:, None] * Kx * mx[None, :], degree)[:, :L]
-    xmband = to_bands(mx[:, None] * Mx * mx[None, :], degree)[:, :L]
-    xksum = row_sums(Kx, mx)
-    if core == "mxu":
-        xkband, xmband = (torch.as_tensor(b).to(torch.bfloat16).double()
-                          .numpy() for b in (xkband, xmband))
-        xksum = xkband.sum(axis=0)
+    xkband, xksum, xmband = partial_bands(mx, Kx, Mx, degree, core)
 
     def t(a):
         return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
@@ -523,6 +648,25 @@ def cuda_laplace_slab_from_factors(degree: int, n: int, n_loc: int, m1, K1,
     return CudaLaplaceSlab(**fields, n_loc=n_loc, xkband=t(xkband),
                            xksum=t(xksum), xmband=t(xmband), mask1x=t(mx),
                            dK1x=t(gKx), dM1x=t(gMx))
+
+
+def partial_bands(m, K, M, degree: int, core: str = "banded") -> tuple:
+    """(kband, ksum, mband) of a shard's partial 1D assembly ``K``, ``M``
+    (NumPy, float64, L + 1 rows) with its slice ``m`` of the global mask
+    folded in, over its first L rows: the kernel's factors of a sharded
+    axis.  The row sums come from the mask, as :func:`row_sums` takes
+    them; ``core="mxu"`` rounds the bands to bf16 and takes K's row sums
+    from the rounded bands."""
+    m, K, M = (np.asarray(a, np.float64) for a in (m, K, M))
+    L = K.shape[0] - 1
+    kband = to_bands(m[:, None] * K * m[None, :], degree)[:, :L]
+    mband = to_bands(m[:, None] * M * m[None, :], degree)[:, :L]
+    ksum = row_sums(K, m)
+    if core == "mxu":
+        kband, mband = (torch.as_tensor(b).to(torch.bfloat16).double()
+                        .numpy() for b in (kband, mband))
+        ksum = kband.sum(axis=0)
+    return kband, ksum, mband
 
 
 def laplace_twin(op: CudaLaplaceOperator, mode: str, u: torch.Tensor,

@@ -44,15 +44,43 @@ def _windowed(u: torch.Tensor, axis: int, mband: torch.Tensor,
     without ``kband``), zero beyond the grid, K in difference form,
     sum_o K[i, i+o] (u[i+o] - u[i]) + ksum[i] u[i]: the contractions of
     ``ops.cuda_laplace.banded`` over one set of unfolded windows, a few
-    launches in place of a few per tap."""
-    p = (mband.shape[0] - 1) // 2
+    launches in place of a few per tap.  The bands [2p+1, L] and sums [L]
+    serve every entry of u, or, as [G, 2p+1, L] and [G, L], each of the G
+    entries of u's leading axis its own."""
+    p = (mband.shape[-2] - 1) // 2
     t = u.movedim(axis, -1)
     win = torch.nn.functional.pad(t, (p, p)).unfold(-1, 2 * p + 1, 1)
-    mu = (win * mband.T).sum(-1).movedim(-1, axis)
+
+    def per(v):  # [G, ...] against the windows (or against t: sums)
+        return v.reshape(v.shape[:1] + (1,) * (t.ndim - 2)
+                         + v.shape[1:]) if mband.ndim == 3 else v
+
+    mu = (win * per(mband.transpose(-1, -2))).sum(-1).movedim(-1, axis)
     if kband is None:
         return mu, None
-    ku = ((win - t[..., None]) * kband.T).sum(-1) + ksum * t
+    ku = ((win - t[..., None]) * per(kband.transpose(-1, -2))).sum(-1) \
+        + per(ksum) * t
     return mu, ku.movedim(-1, axis)
+
+
+def _thin(w: torch.Tensor, kt, mt, st, zb: tuple, ob: tuple) -> torch.Tensor:
+    """The raw partial contribution of a shard's cells to the last row
+    along its thin axis, which B.1's slab and pencil drop, from ``w``
+    [G, p+1, A, Z]: the last p+1 rows along the thin axis of G shards'
+    inputs.  The thin row goes first: w_K = sum_j k_j (w_j - w_p) + s w_p
+    (K in difference form, s its row sum) and w_M = sum_j m_j w_j, with
+    ``kt``, ``mt`` [G, p+1] and ``st`` [G]; then z and the other in-plane
+    axis A as the kernel contracts them, on those two rows: Mo Mz w_K +
+    (Ko Mz + Mo Kz) w_M, ``zb`` and ``ob`` the (mband, kband, ksum) of z
+    and of A (those of A per shard or shared, :func:`_windowed`)."""
+    c = w[:, -1]
+    wk = (torch.einsum("gk,gkyz->gyz", kt, w - c[:, None])
+          + st[:, None, None] * c)
+    wm = torch.einsum("gk,gkyz->gyz", mt, w)
+    mz, kz = _windowed(torch.stack([wk, wm], 1), 3, *zb)
+    my, ky = _windowed(torch.stack([mz[:, 0], mz[:, 1], kz[:, 1]], 1), 2,
+                       *ob)
+    return my[:, 0] + ky[:, 1] + my[:, 2]
 
 
 # --------------------------------------------------------------------------
@@ -137,6 +165,14 @@ class ShardedField:
         return self.parts[0].device
 
 
+def device_groups(parts) -> list:
+    """The indices of the shards on each device, in order."""
+    groups = {}
+    for s, t in enumerate(parts):
+        groups.setdefault(t.device, []).append(s)
+    return list(groups.values())
+
+
 def halo_sum(parts, axis: int = 0) -> list:
     """Sum the duplicated boundary planes of neighbouring shards, in place:
     plane 0 of shard s gains the last plane of shard s - 1, and its last
@@ -163,14 +199,36 @@ def halo_sum(parts, axis: int = 0) -> list:
     return parts
 
 
+def halo_sum_2d(parts, sx: int, sy: int) -> list:
+    """:func:`halo_sum` on a pencil-sharded field, shards in row-major
+    order over the (sx, sy) mesh (shard (i, j) at i sy + j): along x in
+    each x group (fixed j), then along y in each y group (fixed i).  The y
+    exchange carries the x-completed planes, so that the points shared by
+    four shards gather all four contributions."""
+    parts = list(parts)
+    for j in range(sy):
+        halo_sum([parts[i * sy + j] for i in range(sx)], 0)
+    for i in range(sx):
+        halo_sum(parts[i * sy: (i + 1) * sy], 1)
+    return parts
+
+
+def exchange(parts, mesh: tuple | None, axis: int = 0) -> list:
+    """The halo exchange of a slab-sharded field (``mesh`` None: along
+    ``axis``) or of a pencil-sharded one over the (sx, sy) ``mesh``."""
+    return halo_sum(parts, axis) if mesh is None else halo_sum_2d(parts,
+                                                                  *mesh)
+
+
 def make_sharded_dot(weights, dim: int, lead_axes: int = 0):
     """The duplicate-plane-weighted inner product of two fields, summed
     over the shards on the first shard's device.  ``weights``: per shard
-    the [N_loc] weights of its axis-0 planes (0.5 on a plane duplicated
-    with a neighbour, 1 elsewhere); ``lead_axes`` leading (component)
-    axes precede the sharded grid axis."""
-    shape = (1,) * lead_axes + (-1,) + (1,) * (dim - 1)
-    ws = [w.reshape(shape) for w in weights]
+    the weights of its points along its sharded axes, [N_loc] on a slab
+    (0.5 on a plane duplicated with a neighbour, 1 elsewhere) or
+    [Nx_loc, Ny_loc] on a pencil (the outer product of the x and y
+    weights); ``lead_axes`` leading (component) axes precede the grid."""
+    ws = [w.reshape((1,) * lead_axes + tuple(w.shape)
+                    + (1,) * (dim - w.ndim)) for w in weights]
 
     def dot(a: ShardedField, b: ShardedField) -> torch.Tensor:
         home = a.parts[0].device
@@ -197,6 +255,7 @@ class ShardedLaplaceOperator:
     M A M + (I - M) holds globally."""
 
     local: tuple  # a LaplaceOperator per shard
+    mesh: tuple | None = None  # (sx, sy) of a pencil-sharded grid
 
     @property
     def inv_diag(self) -> ShardedField:
@@ -206,8 +265,9 @@ class ShardedLaplaceOperator:
         us = [t.reshape(loc.grid_shape) for loc, t in zip(self.local,
                                                           u.parts)]
         masks = [loc.mask for loc in self.local]
-        au = halo_sum([loc.apply_bilinear(t * m)
-                       for loc, t, m in zip(self.local, us, masks)])
+        au = exchange([loc.apply_bilinear(t * m)
+                       for loc, t, m in zip(self.local, us, masks)],
+                      self.mesh)
         return ShardedField(m * a + (1.0 - m) * t
                             for m, a, t in zip(masks, au, us))
 
@@ -225,13 +285,17 @@ class ShardedTransfer:
 
     The shards of one device run as one batch: their slabs stacked on a
     leading axis, their x factors stacked beside it (``batched``), the
-    same arithmetic in a few launches instead of a few per shard."""
+    same arithmetic in a few launches instead of a few per shard.  On a
+    pencil-sharded grid (``mesh`` = (sx, sy)) the x and the y factors are
+    the shard's and the exchange is :func:`halo_sum_2d`."""
 
     local: tuple  # a Transfer per shard
     halo_axis: int = 0
+    mesh: tuple | None = None
 
     def __post_init__(self):
-        self.batched = _batch_transfers(self.local, self.halo_axis)
+        self.batched = _batch_transfers(self.local, self.halo_axis,
+                                        1 if self.mesh is None else 2)
 
     def _run(self, name: str, f: ShardedField) -> ShardedField:
         out = [None] * len(self.local)
@@ -239,7 +303,7 @@ class ShardedTransfer:
             res = getattr(tr, name)(torch.stack([f.parts[s] for s in shards]))
             for j, s in enumerate(shards):
                 out[s] = res[j]
-        return ShardedField(halo_sum(out, self.halo_axis))
+        return ShardedField(exchange(out, self.mesh, self.halo_axis))
 
     def prolongate(self, c: ShardedField) -> ShardedField:
         return self._run("prolongate", c)
@@ -254,24 +318,26 @@ class ShardedTransfer:
         return dst + self.restrict(f)
 
 
-def _batch_transfers(local, halo_axis: int) -> list:
+def _batch_transfers(local, halo_axis: int, n_sharded: int = 1) -> list:
     """(shards, transfer) per device: one transfer over the device's shards
-    stacked on a leading axis, its x factors the shards' stacked and shaped
-    to broadcast against the stack (``ops.laplace.bcast`` passes them
+    stacked on a leading axis, the factors of its first ``n_sharded`` axes
+    (x on a slab, x and y on a pencil) the shards' stacked and shaped to
+    broadcast against the stack (``ops.laplace.bcast`` passes them
     through), the other axes' factors and the 1D matrix the first
     shard's."""
-    groups = {}
-    for s, tr in enumerate(local):
-        groups.setdefault(tr.M1.device, []).append(s)
     out = []
-    for shards in groups.values():
+    for shards in device_groups([tr.M1 for tr in local]):
         first = local[shards[0]]
 
         def stack(factors):
-            x = torch.stack([f[0] for f in factors])
-            shape = ((len(shards),) + (1,) * halo_axis + (x.shape[1],)
-                     + (1,) * (first.dim - 1))
-            return (x.reshape(shape),) + tuple(factors[0][1:])
+            stacked = []
+            for ax in range(n_sharded):
+                v = torch.stack([f[ax] for f in factors])
+                shape = [1] * first.dim
+                shape[ax] = v.shape[1]
+                stacked.append(v.reshape((len(shards),) + (1,) * halo_axis
+                                         + tuple(shape)))
+            return tuple(stacked) + tuple(factors[0][n_sharded:])
 
         out.append((shards, dataclasses.replace(
             first,
@@ -416,24 +482,14 @@ class ShardedCudaLaplace:
         and z as the kernel contracts them, on those two planes:
         My Mz w_K + (Ky Mz + My Kz) w_M."""
         out = [None] * len(u_ext)
-        groups = {}
-        for s, u in enumerate(u_ext):
-            groups.setdefault(u.device, []).append(s)
-        for ss in groups.values():
+        for ss in device_groups(u_ext):
             loc = self.local[ss[0]]
             p = loc.degree
-            w = torch.stack([u_ext[s][-(p + 1):] for s in ss])
-            kx, mx, sx = (torch.stack([v[s] for s in ss]) for v in (
-                self.thin_kx, self.thin_mx, self.thin_sx))
-            c = w[:, -1]
-            wk = (torch.einsum("gk,gkyz->gyz", kx, w - c[:, None])
-                  + sx[:, None, None] * c)
-            wm = torch.einsum("gk,gkyz->gyz", mx, w)
-            mz, kz = _windowed(torch.stack([wk, wm], 1), 3, loc.mband,
-                               loc.kband, loc.ksum)
-            my, ky = _windowed(torch.stack([mz[:, 0], mz[:, 1], kz[:, 1]], 1),
-                               2, loc.mband, loc.kband, loc.ksum)
-            last = my[:, 0] + ky[:, 1] + my[:, 2]
+            zb = loc.mband, loc.kband, loc.ksum
+            last = _thin(torch.stack([u_ext[s][-(p + 1):] for s in ss]),
+                         *(torch.stack([v[s] for s in ss]) for v in (
+                             self.thin_kx, self.thin_mx, self.thin_sx)),
+                         zb, zb)
             for j, s in enumerate(ss):
                 out[s] = last[j]
         return out
