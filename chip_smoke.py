@@ -2,10 +2,18 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --main-path   # phases 1, 4 and 5 alone
+    python3 chip_smoke.py --b5-hashes FILE
+    python3 chip_smoke.py --compare-hashes FILE FILE
 
 ``--main-path`` builds the kernels, then solves and times the main path
 alone (for A/B runs of kernel variants, each from its own tree, in one
-call); it prints no result line.
+call); it prints no result line.  ``--b5-hashes`` builds the kernels and
+writes the SHA-256 of every output of every cube B.5 mode (both cores,
+float32 and float64) at phase 8's shapes, on phase 8's seeded inputs, to
+FILE (JSON); it imports nothing that the port's earlier trees lack, so
+that the same script copied into two trees' checkouts gives an A/B of
+their B.5 outputs, which ``--compare-hashes`` counts as equal or not (no
+card needed).  Neither prints a result line.
 
 Phases (each raises on failure; nothing is allowed to fall back to the CPU
 or from the CUDA graph to the eager V-cycle):
@@ -198,7 +206,22 @@ or from the CUDA graph to the eager V-cycle):
      its eager V-cycle in turns with the single device's and phase 16's
      slab-sharded one, busy shares, launches per V-cycle; (4, 2) at Q4
      r=4; the float64 ``kron`` path at Q2 r=4 on (2, 2) against the
-     single-device solve (L2 within 1e-12).
+     single-device solve (L2 within 1e-12);
+ 18. the slab-sharded elasticity solve as S shards on one card — B.5's
+     slab ``apply`` within BOUND of its twin in float32 and float64 at
+     p = 1..7, r = 3 (shards 0, 1 and 3 of 4) and on shard 1 of the Q3
+     r=6 slabs of S = 4 (3 x 49 x 192 x 192 in), mu = 0.7, lam = 1.3;
+     the mode timed there beside its bound and its twin;
+     ``ShardedElasticity(3, 3, 6, devices=[cuda:0] * 4, float32,
+     "auto")`` to rtol 1e-5 against ``ElasticityMultigrid(3, 3, 6,
+     float32, "auto")`` at the exact grade (``PMG_ELASTICITY_MXU=0``):
+     converged, at most one CG iteration more (the sharded hierarchy
+     stops at r = log2 S), L2 within F32_L2_BOUND_ELASTICITY of the
+     single device's, ``apply/slab`` launched on every level (r = 2..6)
+     and no cube B.5 mode; both eager V-cycles in turns, busy shares,
+     launches per sharded V-cycle; the float64 ``sumfac`` path at Q2 r=3
+     on 4 shards against the single-device solve (x within 1e-10 of max
+     |x|); with two or more cards the same solve across them.
 
 Every phase's seconds, and the total, are printed at the end.
 
@@ -206,13 +229,15 @@ The line before the last is a JSON object with one entry per kernel and
 grade that its path launched (``cheb2lr`` from the ``PMG_CHEB2R=1`` solve
 of phase 5; ``laplace/slab``, ``laplace/slab/mxu`` and ``cheb2/xext/mxu``
 from phase 16's sharded solve; ``laplace/pencil`` and ``cheb2/pencil/mxu``
-from phase 17's pencil solve); the last line is the result object.
+from phase 17's pencil solve; ``elasticity/slab`` from phase 18's sharded
+elasticity solve); the last line is the result object.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -2351,8 +2376,273 @@ def phase_pencil(card: str, device, errs: dict, per_mode: dict) -> dict:
     return times
 
 
+# --------------------------------------------------------------------------
+# phase 18: the slab-sharded elasticity solve, S shards on one card
+# --------------------------------------------------------------------------
+
+
+def elasticity_slab_cases(p: int, r: int, S: int, shards, dtype, device):
+    """(shard, B.5's slab on that shard of S at (p, r), mu = 0.7, lam =
+    1.3, its x-full input) for each of ``shards``: a random field, zero on
+    the constrained planes."""
+    from portable_multigrid_tpu_torch.parallel.elasticity import (
+        sharded_cuda_elasticity,
+    )
+
+    slabs = sharded_cuda_elasticity(space(p, r), [device] * S, dtype,
+                                    *MU_LAM).local
+    for s in shards:
+        _, L, N, _ = slabs[s].trimmed_shape
+        u = np.random.default_rng(s).standard_normal((3, L + 1, N, N))
+        gx = s * L + np.arange(L + 1)
+        u[:, (gx == 0) | (gx >= N)] = 0.0
+        u[:, :, 0], u[:, :, :, 0] = 0.0, 0.0
+        yield s, slabs[s], torch.as_tensor(u, dtype=dtype, device=device)
+
+
+def elasticity_slab_compare(p: int, r: int, S: int, shards, dtype, device,
+                            errs: dict) -> None:
+    """B.5's slab ``apply`` against its twin on the given shards, within
+    BOUND of the twin's max magnitude; the max error into ``errs``."""
+    name = str(dtype).split(".")[-1]
+    for s, op, u in elasticity_slab_cases(p, r, S, shards, dtype, device):
+        (got,), (want,) = op.run("apply", u), op.twin("apply", u)
+        synchronize(device)
+        if not torch.isfinite(got).all() or got.shape != want.shape:
+            raise RuntimeError(f"elasticity apply/slab p={p} r={r} shard "
+                               f"{s}/{S} {name}: non-finite or shape "
+                               f"{tuple(got.shape)}")
+        err, rel = rel_err(got, want)
+        key = ("elasticity", "apply/slab", p, r, name)
+        errs[key] = max(errs.get(key, 0.0), err)
+        seen = f"max rel err {rel:.3e} (bound {BOUND[dtype]:.0e})"
+        log(f"  elasticity apply/slab p={p} r={r} shard {s}/{S} {name:7s} "
+            f"{seen}")
+        if rel > BOUND[dtype]:
+            raise RuntimeError(f"elasticity apply/slab p={p} r={r} shard "
+                               f"{s}/{S} {name}: {seen}")
+
+
+def time_elasticity_slab(p: int, r: int, S: int, device, s: int = 1) -> dict:
+    """B.5's slab ``apply`` on shard s of S at (p, r), float32: kernel and
+    twin ms (CUDA events, median of 10), the bound from this call's bytes
+    (the x-full input read once, the output written once) and FMAs (45
+    banded products of 2p+1 a grid point of the output)."""
+    _, op, u = next(elasticity_slab_cases(p, r, S, (s,), torch.float32,
+                                          device))
+    run, twin = (lambda: op.run("apply", u)), (lambda: op.twin("apply", u))
+    t_k, t_t = cuda_ms(run), cuda_ms(twin)
+    _, L, N, _ = op.trimmed_shape
+    b_ms, by = roofline(4 * 3 * (2 * L + 1) * N * N,
+                        PRODUCTS["elasticity"] * (2 * p + 1) * L * N * N,
+                        False)
+    log(f"  elasticity apply/slab p={p} r={r} shard {s}/{S} (3 x {L + 1} x "
+        f"{N} x {N} in): kernel {t_k:8.3f} ms   twin {t_t:8.3f} ms   bound "
+        f"{b_ms:.4f} ms ({by}, {100 * b_ms / t_k:.1f}% of roofline)   "
+        f"device {device_ms(run):.3f} ms back to back")
+    return {("elasticity", "apply/slab"): dict(
+        ms=t_k, plain_ms=t_t, library_ms=None, bound_ms=b_ms, bound_by=by)}
+
+
+def count_level_applies(levels) -> collections.Counter:
+    """Shadow each level operator's ``apply`` with one that counts its
+    calls by level (removed by :func:`uncount_level_applies`)."""
+    calls = collections.Counter()
+    for k, lvl in enumerate(levels):
+        def counted(u, orig=lvl.op.apply, k=k):
+            calls[k] += 1
+            return orig(u)
+
+        lvl.op.apply = counted
+    return calls
+
+
+def uncount_level_applies(levels) -> None:
+    for lvl in levels:
+        del lvl.op.apply
+
+
+def elasticity_launches() -> dict:
+    """B.5's launches by key since the last reset."""
+    return {k: n for k, n in cuda_elasticity.LAUNCHES.items() if n}
+
+
+def sharded_elasticity_solve(card: str, devices, p: int, r: int, what: str,
+                             timing: bool = False):
+    """The sharded elasticity solve on the kernel path in float32 to rtol
+    1e-5 against the single-device solve at the exact grade: converged, at
+    most one CG iteration more, L2 within F32_L2_BOUND_ELASTICITY of the
+    single device's, B.5's slab launched and no cube mode; returns (stats,
+    launches of construction and solve, times).  With ``timing`` both
+    eager V-cycles in turns, the busy shares and the launches per sharded
+    V-cycle, which must include every level's."""
+    from portable_multigrid_tpu_torch.parallel.elasticity import (
+        ShardedElasticity,
+        shard_vector,
+    )
+
+    device = devices[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    prob = ShardedElasticity(3, p, r, devices=devices, dtype=torch.float32,
+                             variant="auto")
+    synchronize(device)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, st = prob.solve(rtol=1e-5, verbose=True)
+    synchronize(device)
+    t_solve = time.perf_counter() - t0
+    launches = elasticity_launches()
+    log(f"  {what}: setup {t_setup:.2f} s, solve {t_solve:.2f} s; B.5 "
+        f"launches (construction and solve) {launches}")
+    if not launches.get("apply/slab") or set(launches) != {"apply/slab"}:
+        raise RuntimeError(f"{what}: B.5 launches {launches}, expected "
+                           f"apply/slab alone")
+    if (not np.isfinite(x).all()
+            or x.shape != (3,) + prob.spaces[-1].grid_shape):
+        raise RuntimeError(f"{what}: solution not finite or wrong shape")
+    old = os.environ.get("PMG_ELASTICITY_MXU")
+    os.environ["PMG_ELASTICITY_MXU"] = "0"  # the exact grade
+    try:
+        single = ElasticityMultigrid(3, p, r, dtype=torch.float32,
+                                     variant="auto", device=device)
+    finally:
+        if old is None:
+            del os.environ["PMG_ELASTICITY_MXU"]
+        else:
+            os.environ["PMG_ELASTICITY_MXU"] = old
+    x1, st1 = single.solve(rtol=1e-5, graph=False)
+    x1 = x1.cpu().numpy()
+    rel = abs(st.solution_l2_norm / st1.solution_l2_norm - 1.0)
+    diff = float(np.abs(x - x1).max() / np.abs(x1).max())
+    log(f"  {what}: {st.iterations} CG iterations (single device, exact "
+        f"grade: {st1.iterations}), L2 {st.solution_l2_norm:.10f} against "
+        f"{st1.solution_l2_norm:.10f}, rel diff {rel:.2e}; x within "
+        f"{diff:.3e} of max |x|")
+    if not (st.converged and st.iterations <= st1.iterations + 1
+            and rel <= F32_L2_BOUND_ELASTICITY):
+        raise RuntimeError(f"{what}: converged={st.converged}, "
+                           f"{st.iterations} CG iterations against "
+                           f"{st1.iterations}, L2 off by {rel:.2e}")
+    times = {}
+    if timing:
+        # one assembly of the load vector (seconds of host work at r = 6)
+        rhs1 = single.rhs()
+        rhs = shard_vector(rhs1.cpu().numpy(), 2 ** r, p, devices,
+                           torch.float32)
+        mg, v1 = prob.preconditioner(), single.preconditioner(graph=False)
+        turns = time_turns({"sharded eager": mg, "single eager": v1},
+                           {"sharded eager": rhs, "single eager": rhs1})
+        for name, ts in turns.items():
+            log(f"  V-cycle {name:13s} (float32, exact grade): {ts[0]:.3f} / "
+                f"{ts[1]:.3f} ms = {st.n_dofs / (min(ts) * 1e-3):.4e} DoF/s "
+                f"[{card}]")
+        device_busy(mg, rhs, statistics.mean(turns["sharded eager"]),
+                    "sharded eager")
+        device_busy(v1, rhs1, statistics.mean(turns["single eager"]),
+                    "single eager")
+        calls = count_level_applies(prob.levels)
+        reset_counts()
+        mg.apply(rhs)
+        synchronize(device)
+        uncount_level_applies(prob.levels)
+        per_vcycle = elasticity_launches()
+        by_level = {f"r={sp.mesh.refinements}": calls[k]
+                    for k, sp in enumerate(prob.spaces)}
+        log(f"  launches per sharded V-cycle: {per_vcycle}; operator "
+            f"applies by level {by_level}, {len(devices)} slab launches "
+            f"each")
+        if (any(calls[k] == 0 for k in range(len(prob.levels)))
+                or per_vcycle != {"apply/slab": len(devices)
+                                  * sum(calls.values())}):
+            raise RuntimeError(f"{what}: apply/slab not launched on every "
+                               f"level: {per_vcycle}, {by_level}")
+        reset_counts()
+        times = turns
+    return st, launches, times
+
+
+def phase_sharded_elasticity(card: str, device, errs: dict,
+                             per_mode: dict) -> dict:
+    """Phase 18: the slab-sharded elasticity solve as S shards on one
+    card."""
+    from portable_multigrid_tpu_torch.parallel.elasticity import (
+        ShardedElasticity,
+    )
+
+    log(f"phase 18: slab-sharded elasticity solve, {SHARDS} shards on one "
+        f"card ({card})")
+    for dtype in (torch.float32, torch.float64):
+        for p in range(1, 8):
+            elasticity_slab_compare(p, 3, SHARDS, (0, 1, SHARDS - 1), dtype,
+                                    device, errs)
+        # the fine slab of the Q3 r=6 solve: 16 cells, 3 x 49 x 192^2 in
+        elasticity_slab_compare(3, 6, SHARDS, (1,), dtype, device, errs)
+    times = time_elasticity_slab(3, 6, SHARDS, device)
+    _, launches, _ = sharded_elasticity_solve(
+        card, [device] * SHARDS, 3, 6, f"ShardedElasticity(3, 3, 6, "
+        f"{SHARDS} shards, float32, auto)", timing=True)
+    per_mode["elasticity"].update(launches)
+    # the plain path in float64 against the single-device solve
+    x, st = ShardedElasticity(3, 2, 3, devices=[device] * SHARDS).solve()
+    x1, st1 = ElasticityMultigrid(3, 2, 3, dtype=torch.float64,
+                                  variant="kron", device=device).solve()
+    x1 = x1.cpu().numpy()
+    diff = float(np.abs(x - x1).max() / np.abs(x1).max())
+    log(f"  ShardedElasticity(3, 2, 3, {SHARDS} shards, float64, sumfac): "
+        f"{st.iterations} CG iterations (single device {st1.iterations}), "
+        f"L2 {st.solution_l2_norm!r}, x within {diff:.2e} of max |x|")
+    if not (st.converged and diff <= 1e-10):
+        raise RuntimeError("sharded elasticity float64 plain path does not "
+                           "match the single-device solve")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        k = 2 ** int(math.log2(min(4, count)))
+        sharded_elasticity_solve(
+            card, [torch.device("cuda", i) for i in range(k)], 3, 6,
+            f"ShardedElasticity(3, 3, 6) across {k} cards")
+    else:
+        log(f"  across cards: not run, this machine has {count} card")
+    log("phase 18: ok")
+    return times
+
+
+def b5_hashes(device, path: str) -> None:
+    """The SHA-256 of every output of every cube B.5 mode at phase 8's
+    shapes on phase 8's seeded inputs, by (dtype, p, r, mode, output), to
+    ``path`` (JSON)."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for p, r in [(p, r) for r in (2, 3) for p in range(1, 8)] + [
+                (3, r) for r in (1, 4, 5, 6)]:
+            for name, c in level_cases("elasticity", p, r, dtype, device):
+                if name != "elasticity":
+                    continue
+                for k, t in enumerate(c.run()):
+                    out[f"{dtype} p={p} r={r} {c.mode} {k}"] = hashlib.sha256(
+                        t.cpu().numpy().tobytes()).hexdigest()
+            torch.cuda.empty_cache()
+    with open(path, "w") as fh:
+        json.dump(out, fh, indent=0, sort_keys=True)
+    log(f"{len(out)} B.5 outputs hashed -> {path}")
+
+
+def compare_hashes(a: str, b: str) -> int:
+    """Whether the outputs of two :func:`b5_hashes` files are equal bit for
+    bit: logs the count, returns 0 when all are."""
+    with open(a) as fa, open(b) as fb:
+        ha, hb = json.load(fa), json.load(fb)
+    same = sum(ha[k] == hb.get(k) for k in ha)
+    log(f"B.5 outputs bit for bit equal: {same} of {len(ha)} ({a} vs {b}; "
+        f"{len(hb)} in the second)")
+    return 0 if same == len(ha) == len(hb) else 1
+
+
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--main-path"]):
+    if argv[:1] == ["--compare-hashes"] and len(argv) == 3:
+        return compare_hashes(*argv[1:])
+    if argv not in ([], ["--main-path"]) and not (
+            argv[:1] == ["--b5-hashes"] and len(argv) == 2):
         raise SystemExit(f"unknown arguments {argv}; see the module docstring")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
@@ -2368,6 +2658,9 @@ def main(argv: list[str]) -> int:
         return out
 
     card = timed(1, phase_build)
+    if argv[:1] == ["--b5-hashes"]:
+        b5_hashes(device, argv[1])
+        return 0
     if argv:
         prob, st, per_mode = timed(4, phase_main, device, 6, GOLDEN_L2_Q4_R6,
                                    4)
@@ -2420,6 +2713,9 @@ def main(argv: list[str]) -> int:
     times.update(timed(16, phase_sharded, card, device, errs, per_mode))
     torch.cuda.empty_cache()
     times.update(timed(17, phase_pencil, card, device, errs, per_mode))
+    torch.cuda.empty_cache()
+    times.update(timed(18, phase_sharded_elasticity, card, device, errs,
+                       per_mode))
     torch.cuda.empty_cache()
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items()))

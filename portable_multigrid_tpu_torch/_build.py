@@ -40,7 +40,7 @@ _SIGNATURES = {
     "pmg_cheb2lr": [_P] * 10 + [_D] * 4 + [_I] * 6 + [_P],
     "pmg_prolong": [_P] * 5 + [_I] * 7 + [_P],
     "pmg_restrict": [_P] * 4 + [_I] * 6 + [_P],
-    "pmg_elasticity": [_P] * 15 + [_D] * 4 + [_I] * 7 + [_P],
+    "pmg_elasticity": [_P] * 24 + [_D] * 4 + [_I] * 9 + [_P],
 }
 
 

@@ -21,7 +21,9 @@ identical state and identical Chebyshev bounds:
     shard axis, into the port's per-shard objects on a list of devices;
     and the pencil solve's (:func:`pencil_levels`): its
     ``Sharded2DGeometricPoisson.levels_stacked``, every array with two
-    leading (sx, sy) mesh axes.
+    leading (sx, sy) mesh axes; and the sharded elasticity solve's
+    (:func:`sharded_elasticity_levels`): its
+    ``ShardedElasticity.levels_stacked``.
 """
 
 from __future__ import annotations
@@ -394,5 +396,119 @@ def pencil_levels(levels, devices, n_replicated: int, mesh_shape: tuple,
             tr = ShardedTransfer(local=tuple(
                 _shard_transfer(jtr, k, dtype, dev)
                 for k, dev in zip(at, devices)), mesh=(sx, sy))
+        out.append(MGLevel(op=op, smoother=smoother, transfer=tr))
+    return tuple(out)
+
+
+def _level_space(dim: int, n: int, degree: int):
+    """The FESpace of a level from its global cells per axis."""
+    from .fem.mesh import HyperCubeMesh
+    from .fem.space import FESpace
+
+    return FESpace(HyperCubeMesh(dim, int(np.log2(n))), degree)
+
+
+def _shard_elasticity(jop, devices, dtype):
+    """The port's per-shard operators of a stacked JAX ``sumfac``
+    ``ElasticityOperator`` level: its arrays shard by shard, the mask
+    factors read off each shard's grid mask, the diagonal factors from the
+    level's geometry (the JAX level holds the assembled inverse diagonal,
+    which each shard's must equal)."""
+    from .ops.elasticity import ElasticityOperator
+    from .parallel.elasticity import _build_stacked_elasticity
+
+    dim, p = jop.dim, jop.degree
+    if jop.variant != "sumfac":
+        raise ValueError(f"a sharded elasticity level is 'sumfac', not "
+                         f"{jop.variant!r}")
+    space = _level_space(dim, jop.n[1], p)
+    ref = _build_stacked_elasticity(space, devices, dtype, jop.mu, jop.lam)
+    local = []
+    for s, dev in enumerate(devices):
+        def t(a):
+            return _t(np.asarray(a, np.float64)[s], dtype, dev)
+
+        m = np.asarray(jop.mask, np.float64)[s]
+        # the factors through a free point: m[:, 1, ...] is free off the
+        # x factor's zeros, and plane i is free
+        i = int(np.argmax(m[(slice(None),) + (1,) * (dim - 1)]))
+        mask1 = [m[(slice(None),) + (1,) * (dim - 1)]]
+        for ax in range(1, dim):
+            mask1.append(m[tuple(slice(None) if a == ax else i if a == 0
+                                 else 1 for a in range(dim))])
+        op = ElasticityOperator(
+            dim=dim, degree=p, n=tuple(jop.n), mu=float(jop.mu),
+            lam=float(jop.lam), variant="sumfac",
+            mask1=tuple(_t(v, dtype, dev) for v in mask1),
+            dK1=ref.local[s].dK1, dM1=ref.local[s].dM1, B=t(jop.B),
+            Dco=t(jop.Dco), qmetric=t(jop.qmetric))
+        want = np.asarray(jop.inv_diag, np.float64)[s]
+        if not np.allclose(op.inv_diag.cpu().numpy(), want, rtol=1e-6,
+                           atol=0):
+            raise ValueError("the JAX level's diagonal is not the port's "
+                             "shard diagonal")
+        local.append(op)
+    return local
+
+
+def _kernel_elasticity_slabs(jop, devices, dtype):
+    """The port's B.5 slabs of a JAX ``ShardedPallasElasticity`` level: as
+    :func:`_kernel_slabs`, the 1D matrices from the level's geometry, each
+    shard's slices of the x mask and diagonal factors the JAX arrays; its
+    four thin rows must agree with the port's."""
+    from .parallel.elasticity import sharded_cuda_elasticity
+
+    loc = jop.local
+    p = loc.degree
+    space = _level_space(3, loc.n[1], p)
+    slices = [tuple(np.asarray(v[0], np.float64)[s]
+                    for v in (loc.mask1, loc.dK1, loc.dM1))
+              for s in range(len(devices))]
+    op = sharded_cuda_elasticity(space, devices, dtype, loc.mu, loc.lam,
+                                 slices)
+    for s in range(len(devices)):
+        cols = slices[s][0][-(p + 1):]
+        for got, want in zip((op.thin_kx, op.thin_mx, op.thin_gx,
+                              op.thin_hx),
+                             (jop.thin_kx, jop.thin_mx, jop.thin_gx,
+                              jop.thin_hx)):
+            want = np.asarray(want, np.float64)[s]
+            if not np.allclose(got[s].cpu().numpy(), want * cols, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max()):
+                raise ValueError("the JAX level's thin rows are not the "
+                                 "port's slab rows")
+    return op
+
+
+def sharded_elasticity_levels(levels, devices, dtype=torch.float64) -> tuple:
+    """The port's sharded elasticity levels (``parallel/elasticity.py``)
+    from the JAX package's ``ShardedElasticity.levels_stacked`` as NumPy
+    arrays with a leading shard axis, on ``devices`` (one per shard): a
+    stacked ``ElasticityOperator`` level as the plain sharded operator
+    (:func:`_shard_elasticity`), a ``ShardedPallasElasticity`` level as
+    B.5's slabs (:func:`_kernel_elasticity_slabs`); every smoother a plain
+    ``Chebyshev`` with the JAX level's degree and bounds; the transfers
+    shard by shard, exchanging along axis 1."""
+    from .parallel.sharding import (
+        ShardedElasticityOperator,
+        ShardedTransfer,
+    )
+    from .solvers.vcycle import MGLevel
+
+    devices = list(devices)
+    out = []
+    for lvl in levels:
+        jop, jsm, jtr = lvl.op, lvl.smoother, lvl.transfer
+        if type(jop).__name__ == "ShardedPallasElasticity":
+            op = _kernel_elasticity_slabs(jop, devices, dtype)
+        else:
+            op = ShardedElasticityOperator(
+                local=tuple(_shard_elasticity(jop, devices, dtype)))
+        smoother = Chebyshev(degree=int(jsm.degree), op=op,
+                             theta=float(np.asarray(jsm.theta)[0]),
+                             delta=float(np.asarray(jsm.delta)[0]))
+        tr = None if jtr is None else ShardedTransfer(
+            local=tuple(_shard_transfer(jtr, s, dtype, dev)
+                        for s, dev in enumerate(devices)), halo_axis=1)
         out.append(MGLevel(op=op, smoother=smoother, transfer=tr))
     return tuple(out)

@@ -24,6 +24,23 @@
 // The direct sum cancels terms of size |W||u| down to the O(h) result of a
 // smooth u and loses it to f32 roundoff; M stays direct.
 //
+// The slab of the sharded solve (ops/cuda_elasticity.py CudaElasticitySlab;
+// the TPU kernel's make_pallas_elasticity_slab, xmask="vector",
+// pallas_elasticity.py:703-732, in its one mode on that path, apply): x has
+// factors of its own, the bands and row sums of K, M, G and H = G^T
+// assembled over the slab's cells only, with the shard's slice of the
+// global x mask folded in (interior shard boundaries stay unmasked, so
+// their rows carry only this slab's cells), NX = n_loc p output planes, and
+// an x-full input of NXI = NX + 1 planes (the shard's trimmed planes and
+// its right neighbour's first).  The output drops the slab's last plane,
+// whose partial row the caller completes (parallel/sharding.py).  The
+// slab-partial G's rows do not sum to zero (an element's row i sums to
+// l_i(1) - l_i(0): -1 on a cell's first row), so the host takes the x row
+// sums from the masked partial matrices themselves.  Its epilogue is
+// apply's alone: every other mode is refused where NXI != NX.  The cube
+// passes its own factors as the x ones with NX = NXI = N, so that its
+// arithmetic is the one before.
+//
 // The mxu grade (float only; kRoundBF16 of StateFlags in common.cuh, the
 // JAX core "mxu" of pallas_elasticity.py:374-457): the host passes the four
 // bands rounded to bf16 and the row sums of the rounded bands, so that the
@@ -235,11 +252,16 @@ __global__ void __launch_bounds__(kMaxThreads<P>, sizeof(T) == 4 ? 2 : 1)
 elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                   const T* __restrict__ in2, T* __restrict__ out0,
                   T* __restrict__ out1, T* __restrict__ out2, Bands<T> b,
-                  const T* __restrict__ dk, const T* __restrict__ dm, T mu,
-                  T lam, T c0, T c1, int N_, int mode, int LX, int TY) {
+                  const T* __restrict__ dk, const T* __restrict__ dm,
+                  Bands<T> xb, const T* __restrict__ xdk,
+                  const T* __restrict__ xdm, T mu, T lam, T c0, T c1, int N_,
+                  int NX_, int NXI_, int mode, int LX, int TY) {
   constexpr int R = 2 * P + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t N = N_, N3 = N * N * N;
+  // y and z extent N; NX output planes along x from NXI input planes; a
+  // component's stride in the input and in the outputs
+  const int64_t N = N_, NX = NX_, NXI = NXI_;
+  const int64_t SI = NXI * N * N, SO = NX * N * N;
   const int WY = TY + 2 * P, WZ = kTZ + 2 * P;
   const int nwin = WY * WZ, ncols = TY * kTZ;
   T* win = reinterpret_cast<T*>(smem_raw);  // [2][3][WY][WZ]
@@ -250,16 +272,16 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   const int64_t x0 = (int64_t)blockIdx.z * LX;
   const int64_t gy = y0 + tid / kTZ, gz = z0 + tid % kTZ;
   const bool own = gy < N && gz < N;
-  const int64_t xs = x0 - P, xe = (x0 + LX < N ? x0 + LX : N) + P;
+  const int64_t xs = x0 - P, xe = (x0 + LX < NX ? x0 + LX : NX) + P;
 
   // the three components' windows of input plane xin, zeros off the grid
   auto load_plane = [&](int64_t xin, T* dst) {
-    const bool xok = xin >= 0 && xin < N;
+    const bool xok = xin >= 0 && xin < NXI;
     for (int i = tid; i < 3 * nwin; i += blockDim.x) {
       const int a = i / nwin, r = i % nwin;
       const int64_t yy = y0 - P + r / WZ, zz = z0 - P + r % WZ;
       const bool ok = xok && yy >= 0 && yy < N && zz >= 0 && zz < N;
-      cp_async_elem(dst + i, ok ? u + a * N3 + (xin * N + yy) * N + zz : u,
+      cp_async_elem(dst + i, ok ? u + a * SI + (xin * N + yy) * N + zz : u,
                     ok);
     }
     cp_async_commit();
@@ -311,7 +333,7 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
     const int64_t x = xin - P;
     if (x < x0 || !own) continue;
     Row<T, P> xr;
-    xr.load(b, N, x);
+    xr.load(xb, NX, x);
     const int base = (int)(x - x0) % R;  // ring slot of plane x - p
     int sc = base + P;
     if (sc >= R) sc -= R;
@@ -339,11 +361,11 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      laplace_epilogue(mode, c * N3 + (x * N + gy) * N + gz, acc[c], u, in1,
+      laplace_epilogue(mode, c * SO + (x * N + gy) * N + gz, acc[c], u, in1,
                        in2, out0, out1, out2, c0, c1, [&] {
-        const T t0 = dk[x] * dm[gy] * dm[gz];
-        const T t1 = dm[x] * dk[gy] * dm[gz];
-        const T t2 = dm[x] * dm[gy] * dk[gz];
+        const T t0 = xdk[x] * dm[gy] * dm[gz];
+        const T t1 = xdm[x] * dk[gy] * dm[gz];
+        const T t2 = xdm[x] * dm[gy] * dk[gz];
         return (c == 0 ? al : mu) * t0 + (c == 1 ? al : mu) * t1 +
                (c == 2 ? al : mu) * t2;
       });
@@ -351,11 +373,24 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   }
 }
 
+// The operator's arrays and the launch geometry, as the host hands them
+// over: the y-z factors (b; dk, dm) of extent N and the x factors (xb; xdk,
+// xdm) of NX rows, NX output planes from NXI input planes.  On the cube x
+// has the y-z factors and NX = NXI = N; on a slab x has the slab's own
+// and NXI = NX + 1 (the input is x-full).
+template <typename T>
+struct Operator {
+  Bands<T> b;
+  const T *dk, *dm;
+  Bands<T> xb;
+  const T *xdk, *xdm;
+  int N, NX, NXI;
+};
+
 template <typename T, int P, bool RND>
 int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
-             T* out2, const Bands<T>& b, const T* dk, const T* dm, double mu,
-             double lam, double c0, double c1, int N, int mode, int LX,
-             int TY, void* stream) {
+             T* out2, const Operator<T>& op, double mu, double lam,
+             double c0, double c1, int mode, int LX, int TY, void* stream) {
   if (TY * kTZ > kMaxThreads<P>) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_elems(P, TY) * sizeof(T);
   const void* kernel = (const void*)elasticity_kernel<T, P, RND>;
@@ -366,47 +401,46 @@ int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)ceil_div(N, kTZ), (unsigned)ceil_div(N, TY),
-                  (unsigned)ceil_div(N, LX));
+  const dim3 grid((unsigned)ceil_div(op.N, kTZ), (unsigned)ceil_div(op.N, TY),
+                  (unsigned)ceil_div(op.NX, LX));
   elasticity_kernel<T, P, RND><<<grid, TY * kTZ, smem, (cudaStream_t)stream>>>(
-      u, in1, in2, out0, out1, out2, b, dk, dm, (T)mu, (T)lam, (T)c0, (T)c1,
-      N, mode, LX, TY);
+      u, in1, in2, out0, out1, out2, op.b, op.dk, op.dm, op.xb, op.xdk,
+      op.xdm, (T)mu, (T)lam, (T)c0, (T)c1, op.N, op.NX, op.NXI, mode, LX, TY);
   return (int)cudaGetLastError();
 }
 
 // the mxu grade's instance where the flags ask for it (float only)
 template <typename T, int P>
 int launch_grade(const T* u, const T* in1, const T* in2, T* out0, T* out1,
-                 T* out2, const Bands<T>& b, const T* dk, const T* dm,
-                 double mu, double lam, double c0, double c1, int N, int mode,
-                 int LX, int TY, int flags, void* stream) {
+                 T* out2, const Operator<T>& op, double mu, double lam,
+                 double c0, double c1, int mode, int LX, int TY, int flags,
+                 void* stream) {
   if constexpr (sizeof(T) == 4) {
     if (flags & kRoundBF16)
-      return launch_p<T, P, true>(u, in1, in2, out0, out1, out2, b, dk, dm,
-                                  mu, lam, c0, c1, N, mode, LX, TY, stream);
+      return launch_p<T, P, true>(u, in1, in2, out0, out1, out2, op, mu, lam,
+                                  c0, c1, mode, LX, TY, stream);
   }
-  return launch_p<T, P, false>(u, in1, in2, out0, out1, out2, b, dk, dm, mu,
-                               lam, c0, c1, N, mode, LX, TY, stream);
+  return launch_p<T, P, false>(u, in1, in2, out0, out1, out2, op, mu, lam,
+                               c0, c1, mode, LX, TY, stream);
 }
 
 template <typename T>
 int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
-           const T* kb, const T* ks, const T* mb, const T* gb, const T* gs,
-           const T* hb, const T* hs, const T* dk, const T* dm, double mu,
-           double lam, double c0, double c1, int N, int p, int mode, int LX,
-           int TY, int TZ, int flags, void* stream) {
+           const Operator<T>& op, double mu, double lam, double c0, double c1,
+           int p, int mode, int LX, int TY, int TZ, int flags, void* stream) {
   // a block is TY warps, one per y row of its column; the state streams
-  // are never bf16, and a double kernel has no mxu grade
+  // are never bf16, and a double kernel has no mxu grade; an x-full input
+  // (a slab's) takes apply alone
   if (TZ != kTZ || TY < 1 || TY * kTZ > kThreads || LX < 1 ||
       mode < kApply || mode > kChebDL || (flags & ~kRoundBF16) ||
-      (flags && sizeof(T) != 4))
+      (flags && sizeof(T) != 4) || op.N < 1 || op.NX < 1 ||
+      op.NXI < op.NX || (op.NXI != op.NX && mode != kApply))
     return (int)cudaErrorInvalidValue;
-  const Bands<T> b{kb, ks, mb, gb, gs, hb, hs};
   switch (p) {
 #define PMG_CASE(PP)                                                        \
   case PP:                                                                  \
-    return launch_grade<T, PP>(u, in1, in2, out0, out1, out2, b, dk, dm, mu, \
-                               lam, c0, c1, N, mode, LX, TY, flags, stream);
+    return launch_grade<T, PP>(u, in1, in2, out0, out1, out2, op, mu, lam,  \
+                               c0, c1, mode, LX, TY, flags, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE
@@ -419,27 +453,30 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 
 // (LX, TY, TZ) is the launch tile: LX output planes per block along x, a
 // (TY, TZ = 32) column of the y-z plane; flags: kRoundBF16 for the mxu
-// grade (float only), else 0.
-extern "C" int pmg_elasticity_f32(
-    const float* u, const float* in1, const float* in2, float* out0,
-    float* out1, float* out2, const float* kb, const float* ks,
-    const float* mb, const float* gb, const float* gs, const float* hb,
-    const float* hs, const float* dk, const float* dm, double mu, double lam,
-    double c0, double c1, int N, int p, int mode, int LX, int TY, int TZ,
-    int flags, void* stream) {
-  return launch<float>(u, in1, in2, out0, out1, out2, kb, ks, mb, gb, gs, hb,
-                       hs, dk, dm, mu, lam, c0, c1, N, p, mode, LX, TY, TZ,
-                       flags, stream);
-}
+// grade (float only), else 0.  kb .. dm: the y-z factors (extent N); xkb ..
+// xdm: the x factors (NX rows); NX output planes from NXI input planes (the
+// Operator struct above).
+#define PMG_ELASTICITY_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(                                                       \
+      const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,     \
+      const T* kb, const T* ks, const T* mb, const T* gb, const T* gs,       \
+      const T* hb, const T* hs, const T* dk, const T* dm, const T* xkb,      \
+      const T* xks, const T* xmb, const T* xgb, const T* xgs, const T* xhb,  \
+      const T* xhs, const T* xdk, const T* xdm, double mu, double lam,       \
+      double c0, double c1, int N, int NX, int NXI, int p, int mode, int LX, \
+      int TY, int TZ, int flags, void* stream) {                             \
+    const Operator<T> op{{kb, ks, mb, gb, gs, hb, hs},                       \
+                         dk,                                                 \
+                         dm,                                                 \
+                         {xkb, xks, xmb, xgb, xgs, xhb, xhs},                \
+                         xdk,                                                \
+                         xdm,                                                \
+                         N,                                                  \
+                         NX,                                                 \
+                         NXI};                                               \
+    return launch<T>(u, in1, in2, out0, out1, out2, op, mu, lam, c0, c1, p,  \
+                     mode, LX, TY, TZ, flags, stream);                       \
+  }
 
-extern "C" int pmg_elasticity_f64(
-    const double* u, const double* in1, const double* in2, double* out0,
-    double* out1, double* out2, const double* kb, const double* ks,
-    const double* mb, const double* gb, const double* gs, const double* hb,
-    const double* hs, const double* dk, const double* dm, double mu,
-    double lam, double c0, double c1, int N, int p, int mode, int LX, int TY,
-    int TZ, int flags, void* stream) {
-  return launch<double>(u, in1, in2, out0, out1, out2, kb, ks, mb, gb, gs,
-                        hb, hs, dk, dm, mu, lam, c0, c1, N, p, mode, LX, TY,
-                        TZ, flags, stream);
-}
+PMG_ELASTICITY_ENTRY(pmg_elasticity_f32, float)
+PMG_ELASTICITY_ENTRY(pmg_elasticity_f64, double)

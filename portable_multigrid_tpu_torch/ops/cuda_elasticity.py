@@ -33,6 +33,13 @@ JAX kernel has no bf16 state, and neither has B.5 (``bf16_state``).  The
 TPU core assembles x and y per block and rounds the two halves of a block
 boundary entry apart; the global bands round the whole entry, so the two
 agree at bf16 grade, not bit for bit.
+
+:class:`CudaElasticitySlab` is the operator on one shard's slab of the
+slab-sharded solve (the TPU kernel's ``make_pallas_elasticity_slab``,
+``xmask="vector"``), in its one mode on that path, ``apply``, at the exact
+core: x has factors of its own (:func:`elasticity_partial_bands`), the
+input is x-full and the output drops the slab's last plane, as B.1's slab
+(``ops/cuda_laplace.py`` ``CudaLaplaceSlab``) does.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ from .cuda_laplace import (
     SMEM_LIMIT,
     SMS,
     CudaLaplaceOperator,
+    _check,
+    _launch,
     round_bf16,
     row_sums,
     to_bands,
@@ -61,7 +70,11 @@ from .elasticity import (
     elasticity_kron,
     separable_elasticity_diagonal,
 )
-from .laplace import assembled_1d_matrices, diagonal_1d_factors
+from .laplace import (
+    assembled_1d_matrices,
+    diagonal_1d_factors,
+    separable_mask,
+)
 from .structured import contract
 
 # kernel launches per mode, counted where the wrapper launches the kernel
@@ -82,8 +95,10 @@ def elasticity_smem_elems(p: int, ty: int) -> int:
     return 2 * 3 * wy * wz + 2 * 4 * wy * TZ + (2 * p + 1) * _GROUPS * ty * TZ
 
 
-def elasticity_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
-    """(LX, TY, TZ) of the launch for an N^3 grid.
+def elasticity_tile(p: int, itemsize: int, N: int,
+                    nx: int | None = None) -> tuple[int, int, int]:
+    """(LX, TY, TZ) of the launch for an N^3 grid (``nx`` output planes
+    along x on a slab, N by default).
 
     TY: the largest that leaves room for two blocks per SM in float32 (the
     kernel's register bound assumes two), else the largest that fits one.
@@ -102,9 +117,10 @@ def elasticity_tile(p: int, itemsize: int, N: int) -> tuple[int, int, int]:
     two = itemsize == 4 and elasticity_smem_elems(p, ty) * 4 <= SMEM_BUDGET
     resident = SMS * (2 if two else 1)
     columns = -(-N // TZ) * -(-N // ty)
+    nx = N if nx is None else nx
 
     def cost(lx):
-        return -(-columns * -(-N // lx) // resident) * (lx + 2 * p)
+        return -(-columns * -(-nx // lx) // resident) * (lx + 2 * p)
 
     return min(_LX, key=lambda lx: (cost(lx), -lx)), ty, TZ
 
@@ -154,14 +170,146 @@ class CudaElasticityOperator(CudaLaplaceOperator):
         return elasticity_twin(self, mode, u, ins, scal)
 
     def kernel_state(self) -> tuple:
-        return (self.kband, self.ksum, self.mband, self.gband, self.gsum,
+        """The y-z factors, then the x factors (on the cube the same
+        ones)."""
+        cube = (self.kband, self.ksum, self.mband, self.gband, self.gsum,
                 self.hband, self.hsum, self.dK1, self.dM1)
+        return cube * 2
 
     def kernel_scalars(self) -> tuple:
         return float(self.mu), float(self.lam)
 
     def kernel_sizes(self) -> tuple:
-        return (self.n * self.degree,)
+        """N, then the output and the input planes along x."""
+        N = self.n * self.degree
+        return N, N, N
+
+
+@dataclasses.dataclass
+class CudaElasticitySlab(CudaElasticityOperator):
+    """B.5 on one shard's slab of the slab-sharded solve: the TPU kernel's
+    ``make_pallas_elasticity_slab`` (``xmask="vector"``) in its one mode on
+    that path, ``apply``, at the exact core.
+
+    y and z are the cube's (N = n p trimmed points, the global factors);
+    x has factors of its own: the bands of K, M, G and H = G^T assembled
+    over the slab's ``n_loc`` cells with the shard's slice of the global x
+    mask folded in, the row sums of K, G and H taken from those masked
+    partial matrices (:func:`elasticity_partial_bands`), and the shard's
+    slices of the global diagonal factors.  ``apply`` takes the x-FULL
+    input, the shard's L = n_loc p trimmed planes of each component and
+    its right neighbour's first plane, [3, L + 1, N, N], and writes the raw
+    partial planes [3, L, N, N]: the slab's last plane, and the left
+    neighbour's cells on plane 0, are the caller's
+    (``parallel/sharding.py`` ``ShardedCudaElasticity``).  Float32 (the
+    solve's) or float64."""
+
+    n_loc: int = 0  # the slab's cells along x
+    xkband: torch.Tensor = None  # [2p+1, L] bands of the masked partial K
+    xksum: torch.Tensor = None  # [L] its row sums
+    xmband: torch.Tensor = None  # [2p+1, L] bands of the masked partial M
+    xgband: torch.Tensor = None  # [2p+1, L] ... of G
+    xgsum: torch.Tensor = None  # [L] its row sums (-1 on an unmasked row 0)
+    xhband: torch.Tensor = None  # [2p+1, L] ... of H = G^T
+    xhsum: torch.Tensor = None  # [L] its row sums
+    mask1x: torch.Tensor = None  # [L+1] the shard's slice of the x mask
+    dK1x: torch.Tensor = None  # [L+1] ... of the stiffness diagonal factor
+    dM1x: torch.Tensor = None  # [L+1] ... of the mass diagonal factor
+    # [L, L+1] the masked partial K, M, G and H, rows 0 .. L-1 (twin)
+    Kx: torch.Tensor = None
+    Mx: torch.Tensor = None
+    Gx: torch.Tensor = None
+    Hx: torch.Tensor = None
+
+    @property
+    def grid_shape(self) -> tuple[int, ...]:
+        """The full slab, shared planes included (one component)."""
+        N = self.n * self.degree
+        return self.n_loc * self.degree + 1, N + 1, N + 1
+
+    @property
+    def trimmed_shape(self) -> tuple[int, ...]:
+        N = self.n * self.degree
+        return 3, self.n_loc * self.degree, N, N
+
+    @property
+    def input_shape(self) -> tuple[int, ...]:
+        """The x-full input: one plane more than the trimmed state."""
+        _, L, N, _ = self.trimmed_shape
+        return 3, L + 1, N, N
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return separable_mask((self.mask1x, self.mask1, self.mask1))
+
+    @property
+    def inv_diag(self) -> torch.Tensor:
+        return elasticity_inv_diag(self, (self.dK1x, self.dK1, self.dK1),
+                                   (self.dM1x, self.dM1, self.dM1))
+
+    def diag_trimmed(self) -> torch.Tensor:
+        L = self.trimmed_shape[1]
+        return separable_elasticity_diagonal(
+            (self.dK1x[:L], self.dKt, self.dKt),
+            (self.dM1x[:L], self.dMt, self.dMt), self.mu, self.lam, 3)
+
+    def run(self, mode: str, u: torch.Tensor, ins=(), scal=(), sdtype=None):
+        """``apply`` on the x-full ``u``; returns (raw,)."""
+        if mode != "apply":
+            raise ValueError(f"unknown elasticity slab mode {mode!r}: a "
+                             f"slab runs 'apply'")
+        if ins or scal or sdtype not in (None, self.dtype):
+            raise ValueError("a slab's apply takes u alone")
+        _check(self, u, "u", shape=self.input_shape)
+        if u.device.type == "cpu":
+            return self.twin(mode, u)
+        if not u.is_cuda:
+            raise ValueError(f"unsupported device {u.device}")
+        return _launch(self, MODES.index("apply"), u, (), (), (self.dtype,),
+                       0, "apply/slab", self.trimmed_shape)
+
+    def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(), sdtype=None):
+        """The dense partial x matrices and the global y-z ones contracted
+        directly."""
+        Gt = self.Gt
+        return (elasticity_kron(u, (self.Kx, self.Kt, self.Kt),
+                                (self.Mx, self.Mt, self.Mt),
+                                (self.Gx, Gt, Gt), (self.Hx, Gt.T, Gt.T),
+                                self.mu, self.lam),)
+
+    def kernel_state(self) -> tuple:
+        return ((self.kband, self.ksum, self.mband, self.gband, self.gsum,
+                 self.hband, self.hsum, self.dK1, self.dM1)
+                + (self.xkband, self.xksum, self.xmband, self.xgband,
+                   self.xgsum, self.xhband, self.xhsum, self.dK1x,
+                   self.dM1x))
+
+    def kernel_sizes(self) -> tuple:
+        _, L, N, _ = self.trimmed_shape
+        return N, L, L + 1
+
+
+def elasticity_partial_bands(m, K, M, G, degree: int) -> dict:
+    """The x fields of a :class:`CudaElasticitySlab` (NumPy, by field
+    name) from its partial 1D assembly ``K``, ``M``, ``G`` (float64, L + 1
+    rows) with its slice ``m`` of the global mask folded in, over the first
+    L rows: the bands of K, M, G and H = G^T, the row sums of K, G and H,
+    and the dense [L, L + 1] matrices.
+    The row sums come from the masked partial matrices themselves:
+    :func:`~.cuda_laplace.row_sums` assumes that a free row sums to zero,
+    which holds for K and H but not for the partial G, whose element rows
+    sum to l_i(1) - l_i(0) (-1 on a slab's unmasked row 0)."""
+    m, K, M, G = (np.asarray(a, np.float64) for a in (m, K, M, G))
+    L = K.shape[0] - 1
+    folded = {name: m[:, None] * W * m[None, :]
+              for name, W in (("K", K), ("M", M), ("G", G), ("H", G.T))}
+    out = {}
+    for name, W in folded.items():
+        out["x" + name.lower() + "band"] = to_bands(W, degree)[:, :L]
+        if name != "M":
+            out["x" + name.lower() + "sum"] = W.sum(axis=1)[:L]
+        out[name + "x"] = W[:L]
+    return out
 
 
 def elasticity_twin(op: CudaElasticityOperator, mode: str, u: torch.Tensor,
@@ -212,6 +360,33 @@ def elasticity_grouped(u: torch.Tensor, K, M, G, mu: float, lam: float,
     )
     return torch.stack([sum(contract(rnd(t), mats[X], 0)
                             for X, t in g.items()) for g in groups])
+
+
+def cuda_elasticity_slab_from_factors(
+        degree: int, n: int, n_loc: int, m1, K1, M1, G1, gK, gM, mu: float,
+        lam: float, mx, Kx, Mx, Gx, gKx, gMx, dtype=torch.float32,
+        device="cpu") -> CudaElasticitySlab:
+    """Pack a slab's operator (NumPy, float64) at the exact core: the
+    global 1D factors of y and z (``m1``, ``K1``, ``M1``, ``G1``, ``gK``,
+    ``gM``, length n p + 1), and the slab's x factors: the shard's slices
+    ``mx``, ``gKx``, ``gMx`` of the global mask and diagonal factors and
+    the slab-partial assembly ``Kx``, ``Mx``, ``Gx`` over its n_loc cells,
+    all of length n_loc p + 1 (:func:`elasticity_partial_bands`)."""
+    cube = cuda_elasticity_from_factors(degree, n, m1, K1, M1, G1, gK, gM,
+                                        mu, lam, dtype, device)
+    x = elasticity_partial_bands(mx, Kx, Mx, Gx, degree)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
+                               device=device)
+
+    fields = {f.name: getattr(cube, f.name) for f in dataclasses.fields(cube)}
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    fields["tile"] = elasticity_tile(degree, itemsize, n * degree,
+                                     nx=n_loc * degree)
+    return CudaElasticitySlab(
+        **fields, n_loc=n_loc, mask1x=t(mx), dK1x=t(gKx), dM1x=t(gMx),
+        **{k: t(v) for k, v in x.items()})
 
 
 def cuda_elasticity_from_factors(degree: int, n: int, m1, K1, M1, G1, gK, gM,

@@ -56,78 +56,98 @@ def alpha(a: int, c: int, mu: float, lam: float) -> float:
     return 2.0 * mu + lam if a == c else mu
 
 
-def elasticity_kron(u: torch.Tensor, K, M, G, GT, mu: float,
-                    lam: float) -> torch.Tensor:
-    """The Kronecker chains on a [dim, N, ..., N] field, the same 1D matrices
-    on every axis (``ElasticityOperator.apply_kron`` of the JAX package)."""
-    dim = u.shape[0]
+def _per_axis(v, dim: int) -> tuple:
+    """Per-axis factors: a tuple as it is, one tensor for every axis."""
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * dim
 
-    def kron(w, mats):
-        for ax in reversed(range(dim)):
-            w = contract(w, mats[ax], ax)
-        return w
 
-    def pattern(e, f):
-        """Per-axis matrices for D(∂e, ∂f), e != f."""
-        return tuple(G if a == e else GT if a == f else M for a in range(dim))
-
-    outs = []
+def elasticity_chains(mu: float, lam: float, dim: int = 3) -> list:
+    """The Kronecker chains of the weak form as (output c, input a, the
+    per-axis matrix names, weight), a name K, M, G or H = G^T, in the
+    order :func:`elasticity_kron` sums them: per output the stiffness
+    chains (K on axis k, alpha_{k,c}), then per other input a the two
+    couplings, mu (G@a, H@c) and lam (G@c, H@a)."""
+    out = []
     for c in range(dim):
-        out = None
-        for a in range(dim):
-            mats = tuple(K if ax == a else M for ax in range(dim))
-            t = alpha(a, c, mu, lam) * kron(u[c], mats)
-            out = t if out is None else out + t
+        for k in range(dim):
+            out.append((c, c, "".join("K" if ax == k else "M"
+                                      for ax in range(dim)),
+                        alpha(k, c, mu, lam)))
         for a in range(dim):
             if a == c:
                 continue
-            out = out + mu * kron(u[a], pattern(a, c))
-            out = out + lam * kron(u[a], pattern(c, a))
-        outs.append(out)
+            for e, f, w in ((a, c, mu), (c, a, lam)):
+                out.append((c, a, "".join("G" if ax == e else "H" if ax == f
+                                          else "M" for ax in range(dim)), w))
+    return out
+
+
+def elasticity_kron(u: torch.Tensor, K, M, G, GT, mu: float,
+                    lam: float) -> torch.Tensor:
+    """The Kronecker chains on a [dim, ...] field
+    (``ElasticityOperator.apply_kron`` of the JAX package): ``K``, ``M``,
+    ``G`` and ``GT`` one 1D matrix for every axis, or a tuple of one per
+    axis (a slab's x matrices its own, [L, L + 1] on its x-full input)."""
+    dim = u.shape[0]
+    mats = dict(zip("KMGH", (_per_axis(W, dim) for W in (K, M, G, GT))))
+    outs = [None] * dim
+    for c, a, names, w in elasticity_chains(mu, lam, dim):
+        t = u[a]
+        for ax in reversed(range(dim)):
+            t = contract(t, mats[names[ax]][ax], ax)
+        t = w * t
+        outs[c] = t if outs[c] is None else outs[c] + t
     return torch.stack(outs)
 
 
 def separable_elasticity_diagonal(dK1, dM1, mu: float, lam: float,
                                   dim: int) -> torch.Tensor:
     """[dim, grid]: diag_c = sum_k alpha_{k,c} (x)_d (dK1 if d == k else dM1)
-    (raw values on constrained entries)."""
+    (raw values on constrained entries); ``dK1``, ``dM1`` one factor for
+    every axis or a tuple of one per axis."""
+    dK1, dM1 = _per_axis(dK1, dim), _per_axis(dM1, dim)
     terms = []
     for k in range(dim):
         term = None
         for d in range(dim):
-            f = bcast(dK1 if d == k else dM1, d, dim)
+            f = bcast(dK1[d] if d == k else dM1[d], d, dim)
             term = f if term is None else term * f
         terms.append(term)
     return torch.stack([sum(alpha(k, c, mu, lam) * terms[k]
                             for k in range(dim)) for c in range(dim)])
 
 
-def elasticity_inv_diag(op) -> torch.Tensor:
+def elasticity_inv_diag(op, dK1=None, dM1=None) -> torch.Tensor:
     """[dim, grid] inverse diagonal of an elasticity operator (kron or
-    B.5), constrained entries 1."""
+    B.5), constrained entries 1; ``dK1``, ``dM1`` the per-axis diagonal
+    factors where they are not the operator's own (a B.5 slab's)."""
     m = op.mask
-    diag = separable_elasticity_diagonal(op.dK1, op.dM1, op.mu, op.lam,
-                                         op.dim)
+    diag = separable_elasticity_diagonal(
+        op.dK1 if dK1 is None else dK1, op.dM1 if dM1 is None else dM1,
+        op.mu, op.lam, op.dim)
     return 1.0 / (diag * m + (1.0 - m))
 
 
 @dataclasses.dataclass
 class ElasticityOperator:
-    """Elasticity operator holding its state as tensors (1D factors the
-    same on every axis); the fields a variant does not use stay None."""
+    """Elasticity operator holding its state as tensors, per axis (a
+    slab of the sharded solve has an x extent and x factors of its own,
+    ``parallel/elasticity.py``); the fields a variant does not use stay
+    None."""
 
     dim: int
     degree: int
-    n: int  # cells per axis
+    n: tuple  # cells per axis
     mu: float
     lam: float
-    mask1: torch.Tensor  # [N] free-DoF mask factor
-    dK1: torch.Tensor  # [N] assembled stiffness diagonal (h-folded)
-    dM1: torch.Tensor  # [N] assembled mass diagonal
+    mask1: tuple  # per-axis [N_d] free-DoF mask factors
+    dK1: tuple  # per-axis assembled stiffness diagonals (h-folded)
+    dM1: tuple  # per-axis assembled mass diagonals
     variant: str = "kron"
-    Kg: torch.Tensor = None  # [N, N] assembled 1D stiffness
-    Mg: torch.Tensor = None  # [N, N] assembled 1D mass
-    Gg: torch.Tensor = None  # [N, N] assembled 1D gradient (test-derivative rows)
+    Kg: tuple = None  # per-axis [N_d, N_d] assembled 1D stiffness
+    Mg: tuple = None  # per-axis [N_d, N_d] assembled 1D mass
+    # per-axis [N_d, N_d] assembled 1D gradient (test-derivative rows)
+    Gg: tuple = None
     B: torch.Tensor = None  # [nq, p+1] shape values at the quadrature points
     Dco: torch.Tensor = None  # [nq, nq] collocation derivative
     qmetric: torch.Tensor = None  # [nq]^dim: w_q (x) ... (x) w_q h^(dim-2)
@@ -135,7 +155,7 @@ class ElasticityOperator:
 
     @property
     def grid_shape(self) -> tuple[int, ...]:
-        return (self.n * self.degree + 1,) * self.dim
+        return tuple(nd * self.degree + 1 for nd in self.n)
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -147,32 +167,31 @@ class ElasticityOperator:
 
     @property
     def dtype(self):
-        return self.mask1.dtype
+        return self.mask1[0].dtype
 
     @property
     def device(self):
-        return self.mask1.device
+        return self.mask1[0].device
 
     @property
     def mask(self) -> torch.Tensor:
         """Scalar grid mask, shared by every component."""
-        return separable_mask((self.mask1,) * self.dim)
+        return separable_mask(self.mask1)
 
     @property
     def inv_diag(self) -> torch.Tensor:
         return elasticity_inv_diag(self)
 
     def apply_kron(self, um: torch.Tensor) -> torch.Tensor:
-        return elasticity_kron(um, self.Kg, self.Mg, self.Gg, self.Gg.T,
-                               self.mu, self.lam)
+        return elasticity_kron(um, self.Kg, self.Mg, self.Gg,
+                               tuple(G.T for G in self.Gg), self.mu, self.lam)
 
     def apply_sumfac(self, um: torch.Tensor) -> torch.Tensor:
         """Gather, the gradient tensor G[c][d] at the quadrature points, the
         stress tau[c][d] = mu (G[c,d] + G[d,c]) + lam delta_cd tr(G) scaled
         by the q-point weights, the transposed gradients and basis change
         back, and the scatter, per component."""
-        dim, p = self.dim, self.degree
-        n = (self.n,) * dim
+        dim, p, n = self.dim, self.degree, self.n
         nq = self.B.shape[0]
         qaxes = [2 * d + 1 for d in range(dim)]
         w = self.qmetric.reshape(tuple(1 if a % 2 == 0 else nq
@@ -206,8 +225,8 @@ class ElasticityOperator:
         """The element loop, all component couplings included, as one
         [E, dim (p+1)^dim] @ [dim (p+1)^dim]^2 product with the constant
         element matrix."""
-        dim, p = self.dim, self.degree
-        n, q = (self.n,) * dim, p + 1
+        dim, p, n = self.dim, self.degree, self.n
+        q = p + 1
         perm = element_perm(dim)
         flat = torch.cat([split_all(um[c], dim, n, p).permute(perm)
                           .reshape(-1, q ** dim) for c in range(dim)], dim=1)
@@ -315,15 +334,19 @@ def elasticity_from_factors(*, dim: int, degree: int, n: int, mu: float,
     """Pack an operator from its state (NumPy, float64): the 1D mask and
     diagonal factors, and the variant's own (``K1``, ``M1``, ``G1`` for
     kron; ``B``, ``Dco``, ``qmetric`` for sumfac; ``elem_matrix`` for
-    dense)."""
+    dense), the same on every axis."""
     def t(a):
         return None if a is None else torch.as_tensor(
             np.array(a, np.float64), dtype=dtype, device=device)
 
-    return ElasticityOperator(dim=dim, degree=degree, n=n, mu=float(mu),
-                              lam=float(lam), mask1=t(m1), dK1=t(gK),
-                              dM1=t(gM), variant=variant, Kg=t(K1), Mg=t(M1),
-                              Gg=t(G1), B=t(B), Dco=t(Dco), qmetric=t(qmetric),
+    def axes(a):
+        return None if a is None else (t(a),) * dim
+
+    return ElasticityOperator(dim=dim, degree=degree, n=(n,) * dim,
+                              mu=float(mu), lam=float(lam), mask1=axes(m1),
+                              dK1=axes(gK), dM1=axes(gM), variant=variant,
+                              Kg=axes(K1), Mg=axes(M1), Gg=axes(G1), B=t(B),
+                              Dco=t(Dco), qmetric=t(qmetric),
                               elem_matrix=t(elem_matrix))
 
 

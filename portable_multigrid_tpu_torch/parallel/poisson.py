@@ -155,10 +155,12 @@ def _build_stacked_operator(space: FESpace, devices, dtype,
 
 
 def _stacked_transfer(n_c: int, stride_c: int, stride_f: int, M1, wf, mc,
-                      dim: int, devices, dtype) -> ShardedTransfer:
+                      dim: int, devices, dtype,
+                      halo_axis: int = 0) -> ShardedTransfer:
     """Per shard the separable transfer of its slab: the x weights and
     masks the shard's slices of the global ones (the fine grid's slabs at
-    stride_f, the coarse grid's at stride_c)."""
+    stride_f, the coarse grid's at stride_c); ``halo_axis`` 1 for fields
+    with a leading component axis."""
     S = len(devices)
     wf0 = partition_axis0(wf, n_c, stride_f, S)
     mc0 = partition_axis0(mc, n_c, stride_c, S)
@@ -173,16 +175,16 @@ def _stacked_transfer(n_c: int, stride_c: int, stride_f: int, M1, wf, mc,
             stride_c=stride_c, stride_f=stride_f, M1=t(M1),
             wmask_f=(t(wf0[s]),) + (t(wf),) * (dim - 1),
             mask_c1=(t(mc0[s]),) + (t(mc),) * (dim - 1)))
-    return ShardedTransfer(local=tuple(local))
+    return ShardedTransfer(local=tuple(local), halo_axis=halo_axis)
 
 
 def _build_stacked_h_transfer(coarse: FESpace, fine: FESpace, devices,
-                              dtype) -> ShardedTransfer:
+                              dtype, halo_axis: int = 0) -> ShardedTransfer:
     p, n_c = coarse.degree, coarse.mesh.cells_per_axis
     wf = _weights_1d(n_c, 2 * p) * fine.free_mask_1d()
     return _stacked_transfer(n_c, p, 2 * p, h_prolongation_matrix_1d(p), wf,
                              coarse.free_mask_1d(), coarse.dim, devices,
-                             dtype)
+                             dtype, halo_axis)
 
 
 def _build_stacked_p_transfer(coarse: FESpace, fine: FESpace, devices,

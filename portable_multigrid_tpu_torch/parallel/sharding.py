@@ -29,11 +29,13 @@ those run on it unchanged.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import numpy as np
 import torch
 
 from ..ops.cuda_laplace import diag_trimmed
+from ..ops.elasticity import elasticity_chains
 from ..solvers.chebyshev import np_dtype
 
 
@@ -81,6 +83,38 @@ def _thin(w: torch.Tensor, kt, mt, st, zb: tuple, ob: tuple) -> torch.Tensor:
     my, ky = _windowed(torch.stack([mz[:, 0], mz[:, 1], kz[:, 1]], 1), 2,
                        *ob)
     return my[:, 0] + ky[:, 1] + my[:, 2]
+
+
+def _thin_vector(w: torch.Tensor, rows: torch.Tensor, sums: torch.Tensor,
+                 bands: torch.Tensor, bsums: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """The raw partial contribution of a shard's cells to the last x plane
+    of the elasticity operator, which B.5's slab drops, from ``w`` [G, 3,
+    p+1, N, N]: the last p+1 planes of G shards' x-full inputs (the vector
+    form of :func:`_thin`), in a few launches.  K, G and H run in
+    difference form, sum_j W_j (w_j - w_i) + s_i w_i, M directly.  The x
+    row goes first, per component, from ``rows`` [G, 4, p+1] (K, M, G, H)
+    and ``sums`` [G, 4] (M's unused); then every z matrix on every such
+    plane, from ``bands`` [4, N, 2p+1] (the global mask-folded bands of K,
+    M, G and H, transposed; y and z share them) and ``bsums`` [4, N]; the
+    chains' ``weights`` [3, 4, 4, 4, 3] (input, x, z and y matrix, output)
+    sum the y-z products by y matrix and output, and each sum takes its
+    y matrix."""
+    p = (bands.shape[-1] - 1) // 2
+    c = w[:, :, -1:]
+    wx = (torch.einsum("gxk,gakyz->gaxyz", rows, w - c)
+          + sums[:, None, :, None, None] * c)
+    wx[:, :, 1] = torch.einsum("gk,gakyz->gayz", rows[:, 1], w)
+    win = torch.nn.functional.pad(wx, (p, p)).unfold(-1, 2 * p + 1, 1)
+    wz = (torch.einsum("gaxyzo,mzo->gaxmyz", win - wx[..., None], bands)
+          + bsums[:, None, :] * wx[:, :, :, None])
+    wz[:, :, :, 1] = torch.einsum("gaxyzo,zo->gaxyz", win, bands[1])
+    v = torch.einsum("gaxmyz,axmnc->gnczy", wz, weights)
+    win = torch.nn.functional.pad(v, (p, p)).unfold(-1, 2 * p + 1, 1)
+    wy = (torch.einsum("gnczyo,nyo->gnczy", win - v[..., None], bands)
+          + bsums[None, :, None, None, :] * v)
+    wy[:, 1] = torch.einsum("gczyo,yo->gczy", win[:, 1], bands[1])
+    return wy.sum(1).transpose(-1, -2)
 
 
 # --------------------------------------------------------------------------
@@ -256,20 +290,32 @@ class ShardedLaplaceOperator:
 
     local: tuple  # a LaplaceOperator per shard
     mesh: tuple | None = None  # (sx, sy) of a pencil-sharded grid
+    halo_axis: ClassVar[int] = 0  # the sharded grid axis of a field
 
     @property
     def inv_diag(self) -> ShardedField:
         return ShardedField(loc.inv_diag for loc in self.local)
 
     def apply(self, u: ShardedField) -> ShardedField:
-        us = [t.reshape(loc.grid_shape) for loc, t in zip(self.local,
-                                                          u.parts)]
+        us = [t.reshape(loc.shape) for loc, t in zip(self.local, u.parts)]
         masks = [loc.mask for loc in self.local]
         au = exchange([loc.apply_bilinear(t * m)
                        for loc, t, m in zip(self.local, us, masks)],
-                      self.mesh)
+                      self.mesh, self.halo_axis)
         return ShardedField(m * a + (1.0 - m) * t
                             for m, a, t in zip(masks, au, us))
+
+
+@dataclasses.dataclass
+class ShardedElasticityOperator(ShardedLaplaceOperator):
+    """The elasticity operator on a slab-sharded grid (the JAX package's
+    ``ShardedElasticityOperator``): each shard's ``ElasticityOperator``
+    (``ops/elasticity.py``, its x extent and x factors the slab's) on the
+    masked slab, then :func:`halo_sum` along axis 1 (axis 0 is the
+    component axis), then the mask combine, the scalar mask shared by every
+    component."""
+
+    halo_axis: ClassVar[int] = 1
 
 
 @dataclasses.dataclass
@@ -701,6 +747,105 @@ class ShardedFusedChebyshev:
                                                      rhs.parts))]
         outs = self._fix_row0(outs, u_ext, None)
         return self._to_full([o[0] for o in outs])
+
+
+@dataclasses.dataclass
+class ShardedCudaElasticity:
+    """B.5 on a slab-sharded grid (the JAX package's
+    ``ShardedPallasElasticity``): each shard runs the slab instance of the
+    kernel (``ops.cuda_elasticity.CudaElasticitySlab``) on its x-full
+    state, which writes the raw partial planes of its cells for the three
+    components with the interior shard boundaries unmasked; the slab's last
+    plane, which the kernel drops, is the thin completion :meth:`thin`
+    (plain torch over the last p+1 input planes, through all 21 chains, as
+    the JAX package computes it outside the kernel); one three-component
+    :func:`halo_sum` along axis 1 completes the assembly before the
+    constraint-mask combine.
+
+    ``thin_kx``, ``thin_mx``, ``thin_gx``, ``thin_hx``: per shard the last
+    row of the slab-partial K, M, G and H = G^T over its last p+1 planes,
+    with the shard's x mask on those columns folded in; ``thin_ks``,
+    ``thin_gs``, ``thin_hs`` their sums, taken on the host in float64 (the
+    last row of G sums to +1 where its columns are free), for the
+    difference form.  The shards of one device run :meth:`thin` as one
+    batch."""
+
+    local: tuple  # a CudaElasticitySlab per shard
+    thin_kx: tuple
+    thin_mx: tuple
+    thin_gx: tuple
+    thin_hx: tuple
+    thin_ks: tuple
+    thin_gs: tuple
+    thin_hs: tuple
+
+    def __post_init__(self):
+        """Per device what :func:`_thin_vector` takes besides the planes,
+        made once: its shards' thin rows [G, 4, p+1] and sums [G, 4], the
+        y-z bands [4, N, 2p+1] and sums [4, N], and the chains' weights."""
+        first = self.local[0]
+        W = np.zeros((3, 4, 4, 4, 3))
+        for c, a, names, w in elasticity_chains(first.mu, first.lam):
+            X, Y, Z = ("KMGH".index(m) for m in names)
+            W[a, X, Z, Y, c] += w
+        self._thin_state = {}
+        for ss in device_groups([loc.mask1 for loc in self.local]):
+            loc = self.local[ss[0]]
+
+            def stack(v):
+                return torch.stack([v[s] for s in ss])
+
+            ks = stack(self.thin_ks)
+            self._thin_state[loc.device] = (
+                torch.stack([stack(v) for v in (self.thin_kx, self.thin_mx,
+                                                self.thin_gx, self.thin_hx)],
+                            1),
+                torch.stack([ks, torch.zeros_like(ks), stack(self.thin_gs),
+                             stack(self.thin_hs)], 1),
+                torch.stack([b.T for b in (loc.kband, loc.mband, loc.gband,
+                                           loc.hband)]),
+                torch.stack([loc.ksum, torch.zeros_like(loc.ksum), loc.gsum,
+                             loc.hsum]),
+                torch.as_tensor(W, dtype=loc.dtype, device=loc.device))
+
+    @property
+    def inv_diag(self) -> ShardedField:
+        return ShardedField(loc.inv_diag for loc in self.local)
+
+    @property
+    def dtype(self):
+        return self.local[0].dtype
+
+    @property
+    def degree(self) -> int:
+        return self.local[0].degree
+
+    def thin(self, u_ext) -> list:
+        """Per shard the raw partial contribution of its cells to plane L of
+        M A M u, [3, N, N], the plane its kernel drops, from its x-full
+        trimmed input [3, L + 1, N, N]; the shards of one device at once
+        (:func:`_thin_vector`)."""
+        out = [None] * len(u_ext)
+        p = self.degree
+        for ss in device_groups(u_ext):
+            last = _thin_vector(
+                torch.stack([u_ext[s][:, -(p + 1):] for s in ss]),
+                *self._thin_state[u_ext[ss[0]].device])
+            for j, s in enumerate(ss):
+                out[s] = last[j]
+        return out
+
+    def apply(self, u: ShardedField) -> ShardedField:
+        us = [t.reshape(loc.shape) for loc, t in zip(self.local, u.parts)]
+        uk = [t[:, :, :-1, :-1].contiguous() for t in us]
+        out = [torch.nn.functional.pad(
+                   torch.cat([loc.run("apply", t)[0], last[:, None]], 1),
+                   (0, 1, 0, 1))
+               for loc, t, last in zip(self.local, uk, self.thin(uk))]
+        out = halo_sum(out, 1)
+        masks = [loc.mask for loc in self.local]
+        return ShardedField(m * a + (1.0 - m) * t
+                            for m, a, t in zip(masks, out, us))
 
 
 # --------------------------------------------------------------------------
