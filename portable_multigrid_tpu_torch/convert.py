@@ -23,7 +23,11 @@ identical state and identical Chebyshev bounds:
     ``Sharded2DGeometricPoisson.levels_stacked``, every array with two
     leading (sx, sy) mesh axes; and the sharded elasticity solve's
     (:func:`sharded_elasticity_levels`): its
-    ``ShardedElasticity.levels_stacked``.
+    ``ShardedElasticity.levels_stacked``;
+  * the general-geometry path's indexed operator and transfer
+    (:func:`indexed_operator`, :func:`indexed_transfer`): ``l2g``,
+    ``metric``, ``B``, ``Dco``, ``mask``, ``inv_diag``; ``l2g_c``,
+    ``l2g_f``, ``Mch``, ``w_f``, ``mask_c``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from .ops.cuda_transfer import (
     cuda_transfer_from_matrix,
 )
 from .ops.elasticity import elasticity_from_factors
+from .ops import indexed
 from .ops.laplace import LaplaceOperator
 from .ops.transfer import Transfer
 from .solvers.chebyshev import Chebyshev, FusedChebyshev
@@ -512,3 +517,20 @@ def sharded_elasticity_levels(levels, devices, dtype=torch.float64) -> tuple:
                         for s, dev in enumerate(devices)), halo_axis=1)
         out.append(MGLevel(op=op, smoother=smoother, transfer=tr))
     return tuple(out)
+
+
+def indexed_operator(jop, device="cpu", dtype=torch.float64):
+    """The port's IndexedLaplaceOperator on the arrays of the JAX package's
+    (``ops/indexed.py``)."""
+    return indexed.indexed_operator(
+        jop.dim, jop.degree, jop.n_dofs, np.asarray(jop.l2g),
+        np.asarray(jop.metric), np.asarray(jop.B), np.asarray(jop.Dco),
+        np.asarray(jop.mask), np.asarray(jop.inv_diag), dtype, device)
+
+
+def indexed_transfer(jtr, device="cpu", dtype=torch.float64):
+    """The port's IndexedTransfer on the arrays of the JAX package's."""
+    return indexed.indexed_transfer(
+        jtr.n_c, jtr.n_f, np.asarray(jtr.l2g_c), np.asarray(jtr.l2g_f),
+        np.asarray(jtr.Mch), np.asarray(jtr.w_f), np.asarray(jtr.mask_c),
+        dtype, device)

@@ -7,6 +7,12 @@ package:
   * :func:`assemble_rhs` and :func:`l2_norm` — the reference driver's RHS
     quadrature loop and ``integrate_difference`` L2 norm (reference:
     source/geometric_multigrid/program.cc:291-334,382-395);
+  * :func:`l2_error` — ||u_h - u_exact||_L2 against an analytic solution,
+    the independent correctness oracle (reference:
+    source/geometric_multigrid/program.cc:368-396);
+  * :func:`assemble_rhs_indexed` and :func:`l2_error_indexed` — the same
+    functionals on general and curved geometry (``fem/general_mesh.py``),
+    through a per-cell DoF table;
   * :func:`dense_operator`, :func:`dense_operator_coefficient` and
     :func:`dense_prolongation` — dense golden assemblies that the tests hold
     the matrix-free operators against.
@@ -230,3 +236,71 @@ def l2_norm(space: FESpace, u_grid: np.ndarray, n_q: int | None = None) -> float
     nq = n_q if n_q is not None else space.degree + 2
     t, wtot = _fe_values_at_quad(space, u_grid, nq)
     return float(np.sqrt(np.sum(t * t * wtot) * space.mesh.h**space.dim))
+
+
+def _tensor_basis_values(degree: int, qp: np.ndarray, dim: int) -> np.ndarray:
+    """Q_degree tensor basis values at tensor points: [nq^dim, (p+1)^dim]."""
+    from .basis import lagrange_eval
+
+    B1 = lagrange_eval(make_basis(degree).nodes, qp)
+    B = np.array([[1.0]])
+    for _ in range(dim):
+        B = np.kron(B, B1)
+    return B
+
+
+def assemble_rhs_indexed(
+    geometry, l2g: np.ndarray, degree: int, n_dofs: int, mask: np.ndarray, f
+) -> np.ndarray:
+    """RHS on general/curved geometry: rhs_i = ∫ phi_i f |J| dxi, masked.
+
+    ``geometry`` is any object with geometry_tables/physical_quad_points
+    (GeneralMesh or CurvedGeometry)."""
+    from .basis import gauss_points
+
+    dim = geometry.dim
+    nq = degree + 1
+    qp, _ = gauss_points(nq)
+    B = _tensor_basis_values(degree, qp, dim)  # [Q, ndof]
+    _, jxw = geometry.geometry_tables(nq)
+    xq = geometry.physical_quad_points(nq)  # [E, Q, dim]
+    fv = np.asarray(f(*[xq[..., k] for k in range(dim)]), np.float64)
+    re = np.einsum("eq,ql->el", fv * jxw, B)
+    rhs = np.zeros(n_dofs)
+    np.add.at(rhs, l2g.reshape(-1), re.reshape(-1))
+    return rhs * mask
+
+
+def l2_error_indexed(
+    geometry, l2g: np.ndarray, degree: int, u: np.ndarray, u_exact,
+    n_q: int | None = None,
+) -> float:
+    """||u_h - u_exact||_L2 on general/curved geometry."""
+    from .basis import gauss_points
+
+    dim = geometry.dim
+    nq = n_q if n_q is not None else degree + 2
+    qp, _ = gauss_points(nq)
+    B = _tensor_basis_values(degree, qp, dim)
+    _, jxw = geometry.geometry_tables(nq)
+    xq = geometry.physical_quad_points(nq)
+    uh = np.asarray(u, np.float64).reshape(-1)[l2g] @ B.T  # [E, Q]
+    diff = uh - np.asarray(
+        u_exact(*[xq[..., k] for k in range(dim)]), np.float64
+    )
+    return float(np.sqrt(np.sum(diff * diff * jxw)))
+
+
+def l2_error(
+    space: FESpace, u_grid: np.ndarray, u_exact, n_q: int | None = None
+) -> float:
+    """||u_h - u_exact||_L2 — an INDEPENDENT correctness oracle: for smooth
+    u_exact the error must converge at rate h^(p+1) (the analog of the
+    reference's integrate_difference against an analytic solution,
+    reference: source/geometric_multigrid/program.cc:368-396)."""
+    nq = n_q if n_q is not None else space.degree + 2
+    t, wtot = _fe_values_at_quad(space, u_grid, nq)
+    x1 = quad_grid_1d(space, nq)
+    coords = np.meshgrid(*([x1] * space.dim), indexing="ij")
+    diff = t - np.asarray(u_exact(*coords), dtype=np.float64)
+    return float(np.sqrt(np.sum(diff * diff * wtot) * space.mesh.h**space.dim))

@@ -381,17 +381,17 @@ def global_quad_matrices(space: FESpace) -> tuple[np.ndarray, np.ndarray]:
     return Bg, Dg
 
 
-def grad_matrix(basis, dim: int) -> np.ndarray:
+def grad_matrix(B: np.ndarray, Dco: np.ndarray, dim: int) -> np.ndarray:
     """Dense element gradient operator [(p+1)^dim, dim*nq^dim] (NumPy):
     column block d maps the nodal element DoFs to the d-derivative at every
     quadrature point, kron over axes of (Dco @ B if a == d else B) — the
     factors of ``apply_local``'s stages 1 and 2."""
-    DB = basis.Dco @ basis.B
+    DB = Dco @ B
     blocks = []
     for d in range(dim):
         G = np.array([[1.0]])
         for a in range(dim):
-            G = np.kron(G, DB if a == d else basis.B)
+            G = np.kron(G, DB if a == d else B)
         blocks.append(G)  # [nq^dim, (p+1)^dim]
     return np.concatenate(blocks, axis=0).T
 
@@ -469,7 +469,7 @@ def make_laplace(space: FESpace, dtype=torch.float64, variant: str = "kron",
                                dtype=torch.float64, device=device)
         fields["inv_diag_full"] = t(1.0 / diagonal_grid_coef(space, coef))
         if variant == "qdense":
-            fields.update(Gmat=t(grad_matrix(b, dim)),
+            fields.update(Gmat=t(grad_matrix(b.B, b.Dco, dim)),
                           wcoef_e=t(element_weights(space, coef)))
         else:
             fields["coef"] = t(coef)

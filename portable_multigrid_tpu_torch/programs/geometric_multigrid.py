@@ -11,13 +11,15 @@ source/geometric_multigrid/program.cc:189-199,354-355,395).
 With ``--sharded`` the solve is the slab-sharded one
 (``parallel/poisson.py`` ``ShardedGeometricPoisson``, its default variant
 ``sumfac``, as the JAX driver's): one shard per CUDA card, or one shard on
-the CPU with ``--device cpu``.
+the CPU with ``--device cpu``.  With ``--vtu`` each solve's solution is
+written to ``solution_p{degree}_c{cycle}.vti`` in the working directory, as
+the JAX driver writes it.
 
 Usage:
   python -m portable_multigrid_tpu_torch.programs.geometric_multigrid
          [--dim 3] [--max-degree 7] [--cycles N]
          [--variant auto|kron|sumfac|dense] [--f32] [--rtol R] [--device cuda]
-         [--sharded]
+         [--sharded] [--vtu]
 """
 
 from __future__ import annotations
@@ -45,8 +47,11 @@ def main(argv=None) -> list:
     ap.add_argument("--sharded", action="store_true",
                     help="shard the solve over every card (one shard on "
                          "the CPU with --device cpu)")
+    ap.add_argument("--vtu", action="store_true",
+                    help="write solution .vti files")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
 
     from portable_multigrid_tpu_torch.models.poisson import (
@@ -81,8 +86,17 @@ def main(argv=None) -> list:
                     args.dim, degree, refinements, dtype=dtype,
                     variant=args.variant, device=device,
                 )
-            stats.append(prob.solve(rtol=rtol, verbose=True)[1])
+            x, st = prob.solve(rtol=rtol, verbose=True)
+            stats.append(st)
             print(f"  (wall: {time.time() - t0:.2f}s)")
+            if args.vtu:
+                from portable_multigrid_tpu_torch.utils.vtu import write_vti
+
+                if isinstance(x, torch.Tensor):
+                    x = x.detach().cpu().numpy()
+                write_vti(f"solution_p{degree}_c{cycle}.vti",
+                          prob.spaces[-1],
+                          {"solution": np.asarray(x, dtype=np.float64)})
             print()
     return stats
 

@@ -390,6 +390,7 @@ def make_chebyshev(
     fused_smoother_op=None,
     state_dtype=None,
     cheb2r=None,
+    free_mask=None,
 ):
     """Set up the smoother for a level operator (eig-CG on the op's device).
 
@@ -403,15 +404,23 @@ def make_chebyshev(
     optional pair kernel, ``cheb2r`` its optional ``cheb2lr`` kernel,
     ``fused_smoother_op`` the recurrence's operator and ``state_dtype`` the
     storage of its streams; the eigenvalue estimate runs on the exact
-    ``op``."""
+    ``op``.  ``free_mask`` (an array of ``op.shape``, 1 on free DoFs) masks
+    the Lanczos start vector in place of the grid mask of ``op.mask1``, as
+    the JAX package's ``free_mask=`` does: the indexed operators of
+    ``ops/indexed.py`` act on flat vectors and have no 1D factors."""
     # one draw over the whole field, components included, times the grid
     # mask broadcast over them — the JAX package's start vector: NumPy's on
     # the host, or above DEVICE_DRAW_POINTS jax.random's on the device
     shape = op.shape
     if int(np.prod(shape)) > DEVICE_DRAW_POINTS:
-        v0 = jax_uniform(shape, op.dtype, op.device) * _device_free_mask(op)
+        mask = (_device_free_mask(op) if free_mask is None else
+                torch.as_tensor(np.asarray(free_mask, np.float64),
+                                dtype=op.dtype, device=op.device))
+        v0 = jax_uniform(shape, op.dtype, op.device) * mask
     else:
-        v0 = _pseudo_random_grid(shape) * _host_free_mask(op)
+        mask = (_host_free_mask(op) if free_mask is None
+                else np.asarray(free_mask, np.float64))
+        v0 = _pseudo_random_grid(shape) * mask
         v0 = torch.as_tensor(v0, dtype=op.dtype, device=op.device)
     cap = int(os.environ.get("PMG_EIG_MAX_ITERS", "256"))
     n_iter = max(1, min(int(eig_cg_n_iterations), int(np.prod(shape)), cap))
