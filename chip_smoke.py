@@ -33,12 +33,15 @@ or from the CUDA graph to the eager V-cycle):
      p = 1..7, r = 2 and 3 (partial columns) and at every level shape of
      the Q7 r = 9 ladder ((512 p)^2, p = 1..7: 512^2 to 3584^2); bound 1e-5
      (f32) / 1e-12 (f64) on the max error relative to the twin's max
-     magnitude; in float32 at every one of these shapes also the bf16
+     magnitude; B.1's untrimmed ``residual`` (u and rhs random on the
+     full grid, its last planes included) at every 3D shape, f32 and f64;
+     in float32 at every one of these shapes also the bf16
      smoother grade of the JAX package's main path: B.1's ``residual3t``
      with bf16 r0 and d0, B.1's ``"mxu"`` core on the cheb family at bf16
-     state and B.4's ``residual3t`` and cheb family at bf16 state, bound
-     BF16_BOUND (1e-2: a rounding to bf16 may fall on the other side
-     where the kernel's float32 sums differ in order from the twin's);
+     state and on ``residual``, and B.4's ``residual3t`` and cheb family
+     at bf16 state, each held point by point as B.2 below is
+     (:func:`flip_check`, with a witness whose first output is cut to
+     bf16 toward zero) and within BF16_BOUND (1e-2) of the max;
      B.2's ``cheb2lr`` (``PMG_CHEB2R=1``) at the exact grade wherever its
      tile fits (p <= 5 in float32, p <= 3 in float64; elsewhere
      ``make_cheb2(op, rout=True)`` must refuse the level); B.2's six modes
@@ -114,7 +117,8 @@ or from the CUDA graph to the eager V-cycle):
      p = 1..7, r = 2 and 3 (partial tiles) and at every other level shape
      of the Q3 r = 6 solve, p = 3, r = 1, 4, 5, 6 (3 x 192^3); the bounds
      of phase 2; in float32 at every one of these shapes also every mode
-     of B.5's bf16 ``"mxu"`` core (float32 state), bound BF16_BOUND;
+     of B.5's bf16 ``"mxu"`` core (float32 state), point by point as in
+     phase 2 and within BF16_BOUND;
   9. elasticity replay — ElasticityMultigrid(3, p, r, float64, "auto") to
      rtol 1e-12 at (p, r) = (2, 2), (3, 2), (3, 3): CG counts equal and L2
      norms within 1e-10 of the JAX package's values pinned below;
@@ -176,9 +180,10 @@ or from the CUDA graph to the eager V-cycle):
      graphed V-cycle, with its eager and graphed V-cycle ms in turns;
  16. the slab-sharded solve as S shards on one card — B.1's slab modes
      (``apply`` on x-full input, ``residual1f``, ``residual3f``,
-     ``chebf``; exact and ``mxu`` core) within BOUND / BF16_BOUND of their
-     twins and B.2's ``xext`` pair at both grades (the production grade
-     point by point, :func:`flip_stats`) at p = 1..7, r = 3, on shards 0,
+     ``chebf``; exact and ``mxu`` core) within BOUND of their twins (the
+     ``mxu`` core point by point and within BF16_BOUND) and B.2's
+     ``xext`` pair at both grades (the production grade point by point,
+     :func:`flip_stats`) at p = 1..7, r = 3, on shards 0,
      1 and 3 of 4, and on the Q4 r=6 slab (65 x 256 x 256 points in); each
      xext output against the single-device pair's at the same planes (the
      count equal bit for bit is logged); each mode timed on that slab
@@ -245,7 +250,28 @@ or from the CUDA graph to the eager V-cycle):
      rate above p + 0.6); for each the host
      setup by step, the solves eager and graphed, the fine apply's device
      time beside its byte bound, the eager and the graphed V-cycle in
-     turns, their busy shares and the device launches per eager V-cycle.
+     turns, their busy shares and the device launches per eager V-cycle;
+ 20. the untrimmed path — ``build_untrimmed_vcycle`` over the main path's
+     spaces (the JAX package's ``bench.py`` with ``PMG_BENCH_TRIMMED=0``:
+     ``FusedChebyshev(trimmed_io=False)`` on every smoothing level at the
+     bf16 grade, plain h-transfers on full grids), under CG to rtol 1e-5
+     from counts set to 0: at most 4 CG iterations, the count of the
+     trimmed single-step path, graphed equal to eager, L2 within 1e-5 of
+     0.0249871331; B.1's ``residual`` and ``/mxu/bf16`` steps launched,
+     no trimmed residual, pair or B.3; its V-cycle eager and graphed in
+     turns with the single-step path's, busy shares, launches by mode;
+     ``utils.profiling.measure_op`` beside the CUDA-event mean and one
+     ``utils.profiling.trace`` written; B.1 ``residual``'s time against
+     its bound; one V-cycle of ``graft_entry.entry()``;
+ 21. any shard count on one card — ``ExtendedShardedPoisson(3, 4, 6,
+     devices=[cuda:0] * 3, float64)`` (96 x 64 x 64 extended cells,
+     25.4M points a vector) and S = 6 at Q4 r=4, to rtol 1e-10 against
+     the single-device ``kron`` solve: at most 2 CG iterations more (at S
+     = 6, the JAX package's pinned count), the live x within 1e-9 of max
+     |x|, each eager V-cycle in turns with the single device's, and busy
+     shares; then ``graft_entry.dryrun_multichip(3)`` and ``(8)``, whose
+     float64 slab and pencil solves' CG counts and L2 are held against
+     the single device's (no timing: 729 to 35,937 DoFs).
 
 Every phase's seconds, and the total, are printed at the end.
 
@@ -254,7 +280,8 @@ grade that its path launched (``cheb2lr`` from the ``PMG_CHEB2R=1`` solve
 of phase 5; ``laplace/slab``, ``laplace/slab/mxu`` and ``cheb2/xext/mxu``
 from phase 16's sharded solve; ``laplace/pencil`` and ``cheb2/pencil/mxu``
 from phase 17's pencil solve; ``elasticity/slab`` from phase 18's sharded
-elasticity solve); the last line is the result object.
+elasticity solve; ``laplace/residual``, B.1's untrimmed residual, from
+phase 20's path); the last line is the result object.
 """
 
 from __future__ import annotations
@@ -277,7 +304,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from portable_multigrid_tpu_torch import _build, native
+from portable_multigrid_tpu_torch import _build, graft_entry, native
 from portable_multigrid_tpu_torch.fem.assemble import assemble_rhs_indexed
 from portable_multigrid_tpu_torch.fem.general_mesh import (
     curved_structured_geometry,
@@ -300,6 +327,7 @@ from portable_multigrid_tpu_torch.models.mixed import (
 from portable_multigrid_tpu_torch.models.poisson import (
     GeometricMultigridPoisson,
     PolynomialMultigridPoisson,
+    build_untrimmed_vcycle,
 )
 from portable_multigrid_tpu_torch.ops import (
     cuda_cheb2,
@@ -317,7 +345,15 @@ from portable_multigrid_tpu_torch.ops.indexed import (
     make_unstructured_laplace,
 )
 from portable_multigrid_tpu_torch.ops.structured import exact_matmuls
-from portable_multigrid_tpu_torch.ops.transfer import make_h_transfer
+from portable_multigrid_tpu_torch.ops.cuda_laplace2d import apply_trimmed_2d
+from portable_multigrid_tpu_torch.ops.elasticity import elasticity_kron
+from portable_multigrid_tpu_torch.ops.transfer import (
+    make_h_transfer,
+    trim_last_planes,
+)
+from portable_multigrid_tpu_torch.parallel.extended import (
+    ExtendedShardedPoisson,
+)
 from portable_multigrid_tpu_torch.parallel.mesh2d import (
     Sharded2DGeometricPoisson,
     _build_pencil_cheb2,
@@ -332,6 +368,7 @@ from portable_multigrid_tpu_torch.solvers.cg import cg
 from portable_multigrid_tpu_torch.solvers.refinement import iterative_refinement
 from portable_multigrid_tpu_torch.solvers.chebyshev import FusedChebyshev
 from portable_multigrid_tpu_torch.solvers.vcycle import GraphedVCycle, VCycle
+from portable_multigrid_tpu_torch.utils import profiling
 
 GOLDEN_L2_Q4_R6 = 0.0249871331
 # bound on the float32 main path's L2 norm against the golden one: B.1, the
@@ -356,7 +393,11 @@ BF16 = torch.bfloat16
 # S, far above the float32 order of the sums (~5e-8 S).  On an H100 80GB
 # HBM3 at 700 W, three draws at each phase 2 shape gave at most 3.2e-3 S
 # and a share of 2.7e-3 for the kernel, and a share of 0.38 or more for
-# each planted rounding (phase 2 logs all three for every case)
+# each planted rounding (phase 2 logs all three for every case).  The same
+# check holds B.1's and B.5's mxu cores and the bf16-state modes of B.1 and
+# B.4, each with a witness whose first output is cut to bf16
+# toward zero (planted_witness), and these stay within BF16_BOUND of the
+# max as well
 FLIP_CAP = 2.0 ** -5
 FLIP_FLOOR = 2.0 ** -18
 FLIP_SHARE = 5e-2
@@ -416,6 +457,7 @@ BF16_FLOPS = 989e12
 # (u, r, x in; r, d, x out), B.2 (d, r, x in; r2, d2, x2 out) and B.3 (a
 # coarse field is 1/8 of a fine one)
 MODE_FIELDS = {"apply": 2, "residual1t": 3, "residual3t": 5, "cheb": 6,
+               "residual": 4,
                "residual1f": 3, "residual3f": 5, "chebf": 6,
                "chebl": 4, "chebd": 5, "chebdl": 3, "cheb2": 6, "cheb2l": 4,
                "chebd2": 5, "chebd2l": 3, "cheb2f0": 4, "cheb2f0l": 2,
@@ -508,7 +550,8 @@ SCAL_PAIR_F0 = SCAL_PAIR + (1.3,)
 class Case(NamedTuple):
     """One kernel mode on one draw: the kernel call, its twin, the library
     yardstick (None where no one PyTorch call computes the function); for
-    B.2 at its production grade also the magnitudes of its sums per
+    a mode at a bf16 grade (B.2's production grade, B.1's and B.5's mxu
+    cores, B.1's and B.4's bf16 state) also the magnitudes of its sums per
     output (``mags``, held point by point by :func:`flip_stats`) and a
     twin with one rounding point planted wrong (``witness``), which the
     same check must refuse."""
@@ -521,13 +564,92 @@ class Case(NamedTuple):
     witness: Callable | None = None
 
 
+def trunc_bf16(t: torch.Tensor) -> torch.Tensor:
+    """float32 t cut to bf16 toward zero (its low 16 bits cleared)."""
+    return (t.float().contiguous().view(torch.int32) & -65536).view(
+        torch.float32)
+
+
+def mode_magnitudes(op, mode, u, ins=(), scal=()) -> tuple:
+    """Per output of a B.1, B.4 or B.5 mode (cube, or B.1's slab), the
+    magnitude S of its sums at each point: the mode on |u| and |inputs|
+    with the operator's |bands| (K's row sums those of |K|: the direct
+    sums; B.5's dense |K|, |M|, |G| in its chains), |scalars| and every
+    subtraction an addition, in float64.  Each value that the mode rounds
+    to bf16 (an input of a contraction, a product of a z or y stage, a
+    stored r or d) is at most S in magnitude where it lands in an
+    output."""
+    T = torch.float64
+
+    def a(t):
+        return t.to(T).abs()
+
+    slab = isinstance(op, cuda_laplace.CudaLaplaceSlab)
+    base = cuda_laplace.SLAB_MODES[mode] if slab else mode
+    if mode in getattr(op, "full_modes", ()):
+        u, *ins = (trim_last_planes(t, op.dim) for t in (u, *ins))
+    u, ins = a(u), [a(t) for t in ins]
+    if isinstance(op, cuda_elasticity.CudaElasticityOperator):
+        raw = elasticity_kron(u, a(op.Kt), a(op.Mt), a(op.Gt), a(op.Gt).T,
+                              abs(op.mu), abs(op.lam))
+    elif op.dim == 2:
+        kb = a(op.kband)
+        raw = apply_trimmed_2d(kb, kb.sum(0), a(op.mband), u)
+    else:
+        kb, xb = a(op.kband), None
+        if slab:
+            xk = a(op.xkband)
+            xb = (xk, xk.sum(0), a(op.xmband))
+        raw = cuda_laplace.apply_trimmed(kb, kb.sum(0), a(op.mband), u,
+                                         False, xb)
+        u = u[:raw.shape[0]]
+    diag = op.diag_trimmed().to(T).abs()
+    sc = [abs(float(v)) for v in scal]
+    if base == "apply":
+        return (raw,)
+    r = ins[0] + raw
+    if base == "residual1t":
+        return (r,)
+    if base in ("residual", "residual3t"):
+        d = r / (sc[0] * diag)
+        return (r, d) if base == "residual" else (r, d, u + d)
+    x = u if base in ("chebd", "chebdl") else ins[1]
+    d = sc[0] * u + (sc[1] / diag) * r
+    return (x + d,) if base in ("chebl", "chebdl") else (r, d, x + d)
+
+
+def planted_witness(op, mode, u, ins=(), scal=(), sdtype=None) -> tuple:
+    """The twin with one rounding point planted wrong: its first output
+    taken at the operator's own state dtype (float32, unrounded where the
+    mode stores it in bf16) and cut to bf16 toward zero, where the kernel
+    rounds to nearest even or does not round at all; its other outputs
+    the twin's."""
+    want = op.twin(mode, u, ins, scal, sdtype=sdtype)
+    first = op.twin(mode, u, ins, scal)[0]
+    return (trunc_bf16(first).to(want[0].dtype),) + tuple(want[1:])
+
+
+def bf16_case(key: str, op, mode: str, u, ins=(), scal=(),
+              sdtype=None) -> Case:
+    """The :class:`Case` of a B.1, B.4 or B.5 mode at a bf16 grade, held
+    point by point (:func:`mode_magnitudes`, :func:`planted_witness`)."""
+    return Case(key, lambda: op.run(mode, u, ins, scal, sdtype=sdtype),
+                lambda: op.twin(mode, u, ins, scal, sdtype=sdtype),
+                mags=lambda: mode_magnitudes(op, mode, u, ins, scal),
+                witness=lambda: planted_witness(op, mode, u, ins, scal,
+                                                sdtype))
+
+
 def laplace_cases(op, rng, dtype, device, smooth_op=None):
-    """A :class:`Case` for every B.1 / B.4 / B.5 mode on random state; in float32 also the bf16 grade's modes of the JAX
-    package's main path (keys as ``cuda_laplace.launch_key`` counts them):
-    ``residual3t`` of ``op`` with bf16 outputs and the cheb family of
-    ``smooth_op`` (B.1's mxu core; ``op`` itself in 2D) at bf16 state; for
-    B.5, which keeps float32 state, every mode of ``smooth_op`` (its mxu
-    core)."""
+    """A :class:`Case` for every B.1 / B.4 / B.5 mode on random state, and
+    for B.1's untrimmed ``residual`` on random full-grid u and rhs (nonzero
+    on the last planes, which it reads at zero weight); in float32 also
+    the bf16 grade's modes of the JAX package's main path (keys as
+    ``cuda_laplace.launch_key`` counts them): ``residual3t`` of ``op``
+    with bf16 outputs and the cheb family of ``smooth_op`` (B.1's mxu core;
+    ``op`` itself in 2D) at bf16 state, and B.1's ``residual`` on the mxu
+    core; for B.5, which keeps float32 state, every mode of ``smooth_op``
+    (its mxu core).  The bf16 grade's cases are held point by point."""
     u, r, x = (masked_trimmed(op, rng, dtype, device) for _ in range(3))
     args = {"apply": ((), ()), "residual1t": ((r,), ()),
             "residual3t": ((r,), SCAL_RES3), "cheb": ((r, x), SCAL_CHEB),
@@ -536,27 +658,32 @@ def laplace_cases(op, rng, dtype, device, smooth_op=None):
     for mode, (ins, scal) in args.items():
         yield Case(mode, lambda m=mode, i=ins, s=scal: op.run(m, u, i, s),
                    lambda m=mode, i=ins, s=scal: op.twin(m, u, i, s))
+    if "residual" in op.full_modes:
+        uf, bf = (torch.as_tensor(rng.standard_normal(op.grid_shape),
+                                  dtype=dtype, device=device)
+                  for _ in range(2))
+        yield Case("residual",
+                   lambda: op.run("residual", uf, (bf,), SCAL_RES3),
+                   lambda: op.twin("residual", uf, (bf,), SCAL_RES3))
+        if smooth_op is not None:
+            yield bf16_case(cuda_laplace.launch_key("residual",
+                                                    smooth_op.core, None),
+                            smooth_op, "residual", uf, (bf,), SCAL_RES3)
     if smooth_op is not None and not op.bf16_state:
         for mode, (ins, scal) in args.items():
-            yield Case(cuda_laplace.launch_key(mode, smooth_op.core, None),
-                       lambda m=mode, i=ins, s=scal: smooth_op.run(m, u, i, s),
-                       lambda m=mode, i=ins, s=scal: smooth_op.twin(m, u, i,
-                                                                    s))
+            yield bf16_case(cuda_laplace.launch_key(mode, smooth_op.core,
+                                                    None),
+                            smooth_op, mode, u, ins, scal)
     if dtype != torch.float32 or not op.bf16_state:
         return
-    yield Case("residual3t/bf16",
-               lambda: op.run("residual3t", u, (r,), SCAL_RES3, sdtype=BF16),
-               lambda: op.twin("residual3t", u, (r,), SCAL_RES3, sdtype=BF16))
+    yield bf16_case("residual3t/bf16", op, "residual3t", u, (r,), SCAL_RES3,
+                    BF16)
     sop = op if smooth_op is None else smooth_op
     d16, r16 = u.to(BF16), r.to(BF16)
     for mode in ("cheb", "chebl", "chebd", "chebdl"):
         ins = (r16, x) if mode in ("cheb", "chebl") else (r16,)
-        key = cuda_laplace.launch_key(mode, sop.core, BF16)
-        yield Case(key,
-                   lambda m=mode, i=ins: sop.run(m, d16, i, SCAL_CHEB,
-                                                 sdtype=BF16),
-                   lambda m=mode, i=ins: sop.twin(m, d16, i, SCAL_CHEB,
-                                                  sdtype=BF16))
+        yield bf16_case(cuda_laplace.launch_key(mode, sop.core, BF16), sop,
+                        mode, d16, ins, SCAL_CHEB, BF16)
 
 
 def pair_magnitudes(op, d, r, x, scal, mode) -> tuple:
@@ -742,17 +869,44 @@ def flip_stats(got: tuple, want: tuple, mags: tuple) -> tuple:
         n = int(free.sum())
         if bool((diff[~free] > 0).any()):
             return float("inf"), 1.0, n
+        if n == 0:
+            continue  # every point constrained (the 1-cell level)
         q = diff[free] / m[free]
         worst = max(worst, float(q.max()))
         share = max(share, float((q > FLIP_FLOOR).double().mean()))
     return worst, share, n
 
 
+def flip_check(name: str, c: Case, got: tuple, want: tuple,
+               worst: float) -> tuple[str, bool]:
+    """The point-by-point check of a bf16-grade :class:`Case`: (what it
+    saw, passed).  Its witness, where it has one and the level more than
+    one free point, must break the share (else this raises); B.1's, B.4's
+    and B.5's modes stay within BF16_BOUND of the max (``worst``) too."""
+    mags = c.mags()
+    cap, share, n = flip_stats(got, want, mags)
+    seen = (f"max err {cap:.3e} S (cap {FLIP_CAP:.2e}), share over "
+            f"{FLIP_FLOOR:.1e} S {share:.2e} (bound {FLIP_SHARE:.0e})")
+    ok = cap <= FLIP_CAP and share <= FLIP_SHARE
+    # a share needs points: the one free point of p = 1, r = 1 shows none
+    if c.witness is not None and n > 1:
+        w_cap, w_share, _ = flip_stats(c.witness(), want, mags)
+        planted = f"witness {w_cap:.3e} S, share {w_share:.2e}"
+        seen += f"; {planted}"
+        if not w_share > FLIP_SHARE:
+            raise RuntimeError(f"{name}/{c.mode}: the planted rounding "
+                               f"passes the check: {planted}")
+    if name in ("laplace", "laplace2d", "elasticity"):
+        seen += f"; max rel err {worst:.3e} (bound {BF16_BOUND:.0e})"
+        ok = ok and worst <= BF16_BOUND
+    return seen, ok
+
+
 def compare(path, p, r, dtype, device, results) -> None:
     """Each kernel mode (and library yardstick) against its twin: the max
-    error over the twin's max magnitude within its bound, or, for B.2 at
-    its production grade, within the flip limits point by point, which
-    its witness must break."""
+    error over the twin's max magnitude within its bound, or, at a bf16
+    grade, within the flip limits point by point (:func:`flip_check`),
+    which its witness must break."""
     for name, c in level_cases(path, p, r, dtype, device, draws=3):
         mode = c.mode
         got, want = c.run(), c.twin()
@@ -776,24 +930,10 @@ def compare(path, p, r, dtype, device, results) -> None:
         lib_rel = rel_err(c.lib(), want[0])[1] if c.lib else 0.0
         head = f"  {name:10s} {mode:19s} p={p} r={r} {str(dtype)[6:]:8s}"
         if c.mags is not None:
-            mags = c.mags()
-            cap, share, n = flip_stats(got, want, mags)
-            seen = f"max err {cap:.3e} S (cap {FLIP_CAP:.2e}), share " \
-                   f"over {FLIP_FLOOR:.1e} S {share:.2e} (bound {FLIP_SHARE:.0e})"
-            # a share needs points: the one free point of p = 1, r = 1
-            # shows none
-            witness = c.witness if n > 1 else None
-            planted = ""
-            if witness is not None:
-                w_cap, w_share, _ = flip_stats(witness(), want, mags)
-                planted = f"witness {w_cap:.3e} S, share {w_share:.2e}"
-            log(f"{head} {seen}" + (f"; {planted}" if planted else ""))
-            if not (cap <= FLIP_CAP and share <= FLIP_SHARE):
+            seen, ok = flip_check(name, c, got, want, worst)
+            log(f"{head} {seen}")
+            if not ok:
                 raise RuntimeError(f"{name}/{mode} p={p} r={r}: {seen}")
-            if witness is not None and not w_share > FLIP_SHARE:
-                raise RuntimeError(f"{name}/{mode} p={p} r={r}: the planted "
-                                   f"rounding passes the check: {planted}")
-            del mags
             continue
         log(f"{head} max rel err {worst:.3e} (bound {bound:.0e})")
         if not (worst <= bound and lib_rel <= bound):
@@ -1992,6 +2132,9 @@ def sharded_cases(p: int, r: int, S: int, s: int, device):
     for core, op in slabs.items():
         for mode, (i, sc) in ins.items():
             key = mode + "/slab" + ("/mxu" if core == "mxu" else "")
+            if core == "mxu":
+                yield "laplace", bf16_case(key, op, mode, u_ext, i, sc), None
+                continue
             yield "laplace", Case(
                 key, lambda o=op, m=mode, i=i, sc=sc: o.run(m, u_ext, i, sc),
                 lambda o=op, m=mode, i=i, sc=sc: o.twin(m, u_ext, i, sc)), \
@@ -2026,8 +2169,8 @@ def sharded_compare(p: int, r: int, S, shards, device, errs,
                     cases=None) -> dict:
     """Each mode of :func:`sharded_cases` (or of ``cases``, called as it
     is, with S the mesh) against its twin on the given shards: the exact
-    modes within BOUND, B.1's mxu core within BF16_BOUND, B.2's
-    production grade point by point (:func:`flip_stats` caps); every pair
+    modes within BOUND, B.1's mxu core and B.2's production grade point
+    by point (:func:`flip_check`; B.1 within BF16_BOUND too); every pair
     output also against the single-device pair's.  Returns the number of
     pair outputs equal to the single-device pair's bit for bit, by grade,
     and of those compared."""
@@ -2048,10 +2191,7 @@ def sharded_compare(p: int, r: int, S, shards, device, errs,
                 errs[key] = max(errs.get(key, 0.0), err)
             head = f"  {name:8s} {c.mode:22s} p={p} r={r} shard {s}/{S}"
             if c.mags is not None:
-                cap, share, _ = flip_stats(got, want, c.mags())
-                seen = (f"max err {cap:.3e} S (cap {FLIP_CAP:.2e}), share "
-                        f"over {FLIP_FLOOR:.1e} S {share:.2e}")
-                ok = cap <= FLIP_CAP and share <= FLIP_SHARE
+                seen, ok = flip_check(name, c, got, want, worst)
             else:
                 bound = BF16_BOUND if "mxu" in c.mode else BOUND[torch.float32]
                 seen = f"max rel err {worst:.3e} (bound {bound:.0e})"
@@ -2990,6 +3130,225 @@ def phase_general(card: str, device) -> None:
     log("phase 19: ok")
 
 
+# --------------------------------------------------------------------------
+# phase 20: the untrimmed path (the JAX package's bench.py with
+# PMG_BENCH_TRIMMED=0), B.1's untrimmed residual on every smoothing level
+# --------------------------------------------------------------------------
+UNTRIMMED_MAX_CG = 4
+
+
+def phase_untrimmed(card: str, device, prob, times) -> int:
+    """Phase 20: the V-cycle of ``build_untrimmed_vcycle`` over the main
+    path's spaces (Q4 r=6, float32) under CG, counted from zero; returns
+    the launches of B.1's ``residual`` in that solve."""
+    log(f"phase 20: untrimmed path build_untrimmed_vcycle(Q4 r=6, float32) "
+        f"on {card}")
+    t0 = time.perf_counter()
+    mg = build_untrimmed_vcycle(prob.spaces, torch.float32, device)
+    synchronize(device)
+    t_setup = time.perf_counter() - t0
+    fine_op = prob.fine_operator
+    rhs = prob.rhs()
+    n_dofs = prob.spaces[-1].n_dofs
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cg(fine_op.apply, rhs, mg.apply, rtol=1e-5)
+    synchronize(device)
+    t_solve = time.perf_counter() - t0
+    counts = {name: {m: n for m, n in KERNELS[name]["counts"].items() if n}
+              for name in ("laplace", "cheb2", "transfer")}
+    reset_counts()
+    graphed = GraphedVCycle(mg)
+    res_g = cg(fine_op.apply, rhs, graphed.apply, rtol=1e-5)
+    synchronize(device)
+    reset_counts()
+    singles = grade_vcycle(prob, pairs=False)
+    its_single = cg(fine_op.apply, rhs, singles.apply, rtol=1e-5).iterations
+    x = res_g.x.cpu().numpy().astype(np.float64)
+    l2 = prob.solution_l2_norm(x)
+    l2_rel = abs(l2 / GOLDEN_L2_Q4_R6 - 1.0)
+    diff = rel_err(res_g.x, res.x)[1]
+    log(f"  setup {t_setup:.2f} s, eager solve {t_solve:.2f} s: CG "
+        f"{res.iterations} iterations eagerly, {res_g.iterations} graphed "
+        f"(graphed vs eager max rel diff {diff:.2e}); the trimmed "
+        f"single-step path {its_single}; L2 {l2:.10f} (rel diff {l2_rel:.2e} "
+        f"from the golden {GOLDEN_L2_Q4_R6})")
+    log(f"  launches of the eager solve by mode: {counts}")
+    lap = counts["laplace"]
+    stray = [k for k in lap if k.startswith(("residual1t", "residual3t"))]
+    if not (res.converged and res_g.converged
+            and res.iterations <= UNTRIMMED_MAX_CG
+            and res.iterations == res_g.iterations == its_single
+            and diff <= GRAPH_BOUND[torch.float32]
+            and l2_rel <= F32_L2_BOUND_3D):
+        raise RuntimeError(f"untrimmed path: {res.iterations} / "
+                           f"{res_g.iterations} CG iterations against "
+                           f"{its_single}, L2 off by {l2_rel:.2e}")
+    if not (lap.get("residual", 0) and any(k.endswith("/mxu/bf16")
+                                           for k in lap)) or stray \
+            or counts["cheb2"] or counts["transfer"]:
+        raise RuntimeError(f"untrimmed path launched {counts}: B.1's "
+                           f"residual and mxu steps, and no trimmed "
+                           f"residual, pair or B.3 transfer, expected")
+    if not torch.isfinite(res.x).all() or tuple(res.x.shape) != fine_op.shape:
+        raise RuntimeError("untrimmed path: solution not finite or wrong "
+                           "shape")
+    launches = lap["residual"]
+    vcycles = {"untrimmed eager": mg, "untrimmed graphed": graphed,
+               "singles eager": singles,
+               "singles graphed": GraphedVCycle(singles)}
+    wall, _ = graph_report(card, None, rhs, n_dofs, vcycles)
+    slope = profiling.measure_op(lambda _: graphed.apply(rhs), rhs,
+                                 repeats=3)
+    log(f"  measure_op (utils.profiling, wall-clock slope over 2 and 8 "
+        f"graphed V-cycles, best of 3): {slope * 1e3:.3f} ms against the "
+        f"CUDA-event mean {wall['untrimmed graphed']:.3f} ms [{card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            mg.apply(rhs)
+            synchronize(device)
+        files = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        sizes = [os.path.getsize(f) for f in files]
+        log(f"  utils.profiling.trace of one eager V-cycle: {len(files)} "
+            f"file(s), {sizes} bytes")
+        if len(files) != 1 or not sizes[0] > 0:
+            raise RuntimeError("utils.profiling.trace wrote no trace")
+    t = times[("laplace", "residual")]
+    log(f"  B.1 residual at 257^3 in, 256^3 out: kernel {t['ms']:.3f} ms, "
+        f"twin {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of "
+        f"roofline); {launches} launches in the solve [{card}]")
+    fn, args = graft_entry.entry(device)
+    out = fn(*args)
+    synchronize(device)
+    if not torch.isfinite(out).all() or tuple(out.shape) != (129,) * 3:
+        raise RuntimeError("graft_entry.entry(): V-cycle not finite")
+    log(f"  graft_entry.entry(): one V-cycle at Q4 r=5 (2,146,689 DoFs) "
+        f"{cuda_ms(lambda: fn(*args)):.3f} ms eager [{card}]")
+    reset_counts()
+    del mg, graphed, singles, vcycles
+    log("phase 20: ok")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 21: any shard count (parallel/extended.py) and the dry runs, on one
+# card
+# --------------------------------------------------------------------------
+EXT_X_BOUND = 1e-9
+# The JAX package's extended solve bottoms out at S cells, not one, so its
+# CG count exceeds the single device's: at (S, p, r) = (6, 4, 4) it takes
+# 7 iterations against 4, as its CPU run prints from the repo root
+# (L2 0.024987133131880033, equal to the port's to every digit):
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   jax.config.update('jax_num_cpu_devices', 8)
+#   jax.config.update('jax_enable_x64', True)
+#   from portable_multigrid_tpu.parallel.extended import ExtendedShardedPoisson as E
+#   s = E(3, 4, 4, devices=jax.devices()[:6]).solve(rtol=1e-10)[1]
+#   print(s.iterations, repr(s.solution_l2_norm))"
+# Elsewhere the sharded count is held within 2 of the single device's, the
+# JAX package's bar (tests/test_sharding.py:364-392).
+EXT_JAX_CG = {(6, 4, 4): 7}
+
+
+def extended_solve(card: str, prob, p: int, r: int, what: str) -> None:
+    """A float64 sharded solve to rtol 1e-10 against the single-device
+    ``kron`` solve: converged within 2 CG iterations of it (or in the JAX
+    package's count where EXT_JAX_CG pins it), the live x within
+    EXT_X_BOUND of max |x|; both eager V-cycles in turns, with the single
+    device's graphed one (3 runs each), and their busy shares (one
+    profiled V-cycle each: the profiler's post-processing of a sharded
+    V-cycle's ~10^4 events takes seconds of host time)."""
+    device = prob.devices[0]
+    t_start = t0 = time.perf_counter()
+    x, st = prob.solve(rtol=1e-10, verbose=True)
+    synchronize(device)
+    t_solve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = GeometricMultigridPoisson(3, p, r, torch.float64, "kron",
+                                       device)
+    x1, st1 = single.solve(rtol=1e-10)
+    synchronize(device)
+    t_single = time.perf_counter() - t0
+    x1 = x1.cpu().numpy()
+    diff = float(np.abs(x - x1).max() / np.abs(x1).max())
+    log(f"  {what}: solve {t_solve:.2f} s (the single device's setup and "
+        f"solve {t_single:.2f} s), {st.iterations} CG iterations "
+        f"(single-device kron {st1.iterations}), L2 "
+        f"{st.solution_l2_norm:.12f} (single {st1.solution_l2_norm:.12f}), "
+        f"x within {diff:.3e} of max |x|")
+    pinned = EXT_JAX_CG.get((prob.n_shards, p, r))
+    if not (st.converged and diff <= EXT_X_BOUND
+            and (st.iterations == pinned if pinned else
+                 st.iterations <= st1.iterations + 2)):
+        raise RuntimeError(f"{what}: converged={st.converged}, "
+                           f"{st.iterations} CG iterations against "
+                           f"{st1.iterations}, x off by {diff:.3e}")
+    rhs, rhs1 = prob.rhs(), single.rhs()
+    mg, v1 = prob.preconditioner(), single.preconditioner(graph=False)
+    vcycles = {"sharded eager": mg, "single eager": v1,
+               "single graphed": single.preconditioner()}
+    srcs = {"sharded eager": rhs, "single eager": rhs1,
+            "single graphed": rhs1}
+    turns = time_turns(vcycles, srcs, reps=3, warmup=1)
+    for name, ts in turns.items():
+        log(f"  V-cycle {name:15s}: {ts[0]:.3f} / {ts[1]:.3f} ms [{card}]")
+    device_busy(mg, rhs, statistics.mean(turns["sharded eager"]),
+                f"{what}, sharded eager", reps=1)
+    device_busy(v1, rhs1, statistics.mean(turns["single eager"]),
+                "single eager", reps=1)
+    log(f"  {what}: {time.perf_counter() - t_start:.1f} s in all")
+
+
+def dryrun_against_single(st, p: int, r: int, device, what: str) -> None:
+    """A float64 solve of the dry run against the single-device ``kron``
+    solve at its size: within 2 CG iterations of it (the JAX package's
+    bar, tests/test_sharding.py:364-392), L2 within 1e-9 relative.  The
+    dry runs' problems have 729 to 35,937 DoFs, so their V-cycles are not
+    timed."""
+    _, st1 = GeometricMultigridPoisson(3, p, r, torch.float64, "kron",
+                                       device).solve(rtol=1e-10)
+    dl2 = abs(st.solution_l2_norm - st1.solution_l2_norm) / abs(
+        st1.solution_l2_norm)
+    log(f"  {what}: {st.iterations} CG iterations (single-device kron Q{p} "
+        f"r={r} {st1.iterations}), L2 {st.solution_l2_norm:.12f} (single "
+        f"{st1.solution_l2_norm:.12f}, {dl2:.3e} relative)")
+    if not (st.converged and st.iterations <= st1.iterations + 2
+            and dl2 <= 1e-9):
+        raise RuntimeError(f"{what}: {st.iterations} CG iterations against "
+                           f"{st1.iterations}, L2 off by {dl2:.3e}")
+
+
+def phase_extended(card: str, device) -> None:
+    """Phase 21: ``ExtendedShardedPoisson`` on one card, float64: 3 shards
+    at Q4 r=6 (96 x 64 x 64 extended cells, 25.4M points a vector) and 6
+    at Q4 r=4; then ``graft_entry.dryrun_multichip(3)`` and ``(8)``, their
+    float64 solves' CG counts and L2 against the single device."""
+    log(f"phase 21: any shard count, ExtendedShardedPoisson on one card "
+        f"({card})")
+    for S, p, r in ((3, 4, 6), (6, 4, 4)):
+        t0 = time.perf_counter()
+        prob = ExtendedShardedPoisson(3, p, r, devices=[device] * S,
+                                      dtype=torch.float64)
+        synchronize(device)
+        log(f"  ExtendedShardedPoisson(3, {p}, {r}), {S} shards: extended "
+            f"axis {prob.n0s[-1]} cells, setup "
+            f"{time.perf_counter() - t0:.2f} s")
+        extended_solve(card, prob, p, r, f"extended Q{p} r={r} S={S}")
+        del prob
+        torch.cuda.empty_cache()
+    for n in (3, 8):
+        t0 = time.perf_counter()
+        runs = graft_entry.dryrun_multichip(n, device)
+        synchronize(device)
+        log(f"  dryrun_multichip({n}) in {time.perf_counter() - t0:.2f} s")
+        for key in ("1d", "2d"):
+            if key in runs:
+                dryrun_against_single(runs[key], *runs[f"{key}_size"],
+                                      device, f"dryrun_multichip({n}) {key}")
+    log("phase 21: ok")
+
+
 def b5_hashes(device, path: str) -> None:
     """The SHA-256 of every output of every cube B.5 mode at phase 8's
     shapes on phase 8's seeded inputs, by (dtype, p, r, mode, output), to
@@ -3071,6 +3430,7 @@ def main(argv: list[str]) -> int:
         timed(3, phase_golden, device, json.load(fh))
     prob, st, per_mode = timed(4, phase_main, device, 6, GOLDEN_L2_Q4_R6, 4)
     times = timed(5, phase_timing, card, prob, st, device, per_mode)
+    residual_launches = timed(20, phase_untrimmed, card, device, prob, times)
     del prob
     torch.cuda.empty_cache()
     prob2, st2, per_mode2 = timed(6, phase_second, device, 9)
@@ -3107,6 +3467,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     timed(19, phase_general, card, device)
     torch.cuda.empty_cache()
+    timed(21, phase_extended, card, device)
+    torch.cuda.empty_cache()
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items()))
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
@@ -3133,6 +3495,16 @@ def main(argv: list[str]) -> int:
                                 source=k["source"], replaces=k["replaces"],
                                 launches=sum(counts.values()),
                                 max_abs_err=err, **times[(name, mode)]))
+    # B.1's untrimmed residual, from phase 20's path (the TPU kernel's mode
+    # at pallas_laplace.py:217)
+    k = KERNELS["laplace"]
+    kernels.append(dict(
+        name="laplace/residual", mode="residual", route=k["route"],
+        source=k["source"],
+        replaces="portable_multigrid_tpu/ops/pallas_laplace.py:217",
+        launches=residual_launches,
+        max_abs_err=errs[("laplace", "residual", *k["shape"], "float32")],
+        **times[("laplace", "residual")]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,7 @@ _D = ctypes.c_double
 # argument lists of the C entry points (pointers and the stream as void*,
 # so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
-    "pmg_laplace": [_P] * 21 + [_D, _D] + [_I] * 11 + [_P],
+    "pmg_laplace": [_P] * 21 + [_D, _D] + [_I] * 12 + [_P],
     "pmg_laplace2d": [_P] * 11 + [_D, _D] + [_I] * 7 + [_P],
     "pmg_cheb2": [_P] * 12 + [_D] * 5 + [_I] * 13 + [_P],
     "pmg_cheb2lr": [_P] * 10 + [_D] * 4 + [_I] * 6 + [_P],

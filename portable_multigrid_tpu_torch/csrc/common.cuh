@@ -31,9 +31,11 @@ __device__ __forceinline__ T diag_at(const T* __restrict__ dk,
 }
 
 // Modes of the fused Laplace kernels (laplace.cu, laplace2d.cu), in the
-// order of MODES in ops/cuda_laplace.py.
+// order of KERNEL_MODES in ops/cuda_laplace.py: the trimmed modes, then
+// B.1's untrimmed residual (laplace.cu alone), whose u and rhs lie on the
+// full grid.
 enum LaplaceMode { kApply = 0, kRes1 = 1, kRes3 = 2, kCheb = 3, kChebL = 4,
-                   kChebD = 5, kChebDL = 6 };
+                   kChebD = 5, kChebDL = 6, kResidual = 7 };
 
 // Storage of the state streams.  The Chebyshev recurrence's r and d may
 // live in bf16 between passes while every kernel computes in T (JAX's
@@ -68,6 +70,7 @@ enum StateFlags { kInBF16 = 1, kOutBF16 = 2, kRoundBF16 = 4 };
 //     apply       out = A u
 //     residual1t  out = rhs - A u
 //     residual3t  r0 = rhs - A u, d0 = r0 / (theta diag), x0 = u + d0
+//     residual    r0 and d0 of residual3t, both in T (no x0)
 //     cheb        r' = r - A d, d' = c0 d + (c1 / diag) r', x' = x + d'
 //     chebl       x' only;  chebd / chebdl: x == d on entry.
 // in(k) gives the inputs at the point in T: u (k = 0), in1 (rhs / r) and
@@ -92,6 +95,12 @@ __device__ __forceinline__ void laplace_epilogue(int mode, int64_t g, T raw,
     return;
   }
   const T dg = diag();
+  if (mode == kResidual) {
+    const T r0 = in(1) - raw;
+    o0[g] = r0;
+    static_cast<T*>(out1)[g] = r0 / (c0 * dg);
+    return;
+  }
   if (mode == kRes3) {
     const T r0 = in(1) - raw;
     const T d0 = r0 / (c0 * dg);

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_laplace.py
 // PallasLaplaceOperator._run (the exact "banded" core and the bf16 "mxu"
 // core; modes apply, residual1t, residual3t, cheb, chebl, chebd, chebdl, at
-// float or bf16 recurrence state).  It computes M A M u on trimmed state
+// float or bf16 recurrence state, and the untrimmed residual).  It computes M A M u on trimmed state
 // with
 //     A = Kx (x) My (x) Mz + Mx (x) Ky (x) Mz + Mx (x) My (x) Kz,
 // each 1D factor (2p+1)-banded with the Dirichlet mask folded in, followed by
@@ -31,6 +31,17 @@
 // drops the pencil's last x plane and last y row; z keeps the global
 // factors.  The cube passes its factors for all three axes and the slab
 // the global ones for y, so that their arithmetic is the one before.
+//
+// The untrimmed residual (mode kResidual, pallas_laplace.py:217: the first
+// half of the full-grid smoother's step) reads u and rhs on the FULL grid,
+// (N + 1)^3, at its strides in the same march, with no trim copy first: the
+// input rows are NZI = N + 1 long and there are NYI = N + 1 of them in
+// NXI = N + 1 planes, rhs is read at u's index, and r0 = rhs - M A M u and
+// d0 = r0 / (theta diag) are written trimmed, N^3, in T (JAX's out_dtypes
+// (dtype, dtype)).  The window stops at z = N as on the cube; it takes the
+// Dirichlet plane x = N and row y = N, which the trimmed bands weigh by
+// zero (they must be finite: zero under the solver's invariant), so the
+// result is the trimmed modes' M A M u of the trimmed u.
 //
 // The JAX package's smoother grade (float only; StateFlags in common.cuh):
 //   * bf16 state: in the cheb family u (= d) and in1 (= r) are stored in
@@ -126,7 +137,8 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
                const T* __restrict__ xkb, const T* __restrict__ xks,
                const T* __restrict__ xmb, const T* __restrict__ xdk,
                const T* __restrict__ xdm, T c0, T c1, int N_, int NY_,
-               int NYI_, int NX_, int NXI_, int mode, int LX, int flags) {
+               int NYI_, int NX_, int NXI_, int NZI_, int mode, int LX,
+               int flags) {
   constexpr int R = 2 * P + 1, NW = kWarps<T>, TY = kTY<T>, RW = TY / NW;
   constexpr int WY = TY + 2 * P, WZ = kEZ + 2 * P, XH = xrow_elems(P);
   constexpr int TP = TY * kEZ;  // one plane of the column
@@ -137,8 +149,10 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
   T* ebuf = ring + R * 2 * TP;              // [2][3][TY][32]  u, r, x
   T* xrow = ebuf + 6 * TP;                  // [3][XH]
   // z extent N; NY output rows along y from NYI input rows, NX output
-  // planes along x from NXI input planes
-  const int64_t N = N_, NY = NY_, NYI = NYI_, NX = NX_, NXI = NXI_;
+  // planes along x from NXI input planes; input rows of NZI values (N + 1
+  // on the full grid, else N)
+  const int64_t N = N_, NY = NY_, NYI = NYI_, NX = NX_, NXI = NXI_,
+                NZI = NZI_;
   const int lane = threadIdx.x % kEZ, w = threadIdx.x / kEZ;
   const int64_t z0 = (int64_t)blockIdx.x * kEZ, y0 = (int64_t)blockIdx.y * TY;
   const int64_t x0 = (int64_t)blockIdx.z * LX;
@@ -147,9 +161,12 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
   const int64_t gz = z0 + lane;  // the thread's z row, all march long
   const bool zok = gz < N;
   // the epilogue's inputs: u at the output (residual3t and the cheb
-  // family), in1 (every mode but apply), in2 (cheb, chebl)
-  const bool need_u = mode >= kRes3, need_r = mode != kApply,
-             need_x = mode == kCheb || mode == kChebL;
+  // family), in1 (every mode but apply; the untrimmed residual's rhs lies
+  // on the full grid, as u does), in2 (cheb, chebl)
+  const bool need_u = mode >= kRes3 && mode <= kChebDL,
+             need_r = mode != kApply,
+             need_x = mode == kCheb || mode == kChebL,
+             full_r = mode == kResidual;
   // u and in1 stored in bf16; r' and d' (r0 and d0) stored in bf16; the
   // bf16 operator grade (StateFlags)
   const bool ibf = BF && (flags & kInBF16), obf = flags & kOutBF16,
@@ -190,7 +207,7 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
 #pragma unroll
           for (int kc = 0; kc < KC; ++kc) {
             const int64_t zz = z0 - P + lane + kc * kEZ;
-            sw[k][kc] = stage_bits(u, (xn * NYI + yy) * N + zz,
+            sw[k][kc] = stage_bits(u, (xn * NYI + yy) * NZI + zz,
                                    yok && zz >= 0 && zz < N, ibf);
           }
         }
@@ -204,7 +221,7 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
             const bool ok = yok && zz >= 0 && zz < N;
             const T* src = static_cast<const T*>(u);
             cp_async_elem(dst + rw * WZ + c,
-                          ok ? src + (xn * NYI + yy) * N + zz : src, ok);
+                          ok ? src + (xn * NYI + yy) * NZI + zz : src, ok);
           }
         }
       }
@@ -217,19 +234,19 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
           const int q = qw + j;
           if (y0 + q >= NY) continue;
           // u at the output point (its input row), and in1, in2 there
-          const int64_t gu = (xo * NYI + y0 + q) * N + gz,
-                        g = (xo * NY + y0 + q) * N + gz;
+          const int64_t gu = (xo * NYI + y0 + q) * NZI + gz,
+                        g = (xo * NY + y0 + q) * N + gz, gr = full_r ? gu : g;
           T* e = ebuf + (b * 3 * TY + q) * kEZ + lane;
           // the epilogue's u and r as stored, never rounded
           if (ibf) {
             if constexpr (BF) {
               se[0][j] = stage_bits(u, gu, need_u, true);
-              se[1][j] = stage_bits(in1, g, need_r, true);
+              se[1][j] = stage_bits(in1, gr, need_r, true);
             }
           } else {
             if (need_u) cp_async_elem(e, static_cast<const T*>(u) + gu, true);
             if (need_r)
-              cp_async_elem(e + TP, static_cast<const T*>(in1) + g, true);
+              cp_async_elem(e + TP, static_cast<const T*>(in1) + gr, true);
           }
           if (need_x) cp_async_elem(e + 2 * TP, in2 + g, true);
         }
@@ -359,8 +376,9 @@ laplace_kernel(const void* __restrict__ u, const void* __restrict__ in1,
 // over: the z factors (kb, ks, mb, dk, dm) of extent N, the y factors
 // (ykb, yks, ymb; ydk, ydm) of NY rows, NY output rows from NYI input
 // rows, and the x factors (xkb, xks, xmb; xdk, xdm) of NX rows, NX output
-// planes from NXI input planes.  On the cube every axis has the z factors
-// and NX = NXI = NY = NYI = N; on a slab of the sharded solve x has the
+// planes from NXI input planes, input rows of NZI values.  On the cube every
+// axis has the z factors and NX = NXI = NY = NYI = NZI = N (N + 1 for the
+// inputs of the untrimmed residual); on a slab of the sharded solve x has the
 // slab's own (a partial assembly over its cells, the per-shard slices of
 // the diagonal factors) and NXI = NX + 1 (the input is x-full); on a
 // pencil of the 2D-pencil solve y has the pencil's own too and
@@ -369,7 +387,7 @@ template <typename T>
 struct Operator {
   const T *kb, *ks, *mb, *dk, *dm, *ykb, *yks, *ymb, *ydk, *ydm, *xkb, *xks,
       *xmb, *xdk, *xdm;
-  int N, NY, NYI, NX, NXI;
+  int N, NY, NYI, NX, NXI, NZI;
 };
 
 template <typename T, int P, bool BF>
@@ -382,8 +400,8 @@ int launch_p(const void* u, const void* in1, const T* in2, void* out0,
   static_assert(smem <= (size_t)kSmemLimit, "B.1 tile exceeds shared memory");
   // the host's tile must be the one this instance was compiled for
   if (TY != kRows || NW != kNW || LX < 1 || mode < kApply ||
-      mode > kChebDL || (flags && sizeof(T) != 4) || op.NX < 1 ||
-      op.NXI < op.NX || op.NY < 1 || op.NYI < op.NY)
+      mode > kResidual || (flags && sizeof(T) != 4) || op.NX < 1 ||
+      op.NXI < op.NX || op.NY < 1 || op.NYI < op.NY || op.NZI < op.N)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem((const void*)laplace_kernel<T, P, BF>, smem);
   if (err == cudaSuccess)
@@ -397,8 +415,8 @@ int launch_p(const void* u, const void* in1, const T* in2, void* out0,
   laplace_kernel<T, P, BF><<<grid, kNW * 32, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, op.kb, op.ks, op.mb, op.dk, op.dm,
       op.ykb, op.yks, op.ymb, op.ydk, op.ydm, op.xkb, op.xks, op.xmb, op.xdk,
-      op.xdm, (T)c0, (T)c1, op.N, op.NY, op.NYI, op.NX, op.NXI, mode, LX,
-      flags);
+      op.xdm, (T)c0, (T)c1, op.N, op.NY, op.NYI, op.NX, op.NXI, op.NZI, mode,
+      LX, flags);
   return (int)cudaGetLastError();
 }
 
@@ -441,8 +459,8 @@ int launch(const void* u, const void* in1, const T* in2, void* out0,
 // StateFlags of the launch (float only).  u, in1, out0 and out1 are float
 // or bf16 as the flags say.  kb .. dm: the z factors (extent N); ykb ..
 // ydm: the y factors (NY rows); xkb .. xdm: the x factors (NX rows); NY
-// output rows from NYI input rows, NX output planes from NXI input planes
-// (the Operator struct above).
+// output rows from NYI input rows, NX output planes from NXI input planes,
+// input rows of NZI values (the Operator struct above).
 #define PMG_LAPLACE_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* u, const void* in1, const T* in2,         \
                       void* out0, void* out1, T* out2, const T* kb,         \
@@ -451,11 +469,11 @@ int launch(const void* u, const void* in1, const T* in2, void* out0,
                       const T* ydk, const T* ydm, const T* xkb,             \
                       const T* xks, const T* xmb, const T* xdk,             \
                       const T* xdm, double c0, double c1, int N, int NY,    \
-                      int NYI, int NX, int NXI, int p, int mode, int LX,    \
-                      int TY, int NW, int flags, void* stream) {            \
+                      int NYI, int NX, int NXI, int NZI, int p, int mode,   \
+                      int LX, int TY, int NW, int flags, void* stream) {    \
     const Operator<T> op{kb,  ks,  mb,  dk,  dm, ykb, yks, ymb,             \
                          ydk, ydm, xkb, xks, xmb, xdk, xdm,                 \
-                         N,   NY,  NYI, NX,  NXI};                          \
+                         N,   NY,  NYI, NX,  NXI, NZI};                     \
     return launch<T>(u, in1, in2, out0, out1, out2, op, c0, c1, p, mode,    \
                      LX, TY, NW, flags, stream);                            \
   }

@@ -125,6 +125,44 @@ def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
     return op, smoother
 
 
+def build_untrimmed_vcycle(spaces, dtype=torch.float32,
+                           device="cuda") -> VCycle:
+    """The V-cycle that the JAX package's ``bench.py`` builds with
+    ``PMG_BENCH_TRIMMED=0`` (``bench.py:240-330``), over 3D ``spaces``
+    (coarse first, one refinement apart, equal degree): the coarsest level
+    as :class:`GeometricMultigridPoisson` builds it; every other level B.1
+    with a full-grid fused smoother (``FusedChebyshev(trimmed_io=False)``:
+    each smoothing step starts from one pass of B.1's untrimmed
+    ``residual``), whose recurrence runs in float32 at the JAX package's
+    bf16 grade (B.1's ``"mxu"`` core, r and d in bfloat16) and in float64
+    on the exact operator, without B.2 pairs; the plain h-transfers on full
+    grids.  No level is trimmed, so the V-cycle takes and returns full
+    grids; CG runs on ``levels[-1].op``."""
+    levels = []
+    for i, sp in enumerate(spaces):
+        if sp.dim != 3:
+            raise ValueError("the untrimmed V-cycle runs B.1, in 3D")
+        if i == 0:
+            op, smoother = _build_level(sp, dtype, True, "auto", device)
+            levels.append(MGLevel(op=op, smoother=smoother))
+            continue
+        op = make_cuda_laplace(sp, dtype, device)
+        grade = dtype == torch.float32
+        smoother = make_chebyshev(
+            op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
+            fused_smoother_op=(make_cuda_laplace(sp, dtype, device,
+                                                 core="mxu")
+                               if grade else None),
+            state_dtype=torch.bfloat16 if grade else None, fused=True,
+            trimmed_io=False)
+        levels.append(MGLevel(op=op, smoother=smoother,
+                              transfer=make_h_transfer(spaces[i - 1], sp,
+                                                       dtype, device)))
+    levels, fine_trimmed = wire_trimmed(levels)
+    return VCycle(levels=tuple(levels), pre_smoothing_steps=2,
+                  post_smoothing_steps=2, fine_trimmed=fine_trimmed)
+
+
 class _MultigridBase:
     """Common machinery: build levels, solve, report.  A model of a
     vector-valued field sets ``components`` and supplies its own

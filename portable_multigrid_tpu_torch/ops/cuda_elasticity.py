@@ -147,6 +147,7 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     pair_kernel: ClassVar[bool] = False
     # B.5 stores every stream in its dtype, at either core
     bf16_state: ClassVar[bool] = False
+    full_modes: ClassVar[tuple] = ()
 
     @property
     def shape(self) -> tuple[int, ...]:

@@ -21,6 +21,13 @@ launches the hand-written kernel; on a CPU tensor it runs
 :func:`laplace_twin`, the plain torch banded form of the same modes and
 outputs.
 
+One mode reads the full grid, as the TPU kernel's ``"residual"`` does
+(``pallas_laplace.py:217``): the first half of a smoothing step of the
+full-grid smoother (``FusedChebyshev(trimmed_io=False)``), r0 = rhs - M A M u
+and d0 = r0 / (theta diag) from u and rhs on the full (n p + 1)^3 grid,
+written trimmed in the operator's dtype (:data:`FULL_MODES`).  The kernel
+reads both at the full grid's strides in its one march, with no trim copy.
+
 Two precision options of the TPU kernel are ported, for float32 only:
 
   * the state dtype (``sdtype``, JAX's ``sdtype="bf16"``): the recurrence
@@ -63,10 +70,14 @@ from .transfer import pad_last_planes, trim_last_planes
 
 MODES = ("apply", "residual1t", "residual3t", "cheb", "chebl", "chebd",
          "chebdl")
+# B.1's modes on the full grid: u and rhs untrimmed, the outputs trimmed
+FULL_MODES = ("residual",)
+# every mode, in the order of LaplaceMode in csrc/common.cuh
+KERNEL_MODES = MODES + FULL_MODES
 CORES = ("banded", "mxu")
 # kernel launches per mode, counted where the wrapper launches the kernel
 # (launch_key: a mode at the mxu grade or at bf16 state has its own key)
-LAUNCHES = dict.fromkeys(MODES, 0)
+LAUNCHES = dict.fromkeys(KERNEL_MODES, 0)
 # StateFlags of csrc/common.cuh: the stencil input and the first epilogue
 # input are bf16; the recurrence outputs are bf16; the bf16 operator grade
 IN_BF16, OUT_BF16, ROUND_BF16 = 1, 2, 4
@@ -78,14 +89,15 @@ def io_dtypes(mode: str, dtype, sdtype) -> tuple[tuple, tuple]:
     kernel's ``out_dtypes``, pallas_laplace.py:287-292): residual3t reads
     u and rhs in ``dtype`` and writes r0, d0 in ``sdtype`` and x0 in
     ``dtype``; the cheb family reads d and r in ``sdtype`` and x in
-    ``dtype``, and writes r', d' in ``sdtype`` and x' in ``dtype``."""
+    ``dtype``, and writes r', d' in ``sdtype`` and x' in ``dtype``; the
+    untrimmed residual keeps every stream in ``dtype``."""
     T, S = dtype, sdtype
     ins = {"apply": (T,), "residual1t": (T, T), "residual3t": (T, T),
            "cheb": (S, S, T), "chebl": (S, S, T), "chebd": (S, S),
-           "chebdl": (S, S)}[mode]
+           "chebdl": (S, S), "residual": (T, T)}[mode]
     outs = {"apply": (T,), "residual1t": (T,), "residual3t": (S, S, T),
             "cheb": (S, S, T), "chebl": (T,), "chebd": (S, S, T),
-            "chebdl": (T,)}[mode]
+            "chebdl": (T,), "residual": (T, T)}[mode]
     return ins, outs
 
 
@@ -281,6 +293,8 @@ class CudaLaplaceOperator:
     pair_kernel: ClassVar[bool] = True
     # the kernel stores the recurrence streams in bf16 (StateFlags)
     bf16_state: ClassVar[bool] = True
+    # the modes on the full grid that the kernel takes
+    full_modes: ClassVar[tuple] = FULL_MODES
 
     @property
     def grid_shape(self) -> tuple[int, ...]:
@@ -339,21 +353,26 @@ class CudaLaplaceOperator:
 
     def run(self, mode: str, u: torch.Tensor, ins=(), scal=(),
             sdtype=None):
-        """One pass of ``mode`` on trimmed state; returns the output tuple.
+        """One pass of ``mode`` on trimmed state (u and rhs on the full
+        grid in a mode of ``full_modes``); returns the output tuple, on
+        trimmed state.
 
-        ``ins``: (rhs,) for residual1t/residual3t, (r, x) for cheb/chebl,
-        (r,) for chebd/chebdl.  ``scal``: (theta,) for residual3t, (c0, c1)
-        for the cheb family.  ``sdtype``: the storage dtype of the
-        recurrence streams (:func:`io_dtypes`; None: the operator's)."""
-        if mode not in MODES:
+        ``ins``: (rhs,) for residual1t/residual3t/residual, (r, x) for
+        cheb/chebl, (r,) for chebd/chebdl.  ``scal``: (theta,) for
+        residual3t and residual, (c0, c1) for the cheb family.
+        ``sdtype``: the storage dtype of the recurrence streams
+        (:func:`io_dtypes`; None: the operator's)."""
+        full = mode in self.full_modes
+        if mode not in MODES and not full:
             raise ValueError(f"unknown laplace mode {mode!r}: the kernels "
-                             f"take trimmed state, in modes {MODES}")
+                             f"take modes {MODES + self.full_modes}")
         sdtype = state_dtype(self, sdtype)
         in_dt, out_dt = io_dtypes(mode, self.dtype, sdtype)
         if len(ins) != len(in_dt) - 1:
             raise ValueError(f"mode {mode!r} takes {len(in_dt) - 1} inputs")
         for k, (t, dt) in enumerate(zip((u,) + tuple(ins), in_dt)):
-            _check(self, t, "u" if k == 0 else f"input {k - 1}", dt)
+            _check(self, t, "u" if k == 0 else f"input {k - 1}", dt,
+                   self.grid_shape if full else None)
         if u.device.type == "cpu":
             return self.twin(mode, u, ins, scal, sdtype)
         if not u.is_cuda:
@@ -362,15 +381,21 @@ class CudaLaplaceOperator:
                  | (OUT_BF16 if len(out_dt) == 3
                     and out_dt[0] == torch.bfloat16 else 0)
                  | (ROUND_BF16 if self.core == "mxu" else 0))
-        return _launch(self, MODES.index(mode), u, ins, scal, out_dt, flags,
-                       launch_key(mode, self.core, sdtype))
+        return _launch(self, KERNEL_MODES.index(mode), u, ins, scal, out_dt,
+                       flags, launch_key(mode, self.core, sdtype),
+                       *((self.trimmed_shape, self.kernel_sizes(True))
+                         if full else ()))
 
     def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(),
              sdtype=None):
         """The mode in plain torch on any device: the inputs taken in the
-        operator's dtype, the outputs stored as the kernel stores them."""
+        operator's dtype (a full-grid mode's trimmed first), the outputs
+        stored as the kernel stores them."""
         T = self.dtype
         _, out_dt = io_dtypes(mode, T, state_dtype(self, sdtype))
+        if mode in self.full_modes:
+            u, *ins = (trim_last_planes(t, self.dim).contiguous()
+                       for t in (u,) + tuple(ins))
         outs = self.raw_twin(mode, u.to(T), tuple(t.to(T) for t in ins),
                              scal)
         return tuple(o.to(dt) for o, dt in zip(outs, out_dt))
@@ -392,11 +417,13 @@ class CudaLaplaceOperator:
         """Operator scalars handed to the kernel after its arrays."""
         return ()
 
-    def kernel_sizes(self) -> tuple:
+    def kernel_sizes(self, full: bool = False) -> tuple:
         """The grid's extents handed to the kernel before the degree: N and
-        (B.1) the output and input rows along y, then along x."""
+        (B.1) the output and input rows along y, then along x, and the
+        input rows' length; N + 1 for the inputs of a ``full`` mode."""
         N = self.n * self.degree
-        return N, N, N, N, N
+        M = N + 1 if full else N
+        return N, N, M, N, M, M
 
 
 # the modes of a slab of the sharded solve (pallas_laplace.py:232-242), on
@@ -430,6 +457,7 @@ class CudaLaplaceSlab(CudaLaplaceOperator):
     mask1x: torch.Tensor = None  # [L+1] the shard's slice of the x mask
     dK1x: torch.Tensor = None  # [L+1] ... of the stiffness diagonal factor
     dM1x: torch.Tensor = None  # [L+1] ... of the mass diagonal factor
+    full_modes: ClassVar[tuple] = ()
 
     @property
     def grid_shape(self) -> tuple[int, ...]:
@@ -501,7 +529,7 @@ class CudaLaplaceSlab(CudaLaplaceOperator):
 
     def kernel_sizes(self) -> tuple:
         L, N, _ = self.trimmed_shape
-        return N, N, N, L, L + 1
+        return N, N, N, L, L + 1, N
 
 
 @dataclasses.dataclass
@@ -590,7 +618,7 @@ class CudaLaplacePencil(CudaLaplaceSlab):
 
     def kernel_sizes(self) -> tuple:
         Lx, Ly, N = self.trimmed_shape
-        return N, Ly, Ly + 1, Lx, Lx + 1
+        return N, Ly, Ly + 1, Lx, Lx + 1, N
 
 
 def cuda_laplace_pencil_from_factors(degree: int, n: int, n_loc: tuple, m1,
@@ -685,6 +713,9 @@ def twin_epilogue(op, mode: str, raw: torch.Tensor, u: torch.Tensor, ins=(),
     if mode == "residual1t":
         return (ins[0] - raw,)
     diag = op.diag_trimmed()
+    if mode == "residual":
+        r0 = ins[0] - raw
+        return r0, r0 / (scal[0] * diag)
     if mode == "residual3t":
         r0 = ins[0] - raw
         d0 = r0 / (scal[0] * diag)
@@ -726,9 +757,11 @@ def _suffix(dtype) -> str:
 
 
 def _launch(op: CudaLaplaceOperator, mode_index: int, u: torch.Tensor, ins,
-            scal, out_dtypes, flags: int, key: str, out_shape=None):
+            scal, out_dtypes, flags: int, key: str, out_shape=None,
+            sizes=None):
     """Launch the operator's kernel in the mode of index ``mode_index`` on
-    ``u``'s device; outputs of ``out_shape`` (u's shape by default)."""
+    ``u``'s device; outputs of ``out_shape`` (u's shape by default), the
+    grid's extents ``sizes`` (``op.kernel_sizes()`` by default)."""
     fn = _build.build().fn(op.kernel, _suffix(op.dtype))
     shape = u.shape if out_shape is None else out_shape
     outs = [torch.empty(shape, dtype=dt, device=u.device)
@@ -740,7 +773,8 @@ def _launch(op: CudaLaplaceOperator, mode_index: int, u: torch.Tensor, ins,
         err = fn(u.data_ptr(), *ptrs, *optrs,
                  *(t.data_ptr() for t in op.kernel_state()),
                  *op.kernel_scalars(), c0, c1,
-                 *op.kernel_sizes(), op.degree, mode_index, *op.tile, flags,
+                 *(op.kernel_sizes() if sizes is None else sizes), op.degree,
+                 mode_index, *op.tile, flags,
                  _build.stream_handle(u.device))
     if err:
         raise RuntimeError(f"{op.kernel} kernel ({key}) launch failed: "

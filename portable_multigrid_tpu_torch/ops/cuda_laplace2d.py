@@ -112,6 +112,7 @@ class CudaLaplace2D(CudaLaplaceOperator):
     kernel: ClassVar[str] = "pmg_laplace2d"
     launches: ClassVar[dict] = LAUNCHES
     pair_kernel: ClassVar[bool] = False
+    full_modes: ClassVar[tuple] = ()
 
     def diag_trimmed(self) -> torch.Tensor:
         """dKx dMy + dMx dKy on the trimmed grid (raw values on constrained

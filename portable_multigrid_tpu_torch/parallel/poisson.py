@@ -114,22 +114,29 @@ def _partial_assembled_1d(space: FESpace, n_cells: int):
 
 
 def _build_stacked_operator(space: FESpace, devices, dtype,
-                            variant: str = "sumfac") -> ShardedLaplaceOperator:
+                            variant: str = "sumfac",
+                            axis0=None) -> ShardedLaplaceOperator:
     """The plain operator on each shard: the slab's x extent, the shard's
     slices of the global x mask and diagonal factors (so that duplicated
     planes carry the global values), the global factors of the other
-    axes; ``kron`` with the slab-partial x matrices."""
+    axes; ``kron`` with the slab-partial x matrices.  ``axis0`` = (cells,
+    mask, dK, dM): the x axis's own cell count and global vectors where
+    they differ from the cube's (the extended domain of
+    ``parallel/extended.py``; ``kron`` only)."""
     b, dim = space.basis, space.dim
     n, p = space.mesh.cells_per_axis, space.degree
     S = len(devices)
     m1 = space.free_mask_1d()
     gK, gM = diagonal_1d_factors(space)
-    parts = [partition_axis0(v, n, p, S) for v in (m1, gK, gM)]
+    n0, *x_vectors = (n, m1, gK, gM) if axis0 is None else axis0
+    parts = [partition_axis0(v, n0, p, S) for v in x_vectors]
     K1 = M1 = K0 = M0 = None
     if variant == "kron":
         K1, M1 = assembled_1d_matrices(space)
-        K0, M0 = _partial_assembled_1d(space, n // S)
-    elif variant != "sumfac":
+        K0, M0 = _partial_assembled_1d(space, n0 // S)
+    elif axis0 is not None:
+        raise ValueError("an operator with x factors of its own is 'kron'")
+    if variant not in ("sumfac", "kron"):
         raise ValueError(f"sharded operator variant {variant!r}: the slabs "
                          f"run 'sumfac' or 'kron'")
     local = []
@@ -149,21 +156,24 @@ def _build_stacked_operator(space: FESpace, devices, dtype,
             fields.update(B=t(b.B), Dco=t(b.Dco),
                           qmetric=t(quadrature_metric(space)))
         local.append(LaplaceOperator(
-            dim=dim, degree=p, n=(n // S,) + (n,) * (dim - 1),
+            dim=dim, degree=p, n=(n0 // S,) + (n,) * (dim - 1),
             variant=variant, **fields))
     return ShardedLaplaceOperator(local=tuple(local))
 
 
 def _stacked_transfer(n_c: int, stride_c: int, stride_f: int, M1, wf, mc,
-                      dim: int, devices, dtype,
-                      halo_axis: int = 0) -> ShardedTransfer:
+                      dim: int, devices, dtype, halo_axis: int = 0,
+                      axis0=None) -> ShardedTransfer:
     """Per shard the separable transfer of its slab: the x weights and
     masks the shard's slices of the global ones (the fine grid's slabs at
     stride_f, the coarse grid's at stride_c); ``halo_axis`` 1 for fields
-    with a leading component axis."""
+    with a leading component axis; ``axis0`` = (coarse cells, wf, mc): the
+    x axis's own where they differ from the other axes' (the extended
+    domain of ``parallel/extended.py``)."""
     S = len(devices)
-    wf0 = partition_axis0(wf, n_c, stride_f, S)
-    mc0 = partition_axis0(mc, n_c, stride_c, S)
+    n_c0, wfx, mcx = (n_c, wf, mc) if axis0 is None else axis0
+    wf0 = partition_axis0(wfx, n_c0, stride_f, S)
+    mc0 = partition_axis0(mcx, n_c0, stride_c, S)
     local = []
     for s, dev in enumerate(devices):
         def t(a):
@@ -171,7 +181,7 @@ def _stacked_transfer(n_c: int, stride_c: int, stride_f: int, M1, wf, mc,
                                    device=dev)
 
         local.append(Transfer(
-            dim=dim, n_coarse=(n_c // S,) + (n_c,) * (dim - 1),
+            dim=dim, n_coarse=(n_c0 // S,) + (n_c,) * (dim - 1),
             stride_c=stride_c, stride_f=stride_f, M1=t(M1),
             wmask_f=(t(wf0[s]),) + (t(wf),) * (dim - 1),
             mask_c1=(t(mc0[s]),) + (t(mc),) * (dim - 1)))
@@ -446,12 +456,16 @@ class ShardedGeometricPoisson:
             dofs_per_level=[sp.n_dofs for sp in self.spaces],
         )
         if verbose:
-            print(f" Number of degrees of freedom: {stats.n_dofs} over "
-                  f"{self.n_shards} shards (by level: "
-                  f"{', '.join(str(d) for d in stats.dofs_per_level)})")
+            print(self._header(stats))
             print(f"  Solver converged in {stats.iterations} iterations.")
             print(f"  solution norm: {stats.solution_l2_norm:.6g}")
         return x, stats
+
+    def _header(self, stats: ShardedSolveStats) -> str:
+        """The first line that a verbose solve prints."""
+        return (f" Number of degrees of freedom: {stats.n_dofs} over "
+                f"{self.n_shards} shards (by level: "
+                f"{', '.join(str(d) for d in stats.dofs_per_level)})")
 
 
 class ShardedPolynomialPoisson(ShardedGeometricPoisson):

@@ -25,10 +25,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import ClassVar
 
 import numpy as np
 import torch
+
+from ..ops.transfer import pad_last_planes, trim_last_planes
 
 
 def np_dtype(dtype) -> type:
@@ -70,6 +71,11 @@ class Chebyshev:
 class FusedChebyshev:
     """Chebyshev smoother whose recurrence runs in the fused kernels, on
     TRIMMED state (global last planes dropped, constrained entries zero).
+    With ``trimmed_io`` False (B.1 only) its methods take and return full
+    grids, as the JAX package's full-grid smoother does: :meth:`smooth`
+    and :meth:`residual` start from one pass of B.1's untrimmed
+    ``residual`` mode, which reads u and rhs on the full grid, and every
+    result is padded back to it.
 
     Mathematically :class:`Chebyshev` on the free DoFs.  Each recurrence step
     is one pass of the operator kernel (B.1 in 3D, B.4 in 2D, B.5 for
@@ -100,7 +106,7 @@ class FusedChebyshev:
     op_smooth: object = None  # the recurrence's operator; None: op
     state_dtype: torch.dtype | None = None  # r and d between passes
     op_cheb2r: object = None  # ops.cuda_cheb2.Cheb2RKernel (cheb2lr)
-    trimmed_io: ClassVar[bool] = True
+    trimmed_io: bool = True  # False: full-grid input and output (B.1)
 
     def _scalars(self, dtype):
         dt = np_dtype(dtype)
@@ -183,13 +189,37 @@ class FusedChebyshev:
         d0 = bt / (float(np_dtype(bt.dtype)(self.theta)) * self.op.diag_trimmed())
         return self._steps(bt, d0, d0, x_is_d=True)
 
+    def _full(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(self.op.grid_shape).contiguous()
+
+    def _pad_full(self, t: torch.Tensor) -> torch.Tensor:
+        """Trimmed state -> the full grid, zero on the last planes."""
+        return pad_last_planes(t, self.op.dim)
+
+    def _residual_full(self, u, rhs):
+        """(r0, d0) of the full-grid u and rhs, trimmed, in the operator's
+        dtype: one pass of B.1's untrimmed ``residual``."""
+        theta = float(np_dtype(u.dtype)(self.theta))
+        return self.op.run("residual", self._full(u), (self._full(rhs),),
+                           (theta,))
+
     def apply(self, b: torch.Tensor) -> torch.Tensor:
-        """Preconditioner vmult with x0 = 0 on a masked trimmed input."""
-        return self._x_from_rhs(b)
+        """Preconditioner vmult with x0 = 0 on a masked input (trimmed, or
+        the full grid without ``trimmed_io``)."""
+        if self.trimmed_io:
+            return self._x_from_rhs(b)
+        bt = trim_last_planes(self._full(b), self.op.dim).contiguous()
+        return self._pad_full(self._x_from_rhs(bt))
 
     def smooth(self, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         """u + Cheb(rhs - A u), the V-cycle smoothing step: the residual,
-        d0 and x0 = u + d0 come from one B.1 pass (residual3t)."""
+        d0 and x0 = u + d0 come from one B.1 pass (residual3t); without
+        ``trimmed_io`` the untrimmed residual gives r0 and d0, the
+        recurrence runs from x0 = d0 on trimmed state, and u + x comes back
+        on the full grid (the JAX package's ``smooth``)."""
+        if not self.trimmed_io:
+            r0, d0 = self._residual_full(u, rhs)
+            return self._full(u) + self._pad_full(self._steps(r0, d0, d0))
         theta = float(np_dtype(u.dtype)(self.theta))
         r0, d0, x0 = self.op.run("residual3t", u, (rhs,), (theta,),
                                  sdtype=self.state_dtype)
@@ -203,10 +233,11 @@ class FusedChebyshev:
         that pairs up (n == 2, or ``op_cheb2`` for the middle pairs), the
         last pair is one ``cheb2lr`` pass, which gives the residual
         r2 - A d2 at the pair's grade in place of a ``residual1t`` pass
-        (the JAX package's ``smooth_and_residual``); otherwise
-        :meth:`smooth`, then :meth:`residual`."""
+        (the JAX package's ``smooth_and_residual``); otherwise, and always
+        without ``trimmed_io``, :meth:`smooth`, then :meth:`residual`."""
         n = self.degree - 1
-        if not (self.op_cheb2r is not None and n >= 2 and n % 2 == 0
+        if not (self.trimmed_io and self.op_cheb2r is not None
+                and n >= 2 and n % 2 == 0
                 and (n == 2 or self.op_cheb2 is not None)):
             un = self.smooth(u, rhs)
             return un, self.residual(un, rhs)
@@ -216,7 +247,11 @@ class FusedChebyshev:
         return self._steps(r0, d0, x0, rout=True)
 
     def residual(self, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-        """rhs - A u on the free DoFs — one B.1 pass (residual1t)."""
+        """rhs - A u on the free DoFs — one B.1 pass (residual1t), or
+        without ``trimmed_io`` the r0 of one untrimmed ``residual`` pass,
+        padded to the full grid."""
+        if not self.trimmed_io:
+            return self._pad_full(self._residual_full(u, rhs)[0])
         (r0,) = self.op.run("residual1t", u, (rhs,))
         return r0
 
@@ -391,6 +426,7 @@ def make_chebyshev(
     state_dtype=None,
     cheb2r=None,
     free_mask=None,
+    trimmed_io: bool = True,
 ):
     """Set up the smoother for a level operator (eig-CG on the op's device).
 
@@ -404,10 +440,14 @@ def make_chebyshev(
     optional pair kernel, ``cheb2r`` its optional ``cheb2lr`` kernel,
     ``fused_smoother_op`` the recurrence's operator and ``state_dtype`` the
     storage of its streams; the eigenvalue estimate runs on the exact
-    ``op``.  ``free_mask`` (an array of ``op.shape``, 1 on free DoFs) masks
-    the Lanczos start vector in place of the grid mask of ``op.mask1``, as
-    the JAX package's ``free_mask=`` does: the indexed operators of
-    ``ops/indexed.py`` act on flat vectors and have no 1D factors."""
+    ``op``.  ``trimmed_io`` False gives that smoother full-grid input and
+    output (B.1 only).  Its default, True, is the trimmed state that every
+    caller in the port builds; the JAX package's ``make_chebyshev``
+    defaults to ``trimmed_io=False``.  ``free_mask`` (an array of
+    ``op.shape``, 1 on free DoFs) masks the Lanczos start vector in place
+    of the grid mask of ``op.mask1``, as the JAX package's ``free_mask=``
+    does: the indexed operators of ``ops/indexed.py`` act on flat vectors
+    and have no 1D factors."""
     # one draw over the whole field, components included, times the grid
     # mask broadcast over them — the JAX package's start vector: NumPy's on
     # the host, or above DEVICE_DRAW_POINTS jax.random's on the device
@@ -433,5 +473,6 @@ def make_chebyshev(
     if fused or fused_smoother_op is not None:
         return FusedChebyshev(degree=deg, op=op, theta=theta, delta=delta,
                               op_cheb2=cheb2, op_smooth=fused_smoother_op,
-                              state_dtype=state_dtype, op_cheb2r=cheb2r)
+                              state_dtype=state_dtype, op_cheb2r=cheb2r,
+                              trimmed_io=trimmed_io)
     return Chebyshev(degree=deg, op=op, theta=theta, delta=delta)

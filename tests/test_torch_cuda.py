@@ -108,6 +108,32 @@ def test_kernels_match_twins(cuda, p, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype,core", [(torch.float32, "banded"),
+                                        (torch.float32, "mxu"),
+                                        (torch.float64, "banded")])
+@pytest.mark.parametrize("p", range(1, 8))
+def test_untrimmed_residual_matches_twin(cuda, p, dtype, core):
+    """B.1's untrimmed ``residual`` (u and rhs on the full grid, nonzero
+    on its last planes; r0 and d0 trimmed, in the operator's dtype)
+    against its twin at r = 2, at both cores (the mxu core in float32),
+    one launch under its own key."""
+    rng = np.random.default_rng(p)
+    op = cuda_laplace.make_cuda_laplace(FESpace(HyperCubeMesh(3, 2), p),
+                                        dtype, cuda, core=core)
+    u, rhs = (torch.as_tensor(rng.standard_normal(op.grid_shape),
+                              dtype=dtype, device=cuda) for _ in range(2))
+    key = cuda_laplace.launch_key("residual", core, None)
+    before = cuda_laplace.LAUNCHES.get(key, 0)
+    got = op.run("residual", u, (rhs,), (1.3,))
+    want = op.twin("residual", u, (rhs,), (1.3,))
+    assert [g.dtype for g in got] == [dtype, dtype]
+    assert all(tuple(g.shape) == op.trimmed_shape for g in got)
+    (_close_bf16 if core == "mxu" else
+     lambda g, w: _close(g, w, dtype))(got, want)
+    torch.cuda.synchronize()
+    assert cuda_laplace.LAUNCHES[key] == before + 1
+
+
 # kernel against twin at the bf16 grade or bf16 state: a rounding to bf16
 # may fall on the other side where the float32 sums differ in order
 BF16_BOUND = 1e-2

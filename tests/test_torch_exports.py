@@ -1,7 +1,7 @@
 """The port's top-level names (ROADMAP C.2) and its import rules: every name
 of the JAX package's ``__all__`` is in the port's and is an object of the
-port; importing the port, and every module this slice added, loads no JAX
-module and builds nothing (neither the CUDA kernels nor the native DoF
+port; importing the port, and every module the last slices added, loads
+no JAX module and builds nothing (neither the CUDA kernels nor the native DoF
 enumerator)."""
 
 import os
@@ -15,7 +15,8 @@ import portable_multigrid_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the modules added with general geometry, utils and driver 3
+# the modules added with general geometry, utils and driver 3, then with
+# the extended-domain sharded solve, the entry points and profiling
 NEW_MODULES = (
     "portable_multigrid_tpu_torch.fem.general_mesh",
     "portable_multigrid_tpu_torch.fem.dof_numbering",
@@ -26,6 +27,9 @@ NEW_MODULES = (
     "portable_multigrid_tpu_torch.utils.checkpoint",
     "portable_multigrid_tpu_torch.programs.unstructured_multigrid",
     "portable_multigrid_tpu_torch.convert",
+    "portable_multigrid_tpu_torch.parallel.extended",
+    "portable_multigrid_tpu_torch.graft_entry",
+    "portable_multigrid_tpu_torch.utils.profiling",
 )
 
 

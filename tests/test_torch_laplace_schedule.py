@@ -15,7 +15,11 @@ and epilogue at x_o = x_in - 1 - p, reading the ring from slot
 operator's ``ksum``.  The emulation must match ``laplace_twin`` to 1e-12
 (float64) in all seven modes, with partial chunks, several y-z columns,
 partial columns at the grid's edges, both dtypes' column heights and the
-main path's 1-cell level (N = 4 at p = 4).
+main path's 1-cell level (N = 4 at p = 4).  The untrimmed ``residual``
+reads u and rhs on the full (N + 1)^3 grid at its strides, as the kernel's
+guards let it: planes x <= N, rows y <= N, z < N, the Dirichlet plane and
+row at zero weight; it must match the twin (which trims first) on fields
+that are nonzero there.
 """
 
 import numpy as np
@@ -48,6 +52,9 @@ def epilogue(mode, raw, u, r, x, scal, diag):
         return (raw,)
     if mode == "residual1t":
         return (r - raw,)
+    if mode == "residual":
+        r0 = r - raw
+        return r0, r0 / (scal[0] * diag)
     if mode == "residual3t":
         r0 = r - raw
         d0 = r0 / (scal[0] * diag)
@@ -59,12 +66,28 @@ def epilogue(mode, raw, u, r, x, scal, diag):
     return (x + dn,) if mode in ("chebl", "chebdl") else (rn, dn, x + dn)
 
 
+def _take_full(f, xin, ry, rz):
+    """_take on a full (N + 1)^3 field within the untrimmed residual's
+    guards: x and y below N + 1, z below N."""
+    n = f.shape[0]
+    out_shape = (ry.shape[0], rz.shape[0], ry.shape[1], rz.shape[1])
+    if not 0 <= xin < n:
+        return torch.zeros(out_shape, dtype=f.dtype)
+    ok = (((ry >= 0) & (ry < n))[:, None, :, None]
+          & ((rz >= 0) & (rz < n - 1))[None, :, None, :])
+    v = f[xin][ry.clamp(0, n - 1)[:, None, :, None],
+               rz.clamp(0, n - 2)[None, :, None, :]]
+    return v * ok
+
+
 def schedule_emulation(op, mode, u, ins, scal, lx=None, ty=None):
     """B.1's outputs computed on the kernel's schedule (module docstring),
     all blocks of the y-z plane at once as a leading [nby, nbz]; ``lx`` and
-    ``ty`` override the launch tile's chunk and column height."""
+    ``ty`` override the launch tile's chunk and column height.  In the
+    untrimmed ``residual`` u and rhs are full-grid fields."""
     p = op.degree
     N = op.n * p
+    take = _take_full if mode == "residual" else _take
     LX, TY, _ = op.tile
     LX, TY = lx or LX, ty or TY
     R, WY, WZ = 2 * p + 1, TY + 2 * p, EZ + 2 * p
@@ -89,8 +112,10 @@ def schedule_emulation(op, mode, u, ins, scal, lx=None, ty=None):
     by = (dk[gyc][:, None, :, None] * dm[gzc][None, :, None, :]
           + dm[gyc][:, None, :, None] * dk[gzc][None, :, None, :])
 
-    n_out = 3 if mode in ("residual3t", "cheb", "chebd") else 1
-    outs = [torch.full_like(u, float("nan")) for _ in range(n_out)]
+    n_out = (3 if mode in ("residual3t", "cheb", "chebd") else
+             2 if mode == "residual" else 1)
+    outs = [torch.full((N,) * 3, float("nan"), dtype=u.dtype)
+            for _ in range(n_out)]
     for x0 in range(0, N, LX):
         xend = min(x0 + LX, N)
         xs, xe = x0 - p, xend + p
@@ -99,11 +124,11 @@ def schedule_emulation(op, mode, u, ins, scal, lx=None, ty=None):
 
         def load_plane(xn, b):
             if xn < xe:
-                win[(xn - xs) % 3] = _take(u, xn, wy, wz)
+                win[(xn - xs) % 3] = take(u, xn, wy, wz)
             xo = xn - 1 - p
             if x0 <= xo < xend:
                 ebuf[b] = (xo,) + tuple(
-                    None if f is None else _take(f, xo, gy, gz)
+                    None if f is None else take(f, xo, gy, gz)
                     for f in (u, r_in, x_in))
                 xrow[(xn - xs) % 3] = (xo,) + _rows(bands, op.ksum,
                                                     torch.tensor(xo))
@@ -160,6 +185,23 @@ def test_schedule_matches_twin(p, r, lx, ty, mode):
     want = laplace_twin(op, mode, fields["u"], ins, scal)
     got = schedule_emulation(op, mode, fields["u"], ins, scal, lx=lx, ty=ty)
     assert len(got) == len(want)
+    for w, g in zip(want, got):
+        err = float((w - g).abs().max()) / float(w.abs().max())
+        assert err <= 1e-12, err
+
+
+@pytest.mark.parametrize("p,r,lx,ty", CASES)
+def test_schedule_untrimmed_residual(p, r, lx, ty):
+    """The untrimmed residual on the kernel's schedule from full-grid u
+    and rhs, nonzero on the last planes, against the twin, 1e-12."""
+    op = make_cuda_laplace(FESpace(HyperCubeMesh(3, r), p), torch.float64)
+    rng = np.random.default_rng(p + 10)
+    u, rhs = (torch.as_tensor(rng.standard_normal(op.grid_shape))
+              for _ in range(2))
+    want = op.twin("residual", u, (rhs,), (1.3,))
+    got = schedule_emulation(op, "residual", u, (rhs,), (1.3,), lx=lx,
+                             ty=ty)
+    assert len(got) == len(want) == 2
     for w, g in zip(want, got):
         err = float((w - g).abs().max()) / float(w.abs().max())
         assert err <= 1e-12, err
