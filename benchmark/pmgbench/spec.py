@@ -1,0 +1,92 @@
+"""Find a cell's files by the names in ``BENCHMARK.json``.
+
+A cell (an entry of ``workloads``) names a configuration and a traffic
+mix.  The files the harness reads for it, all found by name, so that a
+later cell, configuration, traffic mix or metric is new files and new
+entries and never an edit:
+
+  * the configuration: the ``file`` of its ``configs`` entry (JSON), and
+    its plain reference ``configs/<reference>.py`` beside it;
+  * the traffic mix: ``traffic/<traffic>.json``;
+  * the limits of the check that decides ``correct``:
+    ``checks/<workload>.json``;
+  * each metric, end-to-end or per layer: a reader ``metrics/<name>.py``
+    with a function ``read(run)``, which returns the metric's value or
+    None when the run has nothing for it to read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+
+FOLDER = "benchmark"  # the benchmark's folder in the checkout
+
+
+def load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    if spec is None:
+        raise FileNotFoundError(path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    checks: dict
+    end_to_end: list  # entries of BENCHMARK.json's end_to_end for the cell
+    per_layer: list  # likewise of per_layer
+    root: Path
+
+    def reference(self):
+        """The configuration's plain reference module."""
+        name = self.config["reference"]
+        return load_module(self.root / FOLDER / "configs" / f"{name}.py",
+                           f"reference_{name}")
+
+    def reader(self, metric: str):
+        """The ``read`` function of ``metric``."""
+        return load_module(self.root / FOLDER / "metrics" / f"{metric}.py",
+                           f"metric_{metric.replace('.', '_')}").read
+
+    def model_spec(self) -> dict:
+        """The program's model that runs this cell: the configuration's
+        entry for the traffic's CG dtype."""
+        dtype = self.traffic["cg_dtype"]
+        try:
+            return self.config["models"][dtype]
+        except KeyError:
+            raise ValueError(f"configuration {self.config['name']} has no "
+                             f"model for CG in {dtype}") from None
+
+
+def _applies(metric: dict, cell: str) -> bool:
+    return "workloads" not in metric or cell in metric["workloads"]
+
+
+def load_cell(root: Path, workload: str) -> Cell:
+    """The cell ``workload`` of ``root/BENCHMARK.json``."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if workload not in cells:
+        raise KeyError(f"no workload {workload!r} in BENCHMARK.json; it has "
+                       f"{sorted(cells)}")
+    w = cells[workload]
+    entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    config = json.loads((root / entry["file"]).read_text())
+    here = root / FOLDER
+    traffic = json.loads((here / "traffic" / f"{w['traffic']}.json")
+                         .read_text())
+    checks = json.loads((here / "checks" / f"{workload}.json").read_text())
+    e2e = [m for m in bench["end_to_end"] if _applies(m, workload)]
+    layer = [m for m in bench["per_layer"] if _applies(m, workload)]
+    return Cell(workload, int(w["chips"]), config, traffic, checks, e2e,
+                layer, root)
+
