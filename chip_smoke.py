@@ -1220,8 +1220,21 @@ def graph_report(card: str, prob, rhs, n_dofs: int, vcycles=None,
 
 
 def log_levels(prob, rhs, name=lambda k, sp: f"r={k}") -> None:
-    """The eager V-cycle's own time by level (in-run CUDA events)."""
-    own = level_times(prob, rhs)
+    """The graphed V-cycle's own time by level: ``GraphedVCycle.span_ms``
+    of 10 replays of the traced graph (the device clock, inside the
+    graph); a level's own time is its pre, restrict, prolongate and post
+    spans, the coarsest level's its coarse solve."""
+    mg = prob.preconditioner()
+    with profiling.tracing():
+        mg.apply(rhs)  # captures the traced graph
+        mg.span_ms()
+        for _ in range(10):
+            mg.apply(rhs)
+        spans = mg.span_ms()
+    own = [spans["vcycle.coarse"].ms] + [
+        sum(spans[f"vcycle.L{k}.{ph}"].ms
+            for ph in ("pre", "restrict", "prolongate", "post"))
+        for k in range(1, len(prob.levels))]
     for k, (sp, lvl) in enumerate(zip(prob.spaces, prob.levels)):
         what = "coarse solve" if k == 0 else "smoothing, residual, transfers"
         log(f"  level {name(k, sp)} ({lvl.op.n_dofs} DoFs, {what}): "
@@ -1548,38 +1561,6 @@ def phase_second(device, r: int):
     torch.cuda.empty_cache()
     log("phase 6: ok")
     return p32, s32, per_mode
-
-
-@dataclasses.dataclass
-class TimedVCycle(VCycle):
-    """The V-cycle with CUDA events around each level's recursion."""
-
-    spans: list = dataclasses.field(default_factory=list)
-
-    def _cycle(self, level: int, src: torch.Tensor) -> torch.Tensor:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        out = super()._cycle(level, src)
-        end.record()
-        self.spans.append((level, start, end))
-        return out
-
-
-def level_times(prob, rhs, reps: int = 10, warmup: int = 3) -> list:
-    """Median ms of each level's own work in a V-cycle: its span minus the
-    span of the level below, taken within one run."""
-    tv = TimedVCycle(levels=prob.levels, fine_trimmed=prob.fine_trimmed)
-    own = [[] for _ in prob.levels]
-    for rep in range(warmup + reps):
-        tv.spans = []
-        tv.apply(rhs)
-        torch.cuda.synchronize()
-        if rep < warmup:
-            continue
-        incl = {k: s.elapsed_time(e) for k, s, e in tv.spans}
-        for k in incl:
-            own[k].append(incl[k] - incl.get(k - 1, 0.0))
-    return [statistics.median(t) for t in own]
 
 
 def device_busy(mg, rhs, wall: float, label: str = "",

@@ -42,6 +42,10 @@ _SIGNATURES = {
     "pmg_restrict": [_P] * 4 + [_I] * 6 + [_P],
     "pmg_elasticity": [_P] * 24 + [_D] * 4 + [_I] * 9 + [_P],
 }
+# entry points with no dtype suffix
+_UNTYPED_SIGNATURES = {
+    "pmg_mark": [_P, _I, _I, _P],
+}
 
 
 class BuildError(RuntimeError):
@@ -83,8 +87,16 @@ class KernelLibrary:
                 fn = getattr(self._lib, f"{base}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        for name, argtypes in _UNTYPED_SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
-    def fn(self, base: str, dtype_suffix: str):
+    def fn(self, base: str, dtype_suffix: str | None = None):
+        """The entry point ``base_<dtype_suffix>``, or ``base`` itself for
+        an untyped one."""
+        if dtype_suffix is None:
+            return getattr(self._lib, base)
         return getattr(self._lib, f"{base}_{dtype_suffix}")
 
 

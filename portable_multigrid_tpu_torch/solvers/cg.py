@@ -4,7 +4,10 @@ Counterpart of ``portable_multigrid_tpu/solvers/cg.py:cg`` — deal.II's
 ``SolverCG`` + ``SolverControl`` as the reference driver uses them
 (reference: source/geometric_multigrid/program.cc:345-352: tolerance
 rtol * ||b||, max_iter = vector size).  The loop runs on the host with one
-device-to-host read per iteration, for the stopping test.
+device-to-host read before it (the threshold and ||b|| in one transfer) and
+one per iteration, for the stopping test.  While tracing is on
+(``utils/profiling.py``) a solve is a ``pmg.cg.solve`` span and each read a
+``pmg.cg.host_read`` span inside it.
 :func:`cg_fixed_iterations` runs a fixed number of steps with no host read.
 """
 
@@ -14,6 +17,11 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from ..utils import profiling
+
+_SOLVE = profiling.named_scope(profiling.SOLVE)
+_HOST_READ = profiling.named_scope("pmg.cg.host_read")
 
 
 @dataclasses.dataclass
@@ -53,27 +61,31 @@ def cg(
     if dot is None:
         dot = _dot
     norm = lambda v: torch.sqrt(dot(v, v))
-    x = torch.zeros_like(b)
-    r = b
-    threshold = float(rtol * norm(b))
-    res = float(norm(r))
-    z = M(r)
-    rz = dot(r, z)
-    # a copy: a graphed preconditioner's next call may reuse z's storage
-    p = z.clone()
-    it = 0
-    while res > threshold and it < max_iter:
-        Ap = A(p)
-        alpha = rz / dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        res_t = norm(r)
+    with _SOLVE:
+        x = torch.zeros_like(b)
+        r = b
+        norm_b = norm(b)
+        # threshold and ||r|| = ||b|| in one read, in b's dtype
+        with _HOST_READ:
+            threshold, res = torch.stack((rtol * norm_b, norm_b)).tolist()
         z = M(r)
-        rz_new = dot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        it += 1
-        res = float(res_t)  # the one host sync of the iteration
+        rz = dot(r, z)
+        # a copy: a graphed preconditioner's next call may reuse z's storage
+        p = z.clone()
+        it = 0
+        while res > threshold and it < max_iter:
+            Ap = A(p)
+            alpha = rz / dot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            res_t = norm(r)
+            z = M(r)
+            rz_new = dot(r, z)
+            p = z + (rz_new / rz) * p
+            rz = rz_new
+            it += 1
+            with _HOST_READ:
+                res = float(res_t)  # the one host sync of the iteration
     return CGResult(x=x, iterations=it, residual_norm=res,
                     converged=res <= threshold)
 
