@@ -1162,6 +1162,7 @@ def phase_main(device, r: int, l2_ref: float, max_iterations: int):
         raise RuntimeError(f"main path L2 norm off by {l2_rel:.2e}")
     check_on_card(prob, x, device, per_mode, "main path")
     check_grade(per_mode, "3d", "main path")
+    check_pairs_on_tensor_cores(prob, x, "main path")
     log("phase 4: ok")
     return prob, st, per_mode
 
@@ -1402,6 +1403,25 @@ GRADE_MODES = {"3d": {"laplace": ("residual3t/bf16",),
                "singles": {"laplace": ("residual3t/bf16", "/mxu/bf16")},
                "2d": {"laplace2d": ("residual3t/bf16", "chebl/bf16")},
                "elasticity": {"elasticity": ("cheb/mxu", "chebl/mxu")}}
+
+
+def check_pairs_on_tensor_cores(prob, rhs, what: str) -> None:
+    """One eager V-cycle of a float32 model: each B.2 pair launch, all at
+    the production grade, went through the tensor-core instance
+    (``cuda_cheb2.MMA_LAUNCHES`` moves as ``LAUNCHES``)."""
+    mma, pairs = (dict(c) for c in (cuda_cheb2.MMA_LAUNCHES,
+                                    cuda_cheb2.LAUNCHES))
+    prob.preconditioner(graph=False).apply(rhs)
+    synchronize(rhs.device)
+    moved = {k: v - pairs.get(k, 0) for k, v in cuda_cheb2.LAUNCHES.items()
+             if v != pairs.get(k, 0)}
+    moved_mma = {k: v - mma.get(k, 0)
+                 for k, v in cuda_cheb2.MMA_LAUNCHES.items()
+                 if v != mma.get(k, 0)}
+    log(f"  {what}: B.2 pairs on the tensor cores a V-cycle {moved_mma}")
+    if not moved or moved_mma != moved:
+        raise RuntimeError(f"{what}: pairs {moved}, of them on the tensor "
+                           f"cores {moved_mma}")
 
 
 def check_grade(counts: dict, path: str, what: str) -> None:

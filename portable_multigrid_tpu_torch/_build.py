@@ -45,6 +45,7 @@ _SIGNATURES = {
 # entry points with no dtype suffix
 _UNTYPED_SIGNATURES = {
     "pmg_mark": [_P, _I, _I, _P],
+    "pmg_cheb2mma": _SIGNATURES["pmg_cheb2"],  # float32 only
 }
 
 

@@ -2,7 +2,10 @@
 //
 // The kernel template, shared by cheb2.cu (the pair's modes) and
 // cheb2lr.cu (cheb2lr), which instantiate it apart so that nvcc builds
-// the two sets of instances at once.
+// the two sets of instances at once.  Since the wrapper's cheb2_engine
+// sends the pair at the production grade in float to the tensor cores
+// (cheb2mma.cu), this kernel runs the exact grade, float64 and cheb2lr;
+// the pair's production-grade instance stays reachable from pmg_cheb2_f32.
 //
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_cheb2.py
 // Cheb2Kernel.steps2 (modes cheb2, cheb2l, chebd2, chebd2l, cheb2f0,
@@ -737,6 +740,66 @@ int launch_grade(const void* d, const void* r, const T* x, void* out0,
   return launch_p<T, P, false, ROUT>(d, r, x, out0, out1, out2, kb, mb, ks,
                                      dk, dm, c0a, c1a, c0b, c1b, g, mode, LX,
                                      TY, NW, flags, stream);
+}
+
+// The cheb2f0 pre-pass: d0 = b / (theta diag) on the trimmed grid, one
+// block per (x, y) row, the threads along z; the array has DY rows a
+// plane, its first x plane is global plane X0 and its first row global row
+// Y0 (a shard's extended b starts 2p planes before its own, a pencil's
+// also 2p rows before its own), and d0 is zero off the grid.  An
+// elementwise HBM pass (8 B a point in f32); it takes the b / (theta diag)
+// of every window point out of the marching kernel, which would repeat it
+// for each of the 3-4 windows that hold the point.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rhs_kernel(const T* __restrict__ b, T* __restrict__ d0,
+           const T* __restrict__ dk, const T* __restrict__ dm, T theta,
+           int N_, int X0, int DY, int Y0) {
+  const int64_t N = N_, row = blockIdx.x, gx = X0 + row / DY,
+                gy = Y0 + row % DY;
+  const bool on = gx >= 0 && gx < N && gy >= 0 && gy < N;
+  for (int64_t gz = threadIdx.x; gz < N; gz += blockDim.x) {
+    const int64_t g = row * N + gz;
+    d0[g] = on ? b[g] / (theta * diag_at(dk, dm, gx, gy, gz)) : T(0);
+  }
+}
+
+// The pair's launch prologue, shared by both engines (cheb2.cu and
+// cheb2mma.cu): checks the mode and the march and fills g.  xext: the
+// shard's march of NX planes from global plane XOFF, with d and x (= d)
+// extended by 2p planes a side and r by p (by 2p for cheb2f0*, where r is
+// b).  yext: likewise over NY rows from global row YOFF, with 2p and p rows
+// a side.  cheb2f0* becomes chebd2* on d = b / (theta diag), written by the
+// pre-pass into scratch, and r = b.  Returns a CUDA error code, 0 on
+// success.
+template <typename T>
+int pair_prologue(const void*& d, const void*& r, const T*& x,
+                  const T* dk, const T* dm, T* scratch, double theta, int N,
+                  int NX, int XOFF, int xext, int NY, int YOFF, int yext,
+                  int p, int& mode, int flags, March& g, void* stream) {
+  if (mode < kCheb2 || mode > kF0L || (!xext && (NX != N || XOFF != 0)) ||
+      (!yext && (NY != N || YOFF != 0)))
+    return (int)cudaErrorInvalidValue;
+  const bool f0 = mode == kF0 || mode == kF0L;
+  const int hd = 2 * p, hr = (f0 ? 2 : 1) * p;
+  g = March{N,  NX,   XOFF,          xext ? hd : 0, xext ? hr : 0,
+            NY, YOFF, yext ? hd : 0, yext ? hr : 0};
+  if (!f0) return 0;
+  // b comes in T, and the pre-pass writes d0 in T: the pair's inputs
+  // (d0, b) are never bf16
+  if (!scratch || (flags & kInBF16)) return (int)cudaErrorInvalidValue;
+  const int DY = NY + 2 * g.HDY;
+  const int64_t rows = (int64_t)(NX + 2 * g.HD) * DY;
+  rhs_kernel<T><<<(unsigned)rows, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(d), scratch, dk, dm, (T)theta, N, XOFF - g.HD,
+      DY, YOFF - g.HDY);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  r = d;
+  d = scratch;
+  x = nullptr;
+  mode = mode == kF0 ? kChebD2 : kChebD2L;
+  return 0;
 }
 
 }  // namespace

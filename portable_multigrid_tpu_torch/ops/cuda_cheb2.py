@@ -67,6 +67,9 @@ ROUT_MODE = "cheb2lr"  # the one mode of a rout kernel (csrc/cheb2lr.cu)
 # launches the kernel: the pair's, and the cheb2lr kernel's apart
 LAUNCHES = dict.fromkeys(MODES, 0)
 ROUT_LAUNCHES = {ROUT_MODE: 0}
+# the pair's launches on the tensor-core instance, keyed as LAUNCHES (which
+# counts them too)
+MMA_LAUNCHES = dict.fromkeys(MODES, 0)
 
 _TY = (16, 8, 6, 4, 2, 1)  # candidate interior rows of a block's column
 
@@ -139,6 +142,104 @@ def _tile_ty(p: int, itemsize: int, rout: bool) -> int | None:
                 None)
 
 
+def cheb2_engine(core: str, dtype, rout: bool = False) -> str:
+    """The instance that runs a pass: "mma" (``csrc/cheb2mma.cu``, bf16
+    tensor-core tiles) for the pair at the production grade (``core``
+    "mxu") in float32, "fma" (``csrc/cheb2.cuh`` on the CUDA cores) for the
+    exact grade, float64 and ``cheb2lr``."""
+    if core == "mxu" and dtype == torch.float32 and not rout:
+        return "mma"
+    return "fma"
+
+
+# the tensor-core instance's tile (MmaTile in csrc/cheb2mma.cu): row strides
+# of the bf16 window and d1 plane and of the float lag ring
+_MMA_WS, _MMA_LS = 56, 36
+MMA_SMEM_TWO = 113 * 1024  # a block's share of an SM when two fit
+_MMA_EY = (32, 24, 16)  # candidate grown rows of a block's column
+
+
+def _zt_stride(rows: int) -> int:
+    """bf16 row stride of z products stored [lane][row] (zt_stride in
+    cheb2mma.cu): 16-byte rows whose stride in words is an odd multiple of
+    4, so that ldmatrix tiles and packed stores meet no bank conflict."""
+    k = -(-rows // 8)
+    return 8 * k + (8 if k % 2 == 0 else 0)
+
+
+def _mma_groups(p: int, ty: int) -> dict:
+    """The tensor-core tile's counts at interior rows ``ty`` (MmaTile in
+    cheb2mma.cu): EY = ty + 2p grown rows (ey), n1 = EY / 8 step-one
+    groups and n2 = ceil(ty / 8) step-two groups of 8 rows, nw = 2 (n1 +
+    n2) warps (an m-tile of 16 lanes each), the window's rows padded to
+    wyp, and the strides zs1, zs2 of the two sets of z products over the
+    rows that the mma tiles read (the y stage's depth, 8 + 2p taps, padded
+    to 16 or 32)."""
+    ey = ty + 2 * p
+    n1, n2 = ey // 8, -(-ty // 8)
+    wyp = -(-(ey + 2 * p) // 8) * 8
+    ky = 16 if 8 + 2 * p <= 16 else 32
+    zr1, zr2 = max(wyp, 8 * (n1 - 1) + ky), max(ey, 8 * (n2 - 1) + ky)
+    return dict(ey=ey, n1=n1, n2=n2, groups=n1 + n2, nw=2 * (n1 + n2),
+                wyp=wyp, zs1=_zt_stride(zr1), zs2=_zt_stride(zr2))
+
+
+def cheb2_mma_smem_bytes(p: int, ty: int) -> int:
+    """Shared-memory bytes of one tensor-core block (MmaTile::smem_bytes in
+    cheb2mma.cu): ring 1 and ring 2 (2p+1 planes of an 8-row group's y
+    products as bf16 pairs, 1 KB a group), the lag ring of p+2 (r1, d1)
+    planes in float over 8 n2 rows of 36, three sets of the two x rows; in
+    bf16 two windows of wyp rows of 56, two sets of step one's Kz and Mz
+    products (32 lanes of zs1), the d1 plane (EY rows of 56), two sets of
+    step two's z products (32 lanes of zs2) and the z band of Kz and Mz (32
+    rows of 56 each)."""
+    t = _mma_groups(p, ty)
+    xrow = -(-(2 * (2 * p + 1) + 3) // 4) * 4
+    words = ((2 * p + 1) * t["groups"] * 256
+             + (p + 2) * 2 * 8 * t["n2"] * _MMA_LS + 3 * 2 * xrow)
+    halves = (2 * t["wyp"] * _MMA_WS + 4 * 32 * t["zs1"]
+              + t["ey"] * _MMA_WS + 4 * 32 * t["zs2"] + 2 * 32 * _MMA_WS)
+    return 4 * words + 2 * halves
+
+
+def _mma_ty(p: int) -> tuple[int, int]:
+    """(TY, blocks an SM) of the tensor-core tile (mma_ty, mma_blocks in
+    cheb2mma.cu): of the interior rows whose grown column is 32, 24 or 16
+    rows, the largest of at least 8 whose block fits twice an SM with at
+    most 6 groups; else the largest that fits once."""
+    for ey in _MMA_EY:
+        ty = ey - 2 * p
+        if (ty >= 8 and _mma_groups(p, ty)["groups"] <= 6
+                and cheb2_mma_smem_bytes(p, ty) <= MMA_SMEM_TWO):
+            return ty, 2
+    for ey in _MMA_EY:
+        ty = ey - 2 * p
+        if ty >= 1 and cheb2_mma_smem_bytes(p, ty) <= SMEM_LIMIT:
+            return ty, 1
+    raise ValueError(f"no tensor-core pair tile fits one block at p={p}")
+
+
+def cheb2_mma_tile(p: int, N: int, nx: int | None = None,
+                   ny: int | None = None) -> tuple[int, int, int]:
+    """(LX, TY, NW) of a tensor-core launch for an N^3 grid (``nx``,
+    ``ny`` as in :func:`cheb2_tile`): TY of :func:`_mma_ty`, two warps per
+    8-row group of each step, and the chunk rule with 4p lead-in planes and
+    the tile's blocks an SM."""
+    ty, per_sm = _mma_ty(p)
+    columns = -(-N // (EZ - 2 * p)) * -(-(N if ny is None else ny) // ty)
+    lx = chunk_planes(N if nx is None else nx, columns, 4 * p, per_sm)
+    return lx, ty, _mma_groups(p, ty)["nw"]
+
+
+def _pair_tile(op: CudaLaplaceOperator, nx=None, ny=None) -> tuple:
+    """The tile of the pair's engine on ``op``'s level."""
+    N = op.n * op.degree
+    if cheb2_engine(op.core, op.dtype) == "mma":
+        return cheb2_mma_tile(op.degree, N, nx, ny)
+    itemsize = torch.empty((), dtype=op.dtype).element_size()
+    return cheb2_tile(op.degree, itemsize, N, nx=nx, ny=ny)
+
+
 def cheb2_fits(op: CudaLaplaceOperator, rout: bool = False) -> bool:
     """Whether B.2 has a tile for ``op``'s level (:func:`cheb2_tile`): the
     pair always, ``cheb2lr`` at p <= 5 in float32 and p <= 3 in
@@ -207,9 +308,16 @@ class Cheb2Kernel:
     pencil of the 2D-pencil solve (:func:`make_cheb2_pencil`)."""
 
     op: CudaLaplaceOperator
-    tile: tuple  # (LX, TY, NW) of cheb2_tile
+    tile: tuple  # (LX, TY, NW): cheb2_mma_tile on the "mma" engine, else
+    # cheb2_tile
     xext: tuple | None = None
     yext: tuple | None = None
+
+    @property
+    def engine(self) -> str:
+        """The instance that runs the pair on ``op``
+        (:func:`cheb2_engine`)."""
+        return cheb2_engine(self.op.core, self.op.dtype)
 
     def steps2(self, d, r, x, scal, mode: str = "cheb2", sdtype=None):
         """One pass of ``mode``; returns (r2, d2, x2), or (x2,) for "l"
@@ -243,7 +351,9 @@ class Cheb2Kernel:
         sc = [float(s) for s in scal] + [0.0] * (5 - len(scal))
         # cheb2f0*: the kernel's pre-pass writes d0 = b / (theta diag)
         scratch = torch.empty_like(d) if r is None else None
-        fn = _build.build().fn("pmg_cheb2", _suffix(op.dtype))
+        mma = self.engine == "mma"
+        fn = (_build.build().fn("pmg_cheb2mma") if mma
+              else _build.build().fn("pmg_cheb2", _suffix(op.dtype)))
         with torch.cuda.device(d.device):
             err = fn(d.data_ptr(), None if r is None else r.data_ptr(),
                      None if x is None else x.data_ptr(), *optrs,
@@ -257,6 +367,8 @@ class Cheb2Kernel:
         where = ("/pencil" if self.yext is not None
                  else "/xext" if self.xext is not None else "")
         _counted(LAUNCHES, op, mode + where, sdtype, err)
+        if mma:
+            _counted(MMA_LAUNCHES, op, mode + where, sdtype, err)
         return tuple(outs)
 
 
@@ -424,9 +536,7 @@ def make_cheb2_xext(op: CudaLaplaceOperator, x_off: int,
     if not (0 <= x_off and nx >= 1 and x_off + nx <= N):
         raise ValueError(f"a march of {nx} planes from {x_off} leaves the "
                          f"grid of {N}")
-    itemsize = torch.empty((), dtype=op.dtype).element_size()
-    return Cheb2Kernel(op=op, tile=cheb2_tile(op.degree, itemsize, N, nx=nx),
-                       xext=(x_off, nx))
+    return Cheb2Kernel(op=op, tile=_pair_tile(op, nx=nx), xext=(x_off, nx))
 
 
 def make_cheb2_pencil(op: CudaLaplaceOperator, x_off: int, nx: int,
@@ -441,21 +551,21 @@ def make_cheb2_pencil(op: CudaLaplaceOperator, x_off: int, nx: int,
     if not (0 <= y_off and ny >= 1 and y_off + ny <= N):
         raise ValueError(f"a march over {ny} rows from {y_off} leaves the "
                          f"grid of {N}")
-    itemsize = torch.empty((), dtype=op.dtype).element_size()
-    return dataclasses.replace(
-        kern, tile=cheb2_tile(op.degree, itemsize, N, nx=nx, ny=ny),
-        yext=(y_off, ny))
+    return dataclasses.replace(kern, tile=_pair_tile(op, nx=nx, ny=ny),
+                               yext=(y_off, ny))
 
 
 def make_cheb2(op: CudaLaplaceOperator,
                rout: bool = False) -> Cheb2Kernel | Cheb2RKernel:
     """The pair kernel on ``op``'s level, at ``op``'s grade (the production
-    bf16 grade on an ``"mxu"`` operator); ``rout``: the ``cheb2lr``
-    kernel, which raises ValueError where its tile fits no block
-    (:func:`cheb2_tile`)."""
+    bf16 grade on an ``"mxu"`` operator, on the tensor cores in float32:
+    :func:`cheb2_engine`); ``rout``: the ``cheb2lr`` kernel, which raises
+    ValueError where its tile fits no block (:func:`cheb2_tile`)."""
     if op.dim != 3:
         # as in the JAX package (pallas_cheb2.py:59-69)
         raise ValueError("the pair kernel B.2 is 3D only")
+    if not rout:
+        return Cheb2Kernel(op=op, tile=_pair_tile(op))
     itemsize = torch.empty((), dtype=op.dtype).element_size()
-    tile = cheb2_tile(op.degree, itemsize, op.n * op.degree, rout)
-    return (Cheb2RKernel if rout else Cheb2Kernel)(op=op, tile=tile)
+    return Cheb2RKernel(op=op, tile=cheb2_tile(op.degree, itemsize,
+                                                op.n * op.degree, True))

@@ -318,6 +318,126 @@ def test_cheb2lr_matches_twin(cuda, p):
     torch.cuda.synchronize()
 
 
+def _halo_window(f, lo, n, h, axis):
+    """Planes (rows) lo - h .. lo + n + h of f along ``axis``, zeros off
+    the grid: a shard's (a pencil's) input with its halo."""
+    shape = list(f.shape)
+    shape[axis] = n + 2 * h
+    out = torch.zeros(shape, dtype=f.dtype, device=f.device)
+    a, b = max(lo - h, 0), min(lo + n + h, f.shape[axis])
+    out.narrow(axis, a - lo + h, b - a).copy_(f.narrow(axis, a, b - a))
+    return out
+
+
+def _pair_args(mode, d, r, x, b):
+    scal = (0.59, 1.26, 0.71, 1.52)
+    if mode.startswith("cheb2f0"):
+        return b, None, None, scal + (1.3,)
+    return d, r, x if mode in ("cheb2", "cheb2l") else None, scal
+
+
+@pytest.mark.parametrize("p", range(1, 8))
+def test_cheb2_mma_matches_twin(cuda, p):
+    """B.2's tensor-core instance (the production grade in float32) in all
+    six modes at float and bf16 state against the twin at r = 3 (N = 8p:
+    partial y-z columns), each launch counted in MMA_LAUNCHES and
+    LAUNCHES; on a shard of four (xext) and a pencil of (2, 2) (yext) at
+    bf16 state against their twins and bit for bit the cube's pair."""
+    rng = np.random.default_rng(p)
+    op = cuda_laplace.make_cuda_laplace(FESpace(HyperCubeMesh(3, 3), p),
+                                        torch.float32, cuda, core="mxu")
+    N = op.n * p
+    kern = cuda_cheb2.make_cheb2(op)
+    assert kern.engine == "mma"
+    d, r, x, b = (_field(N, rng, torch.float32, cuda) for _ in range(4))
+    mma, all_ = (sum(c.values()) for c in (cuda_cheb2.MMA_LAUNCHES,
+                                          cuda_cheb2.LAUNCHES))
+    for sd in (None, BF16):
+        ds, rs = (d, r) if sd is None else (d.to(sd), r.to(sd))
+        for mode in cuda_cheb2.MODES:
+            args = _pair_args(mode, ds, rs, x, b)
+            _close_bf16(kern.steps2(*args, mode, sdtype=sd),
+                        cuda_cheb2.cheb2_twin(op, *args, mode, sd))
+    torch.cuda.synchronize()
+    assert sum(cuda_cheb2.MMA_LAUNCHES.values()) == mma + 12
+    assert sum(cuda_cheb2.LAUNCHES.values()) == all_ + 12
+    d16, r16 = d.to(BF16), r.to(BF16)
+    L = N // 4
+    shard = cuda_cheb2.make_cheb2_xext(op, L, L)
+    pencil = cuda_cheb2.make_cheb2_pencil(op, N // 2, N // 2, 0, N // 2)
+    assert shard.engine == pencil.engine == "mma"
+    for mode in cuda_cheb2.MODES:
+        whole = kern.steps2(*_pair_args(mode, d16, r16, x, b), mode,
+                            sdtype=BF16)
+        f0 = mode.startswith("cheb2f0")
+        hr = (2 if f0 else 1) * p
+        xs = slice(L, 2 * L)
+        args = _pair_args(mode, _halo_window(d16, L, L, 2 * p, 0),
+                          _halo_window(r16, L, L, hr, 0), x[xs].contiguous(),
+                          _halo_window(b, L, L, 2 * p, 0))
+        got = shard.steps2(*args, mode, sdtype=BF16)
+        _close_bf16(got, cuda_cheb2.cheb2_twin_xext(op, L, L, *args, mode,
+                                                    BF16))
+        assert all(torch.equal(g, w[xs]) for g, w in zip(got, whole))
+        px, py = slice(N // 2, N), slice(0, N // 2)
+
+        def cut(f, h):
+            return _halo_window(_halo_window(f, N // 2, N // 2, h, 0), 0,
+                                N // 2, h, 1)
+
+        args = _pair_args(mode, cut(d16, 2 * p), cut(r16, hr),
+                          x[px, py].contiguous(), cut(b, 2 * p))
+        got = pencil.steps2(*args, mode, sdtype=BF16)
+        _close_bf16(got, cuda_cheb2.cheb2_twin_pencil(
+            op, N // 2, N // 2, 0, N // 2, *args, mode, BF16))
+        assert all(torch.equal(g, w[px, py]) for g, w in zip(got, whole))
+    torch.cuda.synchronize()
+
+
+def test_mma_launches_by_grade(cuda):
+    """One eager V-cycle of the main path runs all its pairs on the tensor
+    cores (MMA_LAUNCHES as LAUNCHES); the exact grade's and float64's pairs
+    count in LAUNCHES alone."""
+    prob = GeometricMultigridPoisson(3, 4, 3, torch.float32, "auto", cuda)
+    b = prob.rhs()
+    mma, all_ = (dict(c) for c in (cuda_cheb2.MMA_LAUNCHES,
+                                   cuda_cheb2.LAUNCHES))
+    prob.preconditioner(graph=False).apply(b)
+    torch.cuda.synchronize()
+    moved = {k: v - all_.get(k, 0) for k, v in cuda_cheb2.LAUNCHES.items()
+             if v != all_.get(k, 0)}
+    moved_mma = {k: v - mma.get(k, 0)
+                 for k, v in cuda_cheb2.MMA_LAUNCHES.items()
+                 if v != mma.get(k, 0)}
+    assert moved and moved_mma == moved
+    assert all(k.endswith("/mxu/bf16") for k in moved)
+    rng = np.random.default_rng(0)
+    sp = FESpace(HyperCubeMesh(3, 2), 4)
+    for dtype in (torch.float32, torch.float64):
+        op = cuda_laplace.make_cuda_laplace(sp, dtype, cuda)
+        kern = cuda_cheb2.make_cheb2(op)
+        assert kern.engine == "fma"
+        d, r, x = (_field(op.n * 4, rng, dtype, cuda) for _ in range(3))
+        mma, all_ = (sum(c.values()) for c in (cuda_cheb2.MMA_LAUNCHES,
+                                              cuda_cheb2.LAUNCHES))
+        _close(kern.steps2(d, r, x, (0.59, 1.26, 0.71, 1.52), "cheb2"),
+               cuda_cheb2.cheb2_twin(op, d, r, x, (0.59, 1.26, 0.71, 1.52),
+                                     "cheb2"), dtype)
+        torch.cuda.synchronize()
+        assert sum(cuda_cheb2.MMA_LAUNCHES.values()) == mma
+        assert sum(cuda_cheb2.LAUNCHES.values()) == all_ + 1
+
+
+def test_graphed_q4_solve_keeps_its_cg_count(cuda):
+    """The main path (Q4 r=6, float32, the pairs on the tensor cores):
+    float32 CG to rtol 1e-5 through the graphed V-cycle takes 2
+    iterations, as it did with the CUDA-core pairs."""
+    prob = GeometricMultigridPoisson(3, 4, 6, torch.float32, "auto", cuda)
+    res = cg(prob.fine_operator.apply, prob.rhs(), prob.preconditioner().apply,
+             rtol=1e-5)
+    assert res.converged and res.iterations == 2
+
+
 @pytest.mark.parametrize("mode", cuda_transfer.MODES)
 def test_vector_transfer_is_one_launch(cuda, mode):
     """A B.3 pass over a [3, ...] field launches the kernel once (the
