@@ -4,7 +4,8 @@ The benchmark's own copy of the little finite-element arithmetic that its
 traffic generator and its plain reference need: the Gauss-Lobatto nodes of
 Q_p (deal.II's ``FE_Q`` support points), Gauss-Legendre quadrature, the
 Lagrange basis and its derivative at arbitrary points, the assembled 1D
-stiffness and mass matrices and the assembled 1D load vector of a function.
+stiffness, mass and gradient matrices and the assembled 1D load vector of
+a function.
 It imports nothing of the program under test.
 """
 
@@ -64,14 +65,30 @@ def assembled_matrices(degree: int, refinements: int) -> tuple[np.ndarray,
     V, G = lagrange(lobatto_nodes(degree), q)
     Kc = (G.T * w) @ G / h
     Mc = (V.T * w) @ V * h
+    return (_assemble(Kc, degree, refinements),
+            _assemble(Mc, degree, refinements))
+
+
+def assembled_gradient(degree: int, refinements: int) -> np.ndarray:
+    """Dense assembled 1D gradient matrix C[i, j] = int l_i l_j' over
+    2^refinements equal cells of [0, 1], each integrated with degree + 2
+    Gauss points (exact): the coupling of two axes' derivatives that linear
+    elasticity needs beside K and M.  The 1/h of l_j' cancels the h of
+    dx, so the cell matrix is the reference cell's."""
+    q, w = gauss(degree + 2)
+    V, G = lagrange(lobatto_nodes(degree), q)
+    return _assemble((V.T * w) @ G, degree, refinements)
+
+
+def _assemble(cell: np.ndarray, degree: int, refinements: int) -> np.ndarray:
+    """The dense 1D matrix of 2^refinements copies of the cell matrix
+    ``cell``, neighbours sharing their end nodes."""
     N = n_points(degree, refinements)
-    K = np.zeros((N, N))
-    M = np.zeros((N, N))
-    for c in range(n):
+    A = np.zeros((N, N))
+    for c in range(1 << refinements):
         s = slice(c * degree, c * degree + degree + 1)
-        K[s, s] += Kc
-        M[s, s] += Mc
-    return K, M
+        A[s, s] += cell
+    return A
 
 
 def load_vector(degree: int, refinements: int, g, n_q: int | None = None

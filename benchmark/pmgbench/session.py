@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 import random
 import time
 
@@ -81,6 +82,14 @@ class Session:
         op = self.model.fine_operator
         self.A, self.M = op.apply, self.precond.apply
         self.n_dofs = op.n_dofs
+        shape = traffic_mod.rhs_shape(cell.config)
+        if math.prod(shape) != self.n_dofs:
+            raise ValueError(
+                f"configuration {cell.config['name']} (components "
+                f"{cell.config.get('components', 1)}) gives right-hand sides "
+                f"of shape {shape}, {math.prod(shape)} entries; "
+                f"{cell.model_spec()['class']}'s fine operator has "
+                f"{self.n_dofs} DoFs")
         self.dtype = self.model.io_dtype or self.model.dtype
         if self.dtype != DTYPES[t["cg_dtype"]]:
             raise ValueError(f"{cell.model_spec()['class']} runs CG in "

@@ -13,6 +13,16 @@ entries and never an edit:
   * each metric, end-to-end or per layer: a reader ``metrics/<name>.py``
     with a function ``read(run)``, which returns the metric's value or
     None when the run has nothing for it to read.
+
+The keys of a configuration's file that the harness reads: ``name``;
+``dim``, ``degree`` and ``refinements`` (the mesh and the elements, from
+which the traffic builds its right-hand sides and the roofline counts its
+work); ``components``, optional, 1 by default: the unknowns a mesh point,
+so that a right-hand side has the shape (components,) + grid where it is
+more than 1 (linear elasticity's displacements); ``reference``, the name of
+the plain reference beside it; ``models``, for each CG dtype the program's
+model ``class`` and its ``kwargs``.  The plain reference may read further
+keys of its own (an elasticity reference its Lame parameters).
 """
 
 from __future__ import annotations

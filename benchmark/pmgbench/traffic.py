@@ -17,6 +17,17 @@ on the device (the source basis); a solve's b_k is then one contraction of
 its coefficients with them, in float64, cast to the solve's dtype.  f = c
 alone (:meth:`SourceStream.constant_rhs`, c = 1) is the reference program's
 own source, which the warm-up solves.
+
+A vector-valued configuration (its ``components`` C > 1, as linear
+elasticity's C = dim displacements) takes one source a component,
+
+    f_k,c = c + sum_j a_kjc prod_d sin(pi m_jd x_d),
+
+the amplitudes of a solve drawn in one call of shape (C, modes), and b_k of
+shape (C,) + grid: component c the scalar b of its own coefficients, on the
+same 1D basis and mask.  :meth:`SourceStream.constant_rhs` is then
+f = (1, ..., 1).  Without ``components``, or with 1, the stream is the
+scalar one above, draw for draw.
 """
 
 from __future__ import annotations
@@ -32,6 +43,15 @@ def seed_int(seed: int) -> int:
     return int(seed) % (1 << 64)
 
 
+def rhs_shape(config: dict) -> tuple[int, ...]:
+    """The shape of a right-hand side of ``config``: (C,) + grid for C > 1
+    components, the grid alone for one."""
+    grid = (fe1d.n_points(config["degree"], config["refinements"]),
+            ) * config["dim"]
+    c = int(config.get("components", 1))
+    return grid if c == 1 else (c,) + grid
+
+
 class SourceStream:
     def __init__(self, traffic: dict, config: dict, dtype, device,
                  seed: int):
@@ -41,6 +61,7 @@ class SourceStream:
         self.constant = float(src["constant"])
         self.amplitude = float(src["amplitude"])
         self.dim, self.dtype, self.device = dim, dtype, device
+        self.components = int(config.get("components", 1))
         ones = fe1d.load_vector(p, r, np.ones_like)
         # [axis][term, point]: term 0 the constant, then one per mode
         basis = [np.stack([ones] + [
@@ -51,12 +72,21 @@ class SourceStream:
                                       device=device) for b in basis]
         self.n_modes = len(modes)
         self._rng = np.random.default_rng(seed_int(seed))
-        self.coefficients = []  # [c, a_k1, ...] of every solve drawn
+        # [c, a_k1, ...] of every solve drawn; a row of them a component
+        # where there are several
+        self.coefficients = []
 
     def next_rhs(self) -> torch.Tensor:
         """b of the next solve of the stream."""
-        a = self._rng.uniform(-self.amplitude, self.amplitude, self.n_modes)
-        self.coefficients.append(np.concatenate([[self.constant], a]))
+        if self.components == 1:
+            a = self._rng.uniform(-self.amplitude, self.amplitude,
+                                  self.n_modes)
+            self.coefficients.append(np.concatenate([[self.constant], a]))
+        else:
+            a = self._rng.uniform(-self.amplitude, self.amplitude,
+                                  (self.components, self.n_modes))
+            self.coefficients.append(np.concatenate(
+                [np.full((self.components, 1), self.constant), a], axis=1))
         return self.rhs(len(self.coefficients) - 1)
 
     def rhs(self, k: int) -> torch.Tensor:
@@ -66,13 +96,18 @@ class SourceStream:
         return self._combine(c)
 
     def constant_rhs(self) -> torch.Tensor:
-        """b of f = 1, the reference program's source."""
+        """b of f = 1 (on every component), the reference program's
+        source."""
         c = torch.zeros(self.n_modes + 1, dtype=torch.float64,
                         device=self.device)
         c[0] = 1.0
+        if self.components > 1:
+            c = c.expand(self.components, -1)
         return self._combine(c)
 
     def _combine(self, c: torch.Tensor) -> torch.Tensor:
+        if c.dim() == 2:
+            return torch.stack([self._combine(row) for row in c])
         if self.dim == 2:
             b = torch.einsum("t,tx,ty->xy", c, *self.basis)
         else:

@@ -64,6 +64,29 @@ def test_same_seed_same_solves(checkout):
     assert torch.equal(a.stream.rhs(n - 1), b.stream.rhs(n - 1))
 
 
+ELASTIC = {"dim": 3, "degree": 2, "refinements": 1, "mu": 0.7, "lam": 1.3,
+           "dtype": "float64", "variant": "kron"}
+
+
+@pytest.mark.parametrize("model,components", [
+    ({"class": "ElasticityMultigrid", "kwargs": ELASTIC}, 1),
+    ({"class": "GeometricMultigridPoisson",
+      "kwargs": {"dim": 3, "degree": 2, "refinements": 1,
+                 "dtype": "float64"}}, 3)])
+def test_session_refuses_wrong_components(checkout, model, components):
+    """A configuration whose right-hand sides do not fit its model fails
+    in set-up, naming ``components``."""
+    from pmgbench import spec
+    from pmgbench.session import Session
+
+    cell = spec.load_cell(checkout, "tiny3d.f64_tight")
+    cell.config = {"name": "wrong", "dim": 3, "degree": 2,
+                   "refinements": 1, "components": components,
+                   "models": {"float64": model}}
+    with pytest.raises(ValueError, match=f"components {components}"):
+        Session(cell, "cpu")
+
+
 def _cli(cwd, env):
     return subprocess.run([sys.executable, "benchmark/run.py", "--workload",
                            "poisson3d_q4_r6.rhs_stream", "--seed", "1",

@@ -1,5 +1,6 @@
 """The closed loop's right-hand sides (``pmgbench/traffic.py``)."""
 
+import hashlib
 import json
 
 import numpy as np
@@ -8,36 +9,85 @@ import torch
 
 from conftest import BENCH
 from pmgbench import traffic
+from portable_multigrid_tpu_torch import ElasticityMultigrid
 from portable_multigrid_tpu_torch.fem.assemble import assemble_rhs
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
 
 MIX = json.loads((BENCH / "traffic" / "rhs_stream.json").read_text())
 
+# sha256 of the scalar b's bytes (float64, Q2 r=2, seed 2^31 + 17): solves
+# 0, 1, 2 and constant_rhs, as the stream made them before it took vector
+# configurations, so that every cell still reads exactly the same b
+PINNED = {
+    2: ("bc5d553a9ec9b9ea03db8e7923db5758ae4007dadb52aa121b42aa07cd2af5bf",
+        "1cb031f8adbe40c77dd84a13d49af18a409af74cae58ea424cc045234aa22987",
+        "2c96572788f8da8986e3f6bec03872b20fbe3ab96604d0a97f24d4361108fb9f",
+        "3a5c62c0047394bfe47972f38fb12ca0133cb51c9fcf4550ca4f3a676107c728"),
+    3: ("5550cf8a933ce67b8906111d49f6acffe9c0d2da80391f7516d265b0f86c6dfe",
+        "fe7873c7767c1856204222095ed2080e98d489e753da8d1ac6f03bab771c0410",
+        "57a23bef87ec640891a77efe0f4b3cbfa6ce7c73cf3d37a9c2528fe985d66431",
+        "007cb7922019d452202769ecf3af557f0222f8139b891423a73976ea4b91b1ce"),
+}
 
-def stream(dim, seed, degree=2, r=2, dtype=torch.float64):
+
+def stream(dim, seed, degree=2, r=2, dtype=torch.float64, components=None):
     cfg = {"dim": dim, "degree": degree, "refinements": r}
+    if components is not None:
+        cfg["components"] = components
     return traffic.SourceStream(MIX, cfg, dtype, "cpu", seed)
 
 
+def source(coefficients, modes):
+    """f of one row [c, a_1, ...] of coefficients, a function of the
+    coordinates."""
+    def f(*x):
+        v = coefficients[0] * np.ones_like(x[0])
+        for a, m in zip(coefficients[1:], modes):
+            v = v + a * np.prod([np.sin(np.pi * k * xd)
+                                 for k, xd in zip(m, x)], axis=0)
+        return v
+    return f
+
+
+@pytest.mark.parametrize("components", [None, 1])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_same_seed_same_rhs(dim):
+def test_scalar_rhs_is_pinned(dim, components):
+    s = stream(dim, 2**31 + 17, components=components)
+    got = [s.next_rhs() for _ in range(3)] + [s.constant_rhs()]
+    for b in got:
+        assert b.shape == (9,) * dim and b.dtype == torch.float64
+    assert tuple(hashlib.sha256(b.numpy().tobytes()).hexdigest()
+                 for b in got) == PINNED[dim]
+    assert all(c.shape == (1 + len(MIX["source"]["modes"]),)
+               for c in s.coefficients)
+
+
+@pytest.mark.parametrize("components", [1, 3])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_same_seed_same_rhs(dim, components):
     seed = 2**31 + 17
-    a, b, c = stream(dim, seed), stream(dim, seed), stream(dim, seed + 1)
+    a, b, c = (stream(dim, s, components=components)
+               for s in (seed, seed, seed + 1))
     for _ in range(3):
         x, y, z = a.next_rhs(), b.next_rhs(), c.next_rhs()
         assert torch.equal(x, y)
         assert not torch.equal(x, z)
     assert torch.equal(a.rhs(1), b.rhs(1))
+    assert x.shape == traffic.rhs_shape(
+        {"dim": dim, "degree": 2, "refinements": 2,
+         "components": components})
 
 
+@pytest.mark.parametrize("components", [1, 3])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_zero_on_constrained_dofs(dim):
-    b = stream(dim, 5).next_rhs().numpy()
-    for ax in range(dim):
-        for end in (0, -1):
-            assert not np.take(b, end, axis=ax).any()
-    assert np.abs(b).max() > 0
+def test_zero_on_constrained_dofs(dim, components):
+    b = stream(dim, 5, components=components).next_rhs().numpy()
+    for u in b.reshape((-1,) + b.shape[-dim:]):
+        for ax in range(dim):
+            for end in (0, -1):
+                assert not np.take(u, end, axis=ax).any()
+        assert np.abs(u).max() > 0
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -49,23 +99,43 @@ def test_constant_source_is_the_programs_rhs(dim):
     assert np.abs(got - want).max() <= 1e-15 * np.abs(want).max()
 
 
+def test_constant_vector_source_is_the_programs_rhs():
+    """f = (1, 1, 1) against ``ElasticityMultigrid.rhs()`` at Q2 r=2."""
+    want = ElasticityMultigrid(3, 2, 2, mu=0.7, lam=1.3, variant="kron",
+                               device="cpu").rhs().numpy()
+    got = stream(3, 1, components=3).constant_rhs().numpy()
+    assert got.shape == want.shape == (3, 9, 9, 9)
+    assert np.abs(got - want).max() <= 1e-15 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_mode_sources_match_the_programs_rhs(dim):
     """A drawn source against ``assemble_rhs`` of the same f at Q3 r=2."""
     s = stream(dim, 9, degree=3)
     got = s.next_rhs().numpy()
-    c = s.coefficients[0]
-
-    def f(*x):
-        v = c[0] * np.ones_like(x[0])
-        for a, m in zip(c[1:], MIX["source"]["modes"]):
-            v = v + a * np.prod([np.sin(np.pi * k * xd)
-                                 for k, xd in zip(m, x)], axis=0)
-        return v
-
+    f = source(s.coefficients[0], MIX["source"]["modes"])
     want = assemble_rhs(FESpace(HyperCubeMesh(dim, 2), 3), f)
     assert np.abs(got - want).max() <= 1e-14 * np.abs(want).max()
 
 
-def test_rhs_in_the_solve_dtype():
-    assert stream(3, 1, dtype=torch.float32).next_rhs().dtype == torch.float32
+@pytest.mark.parametrize("dim", [2, 3])
+def test_vector_sources_match_the_programs_rhs(dim):
+    """Each component of a drawn vector source against ``assemble_rhs`` of
+    its own f_c at Q3 r=2; the components' amplitudes differ."""
+    s = stream(dim, 9, degree=3, components=3)
+    s.next_rhs()
+    got = s.next_rhs().numpy()
+    coeffs = s.coefficients[1]
+    assert coeffs.shape == (3, 1 + len(MIX["source"]["modes"]))
+    assert len({tuple(row) for row in coeffs}) == 3
+    space = FESpace(HyperCubeMesh(dim, 2), 3)
+    for c in range(3):
+        want = assemble_rhs(space, source(coeffs[c], MIX["source"]["modes"]))
+        assert np.abs(got[c] - want).max() <= 1e-14 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("components", [1, 3])
+def test_rhs_in_the_solve_dtype(components):
+    s = stream(3, 1, dtype=torch.float32, components=components)
+    assert s.next_rhs().dtype == torch.float32
+    assert s.constant_rhs().dtype == torch.float32
