@@ -34,6 +34,16 @@ TPU core assembles x and y per block and rounds the two halves of a block
 boundary entry apart; the global bands round the whole entry, so the two
 agree at bf16 grade, not bit for bit.
 
+While :func:`~..utils.profiling.tracing` is on, every pass of B.5 (the
+kernel's launch on the card, its twin on the CPU) adds one to the counter
+:func:`count_key` names, ``pmg.elasticity.<mode>/<core>.n<cells>``: the
+mode (``apply/slab`` on a slab), the core (``mxu`` or ``exact``) and the
+level's cells per axis, as ``pmg.elasticity.cheb/mxu.n64``.  The
+recorder's ``counts`` keep it, and so do those of the V-cycle's active
+:class:`~..utils.profiling.SpanPlan`: a graph captured under tracing keeps
+the passes that each of its replays makes.  While tracing is off nothing
+is counted there (:data:`LAUNCHES` counts the kernel's launches always).
+
 :class:`CudaElasticitySlab` is the operator on one shard's slab of the
 slab-sharded solve (the TPU kernel's ``make_pallas_elasticity_slab``,
 ``xmask="vector"``), in its one mode on that path, ``apply``, at the exact
@@ -51,6 +61,7 @@ import numpy as np
 import torch
 
 from ..fem.space import FESpace
+from ..utils import profiling
 from .cuda_laplace import (
     CORES,
     MODES,
@@ -85,6 +96,13 @@ TZ = 32  # z extent of a block's column: one warp (kTZ in elasticity.cu)
 _TY = (8, 4, 2, 1)  # candidate y extents; a block is 32 TY threads
 _LX = (64, 48, 32, 16, 8, 4, 2)  # candidate x chunks (output planes a block)
 _GROUPS = 12  # (output, x matrix) groups in the ring
+COUNTER = "pmg.elasticity"  # the prefix of the pass counter's keys
+
+
+def count_key(mode: str, core: str, n: int) -> str:
+    """The pass counter's key of ``mode`` at ``core`` on a level of ``n``
+    cells per axis."""
+    return f"{COUNTER}.{mode}/{'mxu' if core == 'mxu' else 'exact'}.n{n}"
 
 
 def elasticity_smem_elems(p: int, ty: int) -> int:
@@ -166,6 +184,15 @@ class CudaElasticityOperator(CudaLaplaceOperator):
         entries, as the kernel rebuilds it)."""
         return separable_elasticity_diagonal(self.dKt, self.dMt, self.mu,
                                              self.lam, self.dim)
+
+    def run(self, mode: str, u: torch.Tensor, ins=(), scal=(),
+            sdtype=None):
+        """:meth:`~.cuda_laplace.CudaLaplaceOperator.run`, counted while
+        tracing is on (:func:`count_key`)."""
+        outs = super().run(mode, u, ins, scal, sdtype)
+        if profiling.active() is not None:
+            profiling.count(count_key(mode, self.core, self.n))
+        return outs
 
     def raw_twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
         return elasticity_twin(self, mode, u, ins, scal)
@@ -263,11 +290,15 @@ class CudaElasticitySlab(CudaElasticityOperator):
             raise ValueError("a slab's apply takes u alone")
         _check(self, u, "u", shape=self.input_shape)
         if u.device.type == "cpu":
-            return self.twin(mode, u)
-        if not u.is_cuda:
+            outs = self.twin(mode, u)
+        elif not u.is_cuda:
             raise ValueError(f"unsupported device {u.device}")
-        return _launch(self, MODES.index("apply"), u, (), (), (self.dtype,),
-                       0, "apply/slab", self.trimmed_shape)
+        else:
+            outs = _launch(self, MODES.index("apply"), u, (), (),
+                           (self.dtype,), 0, "apply/slab", self.trimmed_shape)
+        if profiling.active() is not None:
+            profiling.count(count_key("apply/slab", self.core, self.n))
+        return outs
 
     def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(), sdtype=None):
         """The dense partial x matrices and the global y-z ones contracted

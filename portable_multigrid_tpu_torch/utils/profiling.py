@@ -29,7 +29,9 @@ The port places its spans in ``solvers/cg.py`` (``pmg.cg.solve`` around a
 solve, ``pmg.cg.host_read`` around each read to the host) and
 ``solvers/vcycle.py`` (``vcycle``, ``vcycle.io``, ``vcycle.L<l>.pre``,
 ``.restrict``, ``.prolongate``, ``.post`` and ``vcycle.coarse``, all
-device spans).
+device spans), and one counter of its own, :func:`count`, in
+``ops/cuda_elasticity.py`` (``pmg.elasticity.<mode>/<core>.n<cells>``, one
+for each pass of B.5).
 """
 
 from __future__ import annotations
@@ -102,6 +104,9 @@ class SpanPlan:
     def __init__(self, vector=None):
         self.spans: list[PlannedSpan] = []
         self.slots = 0
+        # what :func:`count` counted while the plan was active: one run of
+        # the V-cycle's (a graph's: its capture's, so each replay's)
+        self.counts: collections.Counter = collections.Counter()
         self._open: list[int] = []
         self.buffer = None
         if isinstance(vector, torch.Tensor) and vector.is_cuda:
@@ -155,9 +160,9 @@ class SpanPlan:
 
 class Recorder:
     """What one :func:`tracing` block recorded: ``spans`` in the order they
-    opened, ``counts`` of spans by name, and ``plans``, the
-    :class:`SpanPlan` of each V-cycle run in the block (a graphed
-    V-cycle's at its capture).  Read it when the block has ended."""
+    opened, ``counts`` of spans by name and of :func:`count`'s keys, and
+    ``plans``, the :class:`SpanPlan` of each V-cycle run in the block (a
+    graphed V-cycle's at its capture).  Read it when the block has ended."""
 
     def __init__(self):
         self.spans: list[Span] = []
@@ -195,6 +200,17 @@ def _nvtx_push(name: str) -> bool:
         torch.cuda.nvtx.range_push(name)
         return True
     return False
+
+
+def count(key: str) -> None:
+    """While tracing is on, add one to ``key`` in the recorder's counts and
+    in the active plan's; nothing while it is off."""
+    rec = _ACTIVE
+    if rec is None:
+        return
+    rec.counts[key] += 1
+    if rec.plan is not None:
+        rec.plan.counts[key] += 1
 
 
 def active() -> Recorder | None:
