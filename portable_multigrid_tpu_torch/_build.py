@@ -46,6 +46,7 @@ _SIGNATURES = {
 _UNTYPED_SIGNATURES = {
     "pmg_mark": [_P, _I, _I, _P],
     "pmg_cheb2mma": _SIGNATURES["pmg_cheb2"],  # float32 only
+    "pmg_elasticitymma": _SIGNATURES["pmg_elasticity"],  # float32 only
 }
 
 

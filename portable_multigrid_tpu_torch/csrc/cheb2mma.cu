@@ -70,49 +70,11 @@
 // pair at 256^3 the epilogues' loads, the z and y stages, the window and
 // the x stage each take 0.1-0.3 ms of it.
 #include "cheb2.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using namespace pmg;
-
-// ---- bf16 fragments
-
-__device__ __forceinline__ uint32_t bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// two floats rounded to bf16, lo in the low half (the lower column of a
-// fragment register)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bf16_bits(lo) | (bf16_bits(hi) << 16);
-}
-
-__device__ __forceinline__ float lo_bf16(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float hi_bf16(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// c += A B, A 16 x 16 (row), B 16 x 8 (col), bf16 in, float accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
 
 // ---- the tile
 
@@ -326,34 +288,15 @@ __device__ __forceinline__ const void* plane_of(const void* base, bool bf,
             : static_cast<const void*>(static_cast<const float*>(base) + e);
 }
 
-// the band fragments B[k][n] = band_{k - n}[row n] of an 8-row group
-// whose row n lies on global row gy0 + n (valid below nvalid); k the KY
-// input rows from the group's first tap row
+// the band fragments of K and M (band_fragments in mma.cuh) of an 8-row
+// group whose row n lies on global row gy0 + n (valid below nvalid)
 template <int P, int KT>
 __device__ __forceinline__ void y_bands(const float* __restrict__ kb,
                                         const float* __restrict__ mb, int N,
                                         int gy0, int nvalid, int lane,
                                         uint32_t (&yb)[2][KT][2]) {
-  const int n = lane >> 2, t = lane & 3;
-  const int gy = gy0 + n;
-  const bool ok = n < nvalid && gy >= 0 && gy < N;
-#pragma unroll
-  for (int mat = 0; mat < 2; ++mat) {
-    const float* band = mat ? mb : kb;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int o = 16 * kt + 2 * t + 8 * j + u - n;
-          v[u] = ok && o >= 0 && o <= 2 * P ? band[o * N + gy] : 0.f;
-        }
-        yb[mat][kt][j] = pack_bf16(v[0], v[1]);
-      }
-    }
-  }
+  band_fragments<P, KT>(kb, N, gy0, nvalid, lane, yb[0]);
+  band_fragments<P, KT>(mb, N, gy0, nvalid, lane, yb[1]);
 }
 
 // IBF: d and r stored in bf16 (StateFlags kInBF16).  The bands kb, mb are

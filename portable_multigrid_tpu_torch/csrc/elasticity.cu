@@ -42,15 +42,18 @@
 // arithmetic is the one before.
 //
 // The mxu grade (float only; kRoundBF16 of StateFlags in common.cuh, the
-// JAX core "mxu" of pallas_elasticity.py:374-457): the host passes the four
-// bands rounded to bf16 and the row sums of the rounded bands, so that the
-// difference form is the TPU core's direct sum up to float rounding; the
-// kernel rounds to bf16 the window where it lands in shared memory (each
-// thread the elements it copied, once, before the plane's barrier), the
-// four z products where they are stored, and the 12 group sums where they
-// enter the ring; every product accumulates in float.  It is a second
-// instance (RND), so that the exact instance keeps its registers; the
-// state streams stay float (the JAX kernel has no bf16 state).
+// JAX core "mxu" of pallas_elasticity.py:374-457) runs on the cube on the
+// tensor-core instance of elasticitymma.cu at every degree; this file's
+// instance of it is that one's yardstick (chip_smoke.py).  Here the host
+// passes the four bands rounded to bf16 and the row sums of the rounded
+// bands, so that the difference form is the TPU core's direct sum up to
+// float rounding; the kernel rounds to bf16 the window where it lands in
+// shared memory (each thread the elements it copied, once, before the
+// plane's barrier), the four z products where they are stored, and the 12
+// group sums where they enter the ring; every product accumulates in
+// float.  It is a second instance (RND), so that the exact instance keeps
+// its registers; the state streams stay float (the JAX kernel has no bf16
+// state).
 //
 // What bounds it on the H100: FP32 FMA throughput and shared-memory
 // traffic, then HBM.  The 21 chains share 45 banded products per grid point
@@ -87,7 +90,7 @@
 // TPU kernel's carry planes, 128-lane zpad and 8-row DMA tails exist
 // because a Pallas grid runs in order on VMEM blocks; here the ring carries
 // the x neighbours within a block and every block reads its own halo.
-#include "common.cuh"
+#include "elasticity.cuh"
 
 using namespace pmg;
 
@@ -112,18 +115,6 @@ __host__ __device__ inline int64_t smem_elems(int p, int TY) {
   return 2 * 3 * WY * WZ + 2 * 4 * WY * kTZ +
          (int64_t)(2 * p + 1) * kGroups * TY * kTZ;
 }
-
-// The four band arrays [2p+1, N] and the row sums [N] of K, G, H.
-template <typename T>
-struct Bands {
-  const T* kb;
-  const T* ks;
-  const T* mb;
-  const T* gb;
-  const T* gs;
-  const T* hb;
-  const T* hs;
-};
 
 // The coefficients of one row of K, M, G, H and its three row sums (zeros
 // for a row outside [0, N), which makes its outputs zero).
@@ -373,20 +364,6 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   }
 }
 
-// The operator's arrays and the launch geometry, as the host hands them
-// over: the y-z factors (b; dk, dm) of extent N and the x factors (xb; xdk,
-// xdm) of NX rows, NX output planes from NXI input planes.  On the cube x
-// has the y-z factors and NX = NXI = N; on a slab x has the slab's own
-// and NXI = NX + 1 (the input is x-full).
-template <typename T>
-struct Operator {
-  Bands<T> b;
-  const T *dk, *dm;
-  Bands<T> xb;
-  const T *xdk, *xdm;
-  int N, NX, NXI;
-};
-
 template <typename T, int P, bool RND>
 int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
              T* out2, const Operator<T>& op, double mu, double lam,
@@ -428,13 +405,9 @@ template <typename T>
 int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
            const Operator<T>& op, double mu, double lam, double c0, double c1,
            int p, int mode, int LX, int TY, int TZ, int flags, void* stream) {
-  // a block is TY warps, one per y row of its column; the state streams
-  // are never bf16, and a double kernel has no mxu grade; an x-full input
-  // (a slab's) takes apply alone
-  if (TZ != kTZ || TY < 1 || TY * kTZ > kThreads || LX < 1 ||
-      mode < kApply || mode > kChebDL || (flags & ~kRoundBF16) ||
-      (flags && sizeof(T) != 4) || op.N < 1 || op.NX < 1 ||
-      op.NXI < op.NX || (op.NXI != op.NX && mode != kApply))
+  // a block is TY warps, one per y row of its column (the operator and
+  // the mode are checked in PMG_ELASTICITY_ENTRY, elasticity.cuh)
+  if (TZ != kTZ || TY < 1 || TY * kTZ > kThreads || LX < 1)
     return (int)cudaErrorInvalidValue;
   switch (p) {
 #define PMG_CASE(PP)                                                        \
@@ -452,31 +425,6 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
 }  // namespace
 
 // (LX, TY, TZ) is the launch tile: LX output planes per block along x, a
-// (TY, TZ = 32) column of the y-z plane; flags: kRoundBF16 for the mxu
-// grade (float only), else 0.  kb .. dm: the y-z factors (extent N); xkb ..
-// xdm: the x factors (NX rows); NX output planes from NXI input planes (the
-// Operator struct above).
-#define PMG_ELASTICITY_ENTRY(NAME, T)                                        \
-  extern "C" int NAME(                                                       \
-      const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,     \
-      const T* kb, const T* ks, const T* mb, const T* gb, const T* gs,       \
-      const T* hb, const T* hs, const T* dk, const T* dm, const T* xkb,      \
-      const T* xks, const T* xmb, const T* xgb, const T* xgs, const T* xhb,  \
-      const T* xhs, const T* xdk, const T* xdm, double mu, double lam,       \
-      double c0, double c1, int N, int NX, int NXI, int p, int mode, int LX, \
-      int TY, int TZ, int flags, void* stream) {                             \
-    const Operator<T> op{{kb, ks, mb, gb, gs, hb, hs},                       \
-                         dk,                                                 \
-                         dm,                                                 \
-                         {xkb, xks, xmb, xgb, xgs, xhb, xhs},                \
-                         xdk,                                                \
-                         xdm,                                                \
-                         N,                                                  \
-                         NX,                                                 \
-                         NXI};                                               \
-    return launch<T>(u, in1, in2, out0, out1, out2, op, mu, lam, c0, c1, p,  \
-                     mode, LX, TY, TZ, flags, stream);                       \
-  }
-
-PMG_ELASTICITY_ENTRY(pmg_elasticity_f32, float)
-PMG_ELASTICITY_ENTRY(pmg_elasticity_f64, double)
+// (TY, TZ = 32) column of the y-z plane.
+PMG_ELASTICITY_ENTRY(pmg_elasticity_f32, float, launch<float>)
+PMG_ELASTICITY_ENTRY(pmg_elasticity_f64, double, launch<double>)

@@ -34,6 +34,14 @@ TPU core assembles x and y per block and rounds the two halves of a block
 boundary entry apart; the global bands round the whole entry, so the two
 agree at bf16 grade, not bit for bit.
 
+At ``core="mxu"`` in float32 the cube's kernel is the tensor-core instance
+(``csrc/elasticitymma.cu``: the z and y stages as bf16 ``mma.sync`` tiles
+with float accumulation, K, G and H summed directly; the x stage and the
+epilogue on the CUDA cores) at every degree: :func:`elasticity_engine`
+picks it, :func:`elasticity_mma_tile` is its tile and :data:`MMA_LAUNCHES`
+counts its launches, which :data:`LAUNCHES` counts too.  The exact core,
+float64 and the slab keep the CUDA-core kernel.
+
 While :func:`~..utils.profiling.tracing` is on, every pass of B.5 (the
 kernel's launch on the card, its twin on the CPU) adds one to the counter
 :func:`count_key` names, ``pmg.elasticity.<mode>/<core>.n<cells>``: the
@@ -55,11 +63,13 @@ input is x-full and the output drops the slab's last plane, as B.1's slab
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import ClassVar
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..fem.space import FESpace
 from ..utils import profiling
 from .cuda_laplace import (
@@ -70,6 +80,8 @@ from .cuda_laplace import (
     CudaLaplaceOperator,
     _check,
     _launch,
+    chunk_planes,
+    launch_key,
     round_bf16,
     row_sums,
     to_bands,
@@ -90,6 +102,9 @@ from .structured import contract
 
 # kernel launches per mode, counted where the wrapper launches the kernel
 LAUNCHES = dict.fromkeys(MODES, 0)
+# the launches of the tensor-core instance, keyed as LAUNCHES (which counts
+# them too)
+MMA_LAUNCHES = dict.fromkeys(MODES, 0)
 
 SMEM_BUDGET = 113 * 1024  # two blocks per SM
 TZ = 32  # z extent of a block's column: one warp (kTZ in elasticity.cu)
@@ -143,6 +158,80 @@ def elasticity_tile(p: int, itemsize: int, N: int,
     return min(_LX, key=lambda lx: (cost(lx), -lx)), ty, TZ
 
 
+def elasticity_engine(core: str, dtype, p: int, slab: bool = False) -> str:
+    """The instance that runs a B.5 launch: "mma" (``csrc/elasticitymma.cu``,
+    bf16 tensor-core tiles) for the mxu core in float32 on the cube, at
+    every degree whose tile fits (p = 1..7), "fma" (``csrc/elasticity.cu``
+    on the CUDA cores) for the exact core, float64 and the slab."""
+    if (core == "mxu" and dtype == torch.float32 and not slab
+            and _mma_ty(p) is not None):
+        return "mma"
+    return "fma"
+
+
+# the tensor-core instance's tile (MmaTile in csrc/elasticitymma.cu)
+_MMA_WS = 56  # bf16 row stride of the windows and the z band
+SM_SMEM = 228 * 1024  # an H100 SM's shared memory, 1 KB of it a block's
+MMA_THREADS_SM = 384  # threads an SM holds: 168 registers a thread
+
+
+def _mma_rows(p: int, ty: int) -> dict:
+    """The tensor-core tile's counts at ``ty`` rows (MmaTile in
+    elasticitymma.cu): ty / 8 groups of 8 rows, two warps each (nw), the
+    y stage's 8 + 2p taps padded to ky = 16 or 32 rows, the window's wyp =
+    8 (groups - 1) + ky rows."""
+    ng = ty // 8
+    ky = 16 if 8 + 2 * p <= 16 else 32
+    return dict(nw=2 * ng, nt=64 * ng, ky=ky, wyp=8 * (ng - 1) + ky)
+
+
+def elasticity_mma_smem_bytes(p: int, ty: int) -> int:
+    """Shared-memory bytes of one tensor-core block (MmaTile::smem_bytes in
+    elasticitymma.cu): the x ring of 2p planes of each thread's three
+    outputs at its 4 points (float4), three x columns of 2p+1 (K, M, G, H)
+    float4 entries; in bf16 two windows of the three components (wyp rows
+    of 56) and the z band of K, M, G, H (32 rows of 56 each)."""
+    t = _mma_rows(p, ty)
+    return (16 * (2 * p * 3 * t["nt"] + 3 * (2 * p + 1))
+            + 2 * (2 * 3 * t["wyp"] * _MMA_WS + 4 * 32 * _MMA_WS))
+
+
+def _mma_blocks(p: int, ty: int) -> int:
+    """Blocks an SM holds: by shared memory and by MMA_THREADS_SM."""
+    by_smem = SM_SMEM // (elasticity_mma_smem_bytes(p, ty) + 1024)
+    return min(by_smem, MMA_THREADS_SM // _mma_rows(p, ty)["nt"])
+
+
+@functools.cache
+def _mma_ty(p: int) -> int | None:
+    """TY of the tensor-core tile (mma_ty in elasticitymma.cu): of 32, 24,
+    16 and 8 rows, the one whose blocks put the most warps on an SM, ties
+    to the taller column; None where none fits."""
+    fits = [ty for ty in (32, 24, 16, 8)
+            if elasticity_mma_smem_bytes(p, ty) <= SMEM_LIMIT
+            and _mma_blocks(p, ty) >= 1]
+    if not fits:
+        return None
+    return max(fits, key=lambda ty: (_mma_blocks(p, ty)
+                                     * _mma_rows(p, ty)["nw"], ty))
+
+
+def elasticity_mma_tile(p: int, N: int) -> tuple[int, int, int]:
+    """(LX, TY, NW) of a tensor-core launch for an N^3 grid: TY of
+    :func:`_mma_ty` (24 rows, 6 warps, two blocks an SM at p <= 4; 32 rows,
+    8 warps, one block above), two warps per 8-row group, and the chunk
+    rule of :func:`~.cuda_laplace.chunk_planes` with 2p lead-in planes and
+    the tile's blocks an SM: 39 planes at 3 x 192^3 (Q3 r=6, one wave of
+    240 blocks), 2-4 on the lower levels, where the march is the whole
+    time of a launch."""
+    ty = _mma_ty(p)
+    if ty is None:
+        raise ValueError(f"no tensor-core elasticity tile fits at p={p}")
+    columns = -(-N // TZ) * -(-N // ty)
+    lx = chunk_planes(N, columns, 2 * p, _mma_blocks(p, ty))
+    return lx, ty, _mma_rows(p, ty)["nw"]
+
+
 @dataclasses.dataclass
 class CudaElasticityOperator(CudaLaplaceOperator):
     """3D Q_p elasticity operator for the kernel path, on one device: the
@@ -179,6 +268,12 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     def inv_diag(self) -> torch.Tensor:
         return elasticity_inv_diag(self)
 
+    @property
+    def engine(self) -> str:
+        """The instance that runs this operator's launches
+        (:func:`elasticity_engine`); ``tile`` is that instance's."""
+        return elasticity_engine(self.core, self.dtype, self.degree)
+
     def diag_trimmed(self) -> torch.Tensor:
         """[3, ...] diagonal on the trimmed grid (raw values on constrained
         entries, as the kernel rebuilds it)."""
@@ -187,12 +282,23 @@ class CudaElasticityOperator(CudaLaplaceOperator):
 
     def run(self, mode: str, u: torch.Tensor, ins=(), scal=(),
             sdtype=None):
-        """:meth:`~.cuda_laplace.CudaLaplaceOperator.run`, counted while
-        tracing is on (:func:`count_key`)."""
+        """:meth:`~.cuda_laplace.CudaLaplaceOperator.run`, a launch of the
+        tensor-core instance counted in :data:`MMA_LAUNCHES`, and every
+        pass while tracing is on (:func:`count_key`)."""
         outs = super().run(mode, u, ins, scal, sdtype)
+        if u.is_cuda and self.engine == "mma":
+            key = launch_key(mode, self.core, sdtype)
+            MMA_LAUNCHES[key] = MMA_LAUNCHES.get(key, 0) + 1
         if profiling.active() is not None:
             profiling.count(count_key(mode, self.core, self.n))
         return outs
+
+    def kernel_fn(self):
+        """``pmg_elasticitymma`` on the "mma" engine, else
+        ``pmg_elasticity_f32``/``_f64``."""
+        if self.engine == "mma":
+            return _build.build().fn("pmg_elasticitymma")
+        return super().kernel_fn()
 
     def raw_twin(self, mode: str, u: torch.Tensor, ins=(), scal=()):
         return elasticity_twin(self, mode, u, ins, scal)
@@ -269,6 +375,10 @@ class CudaElasticitySlab(CudaElasticityOperator):
     @property
     def mask(self) -> torch.Tensor:
         return separable_mask((self.mask1x, self.mask1, self.mask1))
+
+    @property
+    def engine(self) -> str:
+        return elasticity_engine(self.core, self.dtype, self.degree, True)
 
     @property
     def inv_diag(self) -> torch.Tensor:
@@ -452,10 +562,14 @@ def cuda_elasticity_from_factors(degree: int, n: int, m1, K1, M1, G1, gK, gM,
                       for W in (Kt, Mt, Gt))
         sums = tuple(to_bands(W, degree).sum(axis=0) for W in (Kt, Gt, Gt.T))
     itemsize = torch.empty((), dtype=dtype).element_size()
+    N = n * degree
+    tile = (elasticity_mma_tile(degree, N)
+            if elasticity_engine(core, dtype, degree) == "mma"
+            else elasticity_tile(degree, itemsize, N))
     return CudaElasticityOperator(
         degree=degree, n=n, mask1=t(m1), dK1=t(gK), dM1=t(gM),
         kband=t(to_bands(Kt, degree)), mband=t(to_bands(Mt, degree)),
-        tile=elasticity_tile(degree, itemsize, n * degree),
+        tile=tile,
         Kt=t(Kt), Mt=t(Mt), mu=float(mu), lam=float(lam),
         gband=t(to_bands(Gt, degree)), hband=t(to_bands(Gt.T, degree)),
         ksum=t(sums[0]), gsum=t(sums[1]), hsum=t(sums[2]), Gt=t(Gt),

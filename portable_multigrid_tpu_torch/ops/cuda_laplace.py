@@ -407,6 +407,10 @@ class CudaLaplaceOperator:
     def pick_tile(p: int, itemsize: int, N: int) -> tuple:
         return laplace_tile(p, itemsize, N)
 
+    def kernel_fn(self):
+        """The C entry point that runs this operator's launches."""
+        return _build.build().fn(self.kernel, _suffix(self.dtype))
+
     def kernel_state(self) -> tuple:
         """Operator arrays handed to the kernel, in its argument order: the
         z, the y and the x factors (on the cube the same ones)."""
@@ -762,7 +766,7 @@ def _launch(op: CudaLaplaceOperator, mode_index: int, u: torch.Tensor, ins,
     """Launch the operator's kernel in the mode of index ``mode_index`` on
     ``u``'s device; outputs of ``out_shape`` (u's shape by default), the
     grid's extents ``sizes`` (``op.kernel_sizes()`` by default)."""
-    fn = _build.build().fn(op.kernel, _suffix(op.dtype))
+    fn = op.kernel_fn()
     shape = u.shape if out_shape is None else out_shape
     outs = [torch.empty(shape, dtype=dt, device=u.device)
             for dt in out_dtypes]

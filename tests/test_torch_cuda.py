@@ -394,6 +394,42 @@ def test_cheb2_mma_matches_twin(cuda, p):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("p,r", [(3, 2), (3, 5), (5, 2), (5, 5)])
+def test_elasticity_mma_matches_twin(cuda, p, r):
+    """B.5's tensor-core instance (the mxu core in float32) in all seven
+    modes against the twin, N = p 2^r a multiple of the tile's TY and 32
+    z lanes (r = 5) and not (r = 2), each launch counted in MMA_LAUNCHES
+    and LAUNCHES; the exact core and float64 keep the CUDA-core kernel."""
+    rng = np.random.default_rng(p + r)
+    sp = FESpace(HyperCubeMesh(3, r), p)
+    op = cuda_elasticity.make_cuda_elasticity(sp, torch.float32,
+                                              *chip_smoke.MU_LAM, cuda,
+                                              core="mxu")
+    N = op.n * p
+    assert op.engine == "mma" and (N % 32 == 0) == (r == 5)
+    assert (N % op.tile[1] == 0) == (r == 5)
+    u, r_, x = (_field(N, rng, torch.float32, cuda, lead=(3,))
+                for _ in range(3))
+    mma, all_ = (sum(c.values()) for c in (cuda_elasticity.MMA_LAUNCHES,
+                                          cuda_elasticity.LAUNCHES))
+    for mode in cuda_laplace.MODES:
+        ins = tuple({"r": r_, "x": x}[k] for k in _INS.get(mode, ("r", "x")))
+        scal = _SCAL.get(mode, (0.59, 1.26))
+        _close_bf16(op.run(mode, u, ins, scal), op.twin(mode, u, ins, scal))
+    torch.cuda.synchronize()
+    assert sum(cuda_elasticity.MMA_LAUNCHES.values()) == mma + 7
+    assert sum(cuda_elasticity.LAUNCHES.values()) == all_ + 7
+    for dtype in (torch.float32, torch.float64):
+        exact = cuda_elasticity.make_cuda_elasticity(sp, dtype,
+                                                     *chip_smoke.MU_LAM, cuda)
+        assert exact.engine == "fma"
+        ud = u.to(dtype)
+        _close(exact.run("apply", ud), exact.twin("apply", ud), dtype)
+    torch.cuda.synchronize()
+    assert sum(cuda_elasticity.MMA_LAUNCHES.values()) == mma + 7
+    assert sum(cuda_elasticity.LAUNCHES.values()) == all_ + 9
+
+
 def test_mma_launches_by_grade(cuda):
     """One eager V-cycle of the main path runs all its pairs on the tensor
     cores (MMA_LAUNCHES as LAUNCHES); the exact grade's and float64's pairs
