@@ -136,10 +136,8 @@ or from the CUDA graph to the eager V-cycle):
      the eager one's split by level, the busy share of both, the CG solve,
      and each B.5 mode (both cores) and vector B.3 mode against its twin
      at 3 x 192^3 beside its bound (and B.3's beside its ``library_ms``);
-     every ``mxu`` launch of an eager V-cycle on B.5's tensor-core
-     instance (``cuda_elasticity.MMA_LAUNCHES``, 16 a smoothing level),
-     and the mxu modes of the recurrence on it beside the CUDA-core
-     instance at 3 x 192^3;
+     an eager V-cycle's B.5 launches at the mxu grade, which the
+     tensor-core instance runs: 16 a smoothing level;
  12. config 3 at full width — MixedMultigridPoisson(3, 6, (1, 2, 4),
      float32, "auto"): 9 levels, p = 1 on 2^3..65^3 points, then p = 2 and
      p = 4 on the 64^3-cell mesh (16,974,593 DoFs); to rtol 1e-5, eager
@@ -303,7 +301,7 @@ import sys
 import tempfile
 import time
 from collections.abc import Callable
-from typing import ClassVar, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1409,85 +1407,39 @@ GRADE_MODES = {"3d": {"laplace": ("residual3t/bf16",),
                "elasticity": {"elasticity": ("cheb/mxu", "chebl/mxu")}}
 
 
-def check_pairs_on_tensor_cores(prob, rhs, what: str) -> None:
-    """One eager V-cycle of a float32 model: each B.2 pair launch, all at
-    the production grade, went through the tensor-core instance
-    (``cuda_cheb2.MMA_LAUNCHES`` moves as ``LAUNCHES``)."""
-    mma, pairs = (dict(c) for c in (cuda_cheb2.MMA_LAUNCHES,
-                                    cuda_cheb2.LAUNCHES))
+def moved_launches(counts: dict, prob, rhs) -> dict:
+    """The launches of ``counts`` (a LAUNCHES dict) that one eager V-cycle
+    of ``prob`` adds, by key."""
+    before = dict(counts)
     prob.preconditioner(graph=False).apply(rhs)
     synchronize(rhs.device)
-    moved = {k: v - pairs.get(k, 0) for k, v in cuda_cheb2.LAUNCHES.items()
-             if v != pairs.get(k, 0)}
-    moved_mma = {k: v - mma.get(k, 0)
-                 for k, v in cuda_cheb2.MMA_LAUNCHES.items()
-                 if v != mma.get(k, 0)}
-    log(f"  {what}: B.2 pairs on the tensor cores a V-cycle {moved_mma}")
-    if not moved or moved_mma != moved:
-        raise RuntimeError(f"{what}: pairs {moved}, of them on the tensor "
-                           f"cores {moved_mma}")
+    return {k: v - before.get(k, 0) for k, v in counts.items()
+            if v != before.get(k, 0)}
+
+
+def check_pairs_on_tensor_cores(prob, rhs, what: str) -> None:
+    """One eager V-cycle of a float32 model launches every B.2 pair at the
+    production grade (``/mxu/bf16``), which the tensor-core instance
+    runs."""
+    moved = moved_launches(cuda_cheb2.LAUNCHES, prob, rhs)
+    log(f"  {what}: B.2 pairs a V-cycle {moved}")
+    if not moved or not all(k.endswith("/mxu/bf16") for k in moved):
+        raise RuntimeError(f"{what}: pairs {moved}, not all at /mxu/bf16")
 
 
 def check_elasticity_on_tensor_cores(prob, rhs, what: str) -> None:
-    """One eager V-cycle of a float32 elasticity model: each B.5 launch at
-    the mxu grade went through the tensor-core instance
-    (``cuda_elasticity.MMA_LAUNCHES`` moves as LAUNCHES' ``/mxu`` keys), 16
-    a smoothing level."""
-    mma, all_ = (dict(c) for c in (cuda_elasticity.MMA_LAUNCHES,
-                                   cuda_elasticity.LAUNCHES))
-    prob.preconditioner(graph=False).apply(rhs)
-    synchronize(rhs.device)
-    moved = {k: v - all_.get(k, 0)
-             for k, v in cuda_elasticity.LAUNCHES.items()
-             if v != all_.get(k, 0) and k.endswith("/mxu")}
-    moved_mma = {k: v - mma.get(k, 0)
-                 for k, v in cuda_elasticity.MMA_LAUNCHES.items()
-                 if v != mma.get(k, 0)}
+    """One eager V-cycle of a float32 elasticity model launches B.5 at the
+    mxu grade (``/mxu`` keys, which the tensor-core instance runs) 16
+    times on each smoothing level."""
+    moved = {k: v for k, v in
+             moved_launches(cuda_elasticity.LAUNCHES, prob, rhs).items()
+             if k.endswith("/mxu")}
     levels = len(prob.levels) - 1
-    per_level = sum(moved_mma.values()) / levels
-    log(f"  {what}: B.5 on the tensor cores a V-cycle {moved_mma}, "
+    per_level = sum(moved.values()) / levels
+    log(f"  {what}: B.5 at the mxu grade a V-cycle {moved}, "
         f"{per_level:g} on each of {levels} smoothing levels")
-    if not moved or moved_mma != moved or per_level != 16:
-        raise RuntimeError(f"{what}: mxu launches {moved}, of them on the "
-                           f"tensor cores {moved_mma}")
-
-
-@dataclasses.dataclass
-class CudaCoreElasticity(cuda_elasticity.CudaElasticityOperator):
-    """B.5 on its CUDA-core instance (``csrc/elasticity.cu``) at either
-    core: the yardstick of the tensor-core instance at the mxu grade."""
-
-    engine: ClassVar[str] = "fma"
-
-
-def cuda_core_elasticity(op) -> CudaCoreElasticity:
-    """``op`` with the CUDA-core instance and its tile."""
-    fields = {f.name: getattr(op, f.name) for f in dataclasses.fields(op)}
-    fields["tile"] = cuda_elasticity.elasticity_tile(op.degree, 4,
-                                                     op.n * op.degree)
-    return CudaCoreElasticity(**fields)
-
-
-def time_elasticity_engines(device, p: int, r: int) -> None:
-    """B.5's recurrence modes at the mxu grade on the tensor-core instance
-    beside the CUDA-core one, at one level shape (CUDA events, median of
-    10), and the largest difference of their outputs."""
-    mma = cuda_elasticity.make_cuda_elasticity(space(p, r), torch.float32,
-                                               *MU_LAM, device, core="mxu")
-    fma = cuda_core_elasticity(mma)
-    rng = np.random.default_rng(3)
-    u, r_, x = (masked_trimmed(mma, rng, torch.float32, device)
-                for _ in range(3))
-    for mode, ins in (("cheb", (r_, x)), ("chebl", (r_, x)),
-                      ("chebd", (r_,))):
-        t_mma = cuda_ms(lambda: mma.run(mode, u, ins, SCAL_CHEB))
-        t_fma = cuda_ms(lambda: fma.run(mode, u, ins, SCAL_CHEB))
-        diff = max(rel_err(a, b)[1] for a, b in
-                   zip(mma.run(mode, u, ins, SCAL_CHEB),
-                       fma.run(mode, u, ins, SCAL_CHEB)))
-        log(f"  elasticity {mode}/mxu p={p} r={r}: tensor cores "
-            f"{t_mma:.3f} ms, CUDA cores {t_fma:.3f} ms "
-            f"({t_fma / t_mma:.2f}x); outputs apart by {diff:.1e} of max")
+    if per_level != 16:
+        raise RuntimeError(f"{what}: mxu launches {moved}")
 
 
 def check_grade(counts: dict, path: str, what: str) -> None:
@@ -1838,7 +1790,6 @@ def phase_elasticity_timing(card: str, prob, st, device) -> dict:
             f"{mode} {ex['ms']:.3f} ms ({t['ms'] / ex['ms']:.2f}x), bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     check_elasticity_on_tensor_cores(prob, rhs, "third path float32")
-    time_elasticity_engines(device, *KERNELS["elasticity"]["shape"])
     log("phase 11: ok")
     # B.3's times are reported at the main path's shape (phase 5)
     return {k: v for k, v in times.items() if k[0] == "elasticity"}

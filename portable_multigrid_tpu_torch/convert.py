@@ -53,11 +53,7 @@ from .ops import indexed
 from .ops.laplace import LaplaceOperator
 from .ops.transfer import Transfer
 from .solvers.chebyshev import Chebyshev, FusedChebyshev
-
-
-def _t(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                           device=device)
+from .utils.tensors import to_tensor
 
 
 def laplace_operator(*, degree: int, n: int, dim: int, mask1,
@@ -68,18 +64,18 @@ def laplace_operator(*, degree: int, n: int, dim: int, mask1,
                      device="cpu") -> LaplaceOperator:
     """The plain operator of a variant from its state (1D factors identical
     on every axis); what the variant does not use stays None."""
-    def t(a):
-        return None if a is None else _t(a, dtype, device)
-
     def axes(a):
-        return None if a is None else (t(a),) * dim
+        return None if a is None else (to_tensor(a, dtype, device),) * dim
 
+    whole = {k: None if a is None else to_tensor(a, dtype, device)
+             for k, a in dict(B=B, Dco=Dco, qmetric=qmetric, coef=coef,
+                              inv_diag_full=inv_diag_full,
+                              elem_matrix=elem_matrix, Gmat=Gmat,
+                              wcoef_e=wcoef_e).items()}
     return LaplaceOperator(
         dim=dim, degree=degree, n=(n,) * dim, mask1=axes(mask1),
         variant=variant, dK1=axes(dK1), dM1=axes(dM1), Kg=axes(K1),
-        Mg=axes(M1), B=t(B), Dco=t(Dco), qmetric=t(qmetric), coef=t(coef),
-        inv_diag_full=t(inv_diag_full), elem_matrix=t(elem_matrix),
-        Gmat=t(Gmat), wcoef_e=t(wcoef_e))
+        Mg=axes(M1), **whole)
 
 
 def kernel_operator(*, degree: int, n: int, mask1, dK1, dM1, K1, M1,
@@ -118,9 +114,9 @@ def plain_transfer(*, dim: int, n_coarse: int, stride_c: int, stride_f: int,
                    M1, wmask_f, mask_c1, dtype=torch.float64,
                    device="cpu") -> Transfer:
     return Transfer(dim=dim, n_coarse=(n_coarse,) * dim, stride_c=stride_c,
-                    stride_f=stride_f, M1=_t(M1, dtype, device),
-                    wmask_f=(_t(wmask_f, dtype, device),) * dim,
-                    mask_c1=(_t(mask_c1, dtype, device),) * dim)
+                    stride_f=stride_f, M1=to_tensor(M1, dtype, device),
+                    wmask_f=(to_tensor(wmask_f, dtype, device),) * dim,
+                    mask_c1=(to_tensor(mask_c1, dtype, device),) * dim)
 
 
 def kernel_transfer(*, n_coarse: int, stride_c: int, stride_f: int, M1,
@@ -164,28 +160,29 @@ def smoother(op, *, degree: int, theta, delta, fused: bool = False,
 def _shard_operator(op, s, dtype, device) -> LaplaceOperator:
     """Shard s of a stacked plain ``LaplaceOperator`` (per-axis ``n`` and
     1D factors); s an index, or (i, j) on a pencil mesh."""
-    def t(a):
-        return None if a is None else _t(np.asarray(a)[s], dtype, device)
-
     def axes(a):
-        return None if a is None else tuple(t(v) for v in a)
+        return None if a is None else tuple(
+            to_tensor(np.asarray(v)[s], dtype, device) for v in a)
 
+    whole = {k: None if a is None
+             else to_tensor(np.asarray(a)[s], dtype, device)
+             for k, a in dict(B=op.B, Dco=op.Dco,
+                              qmetric=op.qmetric).items()}
     return LaplaceOperator(
         dim=op.dim, degree=op.degree, n=tuple(op.n), mask1=axes(op.mask1),
         variant=op.variant, dK1=axes(op.dK1), dM1=axes(op.dM1),
-        Kg=axes(op.Kg), Mg=axes(op.Mg), B=t(op.B), Dco=t(op.Dco),
-        qmetric=t(op.qmetric))
+        Kg=axes(op.Kg), Mg=axes(op.Mg), **whole)
 
 
 def _shard_transfer(tr, s, dtype, device) -> Transfer:
     """Shard s of a stacked ``Transfer`` (s as in :func:`_shard_operator`)."""
-    def t(a):
-        return _t(np.asarray(a)[s], dtype, device)
-
     return Transfer(dim=tr.dim, n_coarse=tuple(tr.n_coarse),
-                    stride_c=tr.stride_c, stride_f=tr.stride_f, M1=t(tr.M1),
-                    wmask_f=tuple(t(v) for v in tr.wmask_f),
-                    mask_c1=tuple(t(v) for v in tr.mask_c1))
+                    stride_c=tr.stride_c, stride_f=tr.stride_f,
+                    M1=to_tensor(np.asarray(tr.M1)[s], dtype, device),
+                    wmask_f=tuple(to_tensor(np.asarray(v)[s], dtype, device)
+                                  for v in tr.wmask_f),
+                    mask_c1=tuple(to_tensor(np.asarray(v)[s], dtype, device)
+                                  for v in tr.mask_c1))
 
 
 def _kernel_slabs(stacked, devices, dtype, core: str):
@@ -430,9 +427,6 @@ def _shard_elasticity(jop, devices, dtype):
     ref = _build_stacked_elasticity(space, devices, dtype, jop.mu, jop.lam)
     local = []
     for s, dev in enumerate(devices):
-        def t(a):
-            return _t(np.asarray(a, np.float64)[s], dtype, dev)
-
         m = np.asarray(jop.mask, np.float64)[s]
         # the factors through a free point: m[:, 1, ...] is free off the
         # x factor's zeros, and plane i is free
@@ -444,9 +438,10 @@ def _shard_elasticity(jop, devices, dtype):
         op = ElasticityOperator(
             dim=dim, degree=p, n=tuple(jop.n), mu=float(jop.mu),
             lam=float(jop.lam), variant="sumfac",
-            mask1=tuple(_t(v, dtype, dev) for v in mask1),
-            dK1=ref.local[s].dK1, dM1=ref.local[s].dM1, B=t(jop.B),
-            Dco=t(jop.Dco), qmetric=t(jop.qmetric))
+            mask1=tuple(to_tensor(v, dtype, dev) for v in mask1),
+            dK1=ref.local[s].dK1, dM1=ref.local[s].dM1,
+            **{k: to_tensor(np.asarray(getattr(jop, k))[s], dtype, dev)
+               for k in ("B", "Dco", "qmetric")})
         want = np.asarray(jop.inv_diag, np.float64)[s]
         if not np.allclose(op.inv_diag.cpu().numpy(), want, rtol=1e-6,
                            atol=0):

@@ -2,8 +2,8 @@
 //
 // The kernel template, shared by cheb2.cu (the pair's modes) and
 // cheb2lr.cu (cheb2lr), which instantiate it apart so that nvcc builds
-// the two sets of instances at once.  Since the wrapper's cheb2_engine
-// sends the pair at the production grade in float to the tensor cores
+// the two sets of instances at once.  Since the wrapper sends the pair at
+// the production grade (the mxu core, float only) to the tensor cores
 // (cheb2mma.cu), this kernel runs the exact grade, float64 and cheb2lr;
 // the pair's production-grade instance stays reachable from pmg_cheb2_f32.
 //

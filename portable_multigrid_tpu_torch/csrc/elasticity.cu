@@ -2,9 +2,9 @@
 // epilogues.
 //
 // Replaces the TPU kernel portable_multigrid_tpu/ops/pallas_elasticity.py
-// PallasElasticityOperator._run (the exact "banded" core and the bf16 "mxu"
-// core, iota mask; modes apply, residual1t, residual3t, cheb, chebl, chebd,
-// chebdl — the seven trimmed-state modes of B.1).  It computes M A M u for a 3-component field
+// PallasElasticityOperator._run (the exact "banded" core, iota mask; modes
+// apply, residual1t, residual3t, cheb, chebl, chebd, chebdl — the seven
+// trimmed-state modes of B.1).  It computes M A M u for a 3-component field
 // on trimmed state — [3, N, N, N], N = n p, C order with z contiguous:
 //
 //   out_c = sum_a alpha_{a,c} (K@a, M elsewhere) u_c
@@ -41,19 +41,8 @@
 // passes its own factors as the x ones with NX = NXI = N, so that its
 // arithmetic is the one before.
 //
-// The mxu grade (float only; kRoundBF16 of StateFlags in common.cuh, the
-// JAX core "mxu" of pallas_elasticity.py:374-457) runs on the cube on the
-// tensor-core instance of elasticitymma.cu at every degree; this file's
-// instance of it is that one's yardstick (chip_smoke.py).  Here the host
-// passes the four bands rounded to bf16 and the row sums of the rounded
-// bands, so that the difference form is the TPU core's direct sum up to
-// float rounding; the kernel rounds to bf16 the window where it lands in
-// shared memory (each thread the elements it copied, once, before the
-// plane's barrier), the four z products where they are stored, and the 12
-// group sums where they enter the ring; every product accumulates in
-// float.  It is a second instance (RND), so that the exact instance keeps
-// its registers; the state streams stay float (the JAX kernel has no bf16
-// state).
+// The mxu grade (kRoundBF16 of StateFlags in common.cuh) runs in
+// elasticitymma.cu; this file's entries refuse it.
 //
 // What bounds it on the H100: FP32 FMA throughput and shared-memory
 // traffic, then HBM.  The 21 chains share 45 banded products per grid point
@@ -140,9 +129,9 @@ struct Row {
 };
 
 // z stage of one component: window rows r < WY (row length WZ) -> K, M, G,
-// H along z into zb[4][WY][32], rounded to bf16 with RND.  A thread keeps
-// its z column (and so its z row w) for every row it takes.
-template <typename T, int P, bool RND>
+// H along z into zb[4][WY][32].  A thread keeps its z column (and so its z
+// row w) for every row it takes.
+template <typename T, int P>
 __device__ __forceinline__ void stage_z(const T* win, int WY, int WZ, T* zb,
                                         const Row<T, P>& w) {
   const int tz = threadIdx.x % kTZ, rows = blockDim.x / kTZ;
@@ -158,12 +147,6 @@ __device__ __forceinline__ void stage_z(const T* win, int WY, int WZ, T* zb,
       am += w.m[o] * v;
       ag += w.g[o] * dv;
       ah += w.h[o] * dv;
-    }
-    if constexpr (RND) {
-      ak = round_bf16(ak);
-      am = round_bf16(am);
-      ag = round_bf16(ag);
-      ah = round_bf16(ah);
     }
     T* out = zb + r * kTZ + tz;
     out[0] = ak;
@@ -237,8 +220,7 @@ __device__ __forceinline__ void stage_y(const T* zb, int WY,
   }
 }
 
-// RND: the instance of the mxu grade (float only)
-template <typename T, int P, bool RND>
+template <typename T, int P>
 __global__ void __launch_bounds__(kMaxThreads<P>, sizeof(T) == 4 ? 2 : 1)
 elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
                   const T* __restrict__ in2, T* __restrict__ out0,
@@ -295,22 +277,17 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
     } else {
       cp_async_wait<0>();
     }
-    if constexpr (RND) {
-      // the window at the mxu grade: the elements this thread copied
-      for (int k = tid; k < 3 * nwin; k += blockDim.x)
-        w[k] = round_bf16(w[k]);
-    }
     __syncthreads();  // plane xin in; the last plane's z products all read
     T g[kGroups];
 #pragma unroll
     for (int k = 0; k < kGroups; ++k) g[k] = T(0);
-    stage_z<T, P, RND>(w, WY, WZ, zb0, zr);
+    stage_z<T, P>(w, WY, WZ, zb0, zr);
     __syncthreads();
     stage_y<T, P, 0>(zb0, WY, yr, mu, lam, g);
-    stage_z<T, P, RND>(w + nwin, WY, WZ, zb1, zr);
+    stage_z<T, P>(w + nwin, WY, WZ, zb1, zr);
     __syncthreads();
     stage_y<T, P, 1>(zb1, WY, yr, mu, lam, g);
-    stage_z<T, P, RND>(w + 2 * nwin, WY, WZ, zb0, zr);
+    stage_z<T, P>(w + 2 * nwin, WY, WZ, zb0, zr);
     __syncthreads();
     stage_y<T, P, 2>(zb0, WY, yr, mu, lam, g);
 
@@ -318,7 +295,7 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
     T* slot = ring + (i % R) * kGroups * ncols + tid;
 #pragma unroll
     for (int k = 0; k < kGroups; ++k)
-      slot[k * ncols] = RND ? round_bf16(g[k]) : g[k];
+      slot[k * ncols] = g[k];
 
     // plane x + p is in: contract the ring along x into the outputs at x
     const int64_t x = xin - P;
@@ -364,13 +341,13 @@ elasticity_kernel(const T* __restrict__ u, const T* __restrict__ in1,
   }
 }
 
-template <typename T, int P, bool RND>
+template <typename T, int P>
 int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
              T* out2, const Operator<T>& op, double mu, double lam,
              double c0, double c1, int mode, int LX, int TY, void* stream) {
   if (TY * kTZ > kMaxThreads<P>) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_elems(P, TY) * sizeof(T);
-  const void* kernel = (const void*)elasticity_kernel<T, P, RND>;
+  const void* kernel = (const void*)elasticity_kernel<T, P>;
   cudaError_t err = allow_smem(kernel, smem);
   // two blocks of up to 113 KB per SM need the whole shared-memory carveout
   if (err == cudaSuccess)
@@ -380,25 +357,10 @@ int launch_p(const T* u, const T* in1, const T* in2, T* out0, T* out1,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ceil_div(op.N, kTZ), (unsigned)ceil_div(op.N, TY),
                   (unsigned)ceil_div(op.NX, LX));
-  elasticity_kernel<T, P, RND><<<grid, TY * kTZ, smem, (cudaStream_t)stream>>>(
+  elasticity_kernel<T, P><<<grid, TY * kTZ, smem, (cudaStream_t)stream>>>(
       u, in1, in2, out0, out1, out2, op.b, op.dk, op.dm, op.xb, op.xdk,
       op.xdm, (T)mu, (T)lam, (T)c0, (T)c1, op.N, op.NX, op.NXI, mode, LX, TY);
   return (int)cudaGetLastError();
-}
-
-// the mxu grade's instance where the flags ask for it (float only)
-template <typename T, int P>
-int launch_grade(const T* u, const T* in1, const T* in2, T* out0, T* out1,
-                 T* out2, const Operator<T>& op, double mu, double lam,
-                 double c0, double c1, int mode, int LX, int TY, int flags,
-                 void* stream) {
-  if constexpr (sizeof(T) == 4) {
-    if (flags & kRoundBF16)
-      return launch_p<T, P, true>(u, in1, in2, out0, out1, out2, op, mu, lam,
-                                  c0, c1, mode, LX, TY, stream);
-  }
-  return launch_p<T, P, false>(u, in1, in2, out0, out1, out2, op, mu, lam,
-                               c0, c1, mode, LX, TY, stream);
 }
 
 template <typename T>
@@ -407,13 +369,14 @@ int launch(const T* u, const T* in1, const T* in2, T* out0, T* out1, T* out2,
            int p, int mode, int LX, int TY, int TZ, int flags, void* stream) {
   // a block is TY warps, one per y row of its column (the operator and
   // the mode are checked in PMG_ELASTICITY_ENTRY, elasticity.cuh)
-  if (TZ != kTZ || TY < 1 || TY * kTZ > kThreads || LX < 1)
+  if (TZ != kTZ || TY < 1 || TY * kTZ > kThreads || LX < 1 ||
+      (flags & kRoundBF16))
     return (int)cudaErrorInvalidValue;
   switch (p) {
 #define PMG_CASE(PP)                                                        \
   case PP:                                                                  \
-    return launch_grade<T, PP>(u, in1, in2, out0, out1, out2, op, mu, lam,  \
-                               c0, c1, mode, LX, TY, flags, stream);
+    return launch_p<T, PP>(u, in1, in2, out0, out1, out2, op, mu, lam,      \
+                           c0, c1, mode, LX, TY, stream);
     PMG_CASE(1) PMG_CASE(2) PMG_CASE(3) PMG_CASE(4) PMG_CASE(5) PMG_CASE(6)
     PMG_CASE(7)
 #undef PMG_CASE

@@ -1,9 +1,8 @@
 // B.5's launch interface, shared by its two instances: the CUDA-core kernel
-// (elasticity.cu: the exact core, float64, the slab, and the mxu grade
-// where the tensor-core tile does not serve) and the tensor-core kernel of
-// the mxu grade (elasticitymma.cu).  They share the operator's arrays, the
-// launch checks, the C entry point's arguments and laplace_epilogue
-// (common.cuh), and no arithmetic.
+// (elasticity.cu: the exact core, float64 and the slab) and the tensor-core
+// kernel of the mxu grade (elasticitymma.cu).  They share the operator's
+// arrays, the launch checks, the C entry point's arguments and
+// laplace_epilogue (common.cuh), and no arithmetic.
 #pragma once
 
 #include "common.cuh"

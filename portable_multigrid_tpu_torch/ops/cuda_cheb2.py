@@ -35,6 +35,12 @@ pallas_cheb2.py:336-338, :533), with float32 accumulation.  ``sdtype``
 stores the recurrence streams: with bfloat16 every mode reads d and r in
 bf16 (the ``cheb2f0`` modes read b in float32, and their pre-pass writes
 d0 in float32) and writes r2 and d2 in bf16; x and x2 stay float32.
+
+The operator's core also picks the pair's kernel instance: at ``"mxu"``
+(float32 only) the tensor-core one (``csrc/cheb2mma.cu``, tile
+:func:`cheb2_mma_tile`), at the exact grade the CUDA-core one
+(``csrc/cheb2.cuh``, :func:`cheb2_tile`); ``cheb2lr`` runs on the CUDA
+cores at either grade.
 """
 
 from __future__ import annotations
@@ -67,9 +73,6 @@ ROUT_MODE = "cheb2lr"  # the one mode of a rout kernel (csrc/cheb2lr.cu)
 # launches the kernel: the pair's, and the cheb2lr kernel's apart
 LAUNCHES = dict.fromkeys(MODES, 0)
 ROUT_LAUNCHES = {ROUT_MODE: 0}
-# the pair's launches on the tensor-core instance, keyed as LAUNCHES (which
-# counts them too)
-MMA_LAUNCHES = dict.fromkeys(MODES, 0)
 
 _TY = (16, 8, 6, 4, 2, 1)  # candidate interior rows of a block's column
 
@@ -140,16 +143,6 @@ def _tile_ty(p: int, itemsize: int, rout: bool) -> int | None:
     return next((t for t in _TY if t + 2 * G <= limit
                  and cheb2_smem_elems(p, t, stages) * itemsize <= SMEM_LIMIT),
                 None)
-
-
-def cheb2_engine(core: str, dtype, rout: bool = False) -> str:
-    """The instance that runs a pass: "mma" (``csrc/cheb2mma.cu``, bf16
-    tensor-core tiles) for the pair at the production grade (``core``
-    "mxu") in float32, "fma" (``csrc/cheb2.cuh`` on the CUDA cores) for the
-    exact grade, float64 and ``cheb2lr``."""
-    if core == "mxu" and dtype == torch.float32 and not rout:
-        return "mma"
-    return "fma"
 
 
 # the tensor-core instance's tile (MmaTile in csrc/cheb2mma.cu): row strides
@@ -232,9 +225,9 @@ def cheb2_mma_tile(p: int, N: int, nx: int | None = None,
 
 
 def _pair_tile(op: CudaLaplaceOperator, nx=None, ny=None) -> tuple:
-    """The tile of the pair's engine on ``op``'s level."""
+    """The tile of the pair's instance on ``op``'s level."""
     N = op.n * op.degree
-    if cheb2_engine(op.core, op.dtype) == "mma":
+    if op.core == "mxu":
         return cheb2_mma_tile(op.degree, N, nx, ny)
     itemsize = torch.empty((), dtype=op.dtype).element_size()
     return cheb2_tile(op.degree, itemsize, N, nx=nx, ny=ny)
@@ -308,16 +301,17 @@ class Cheb2Kernel:
     pencil of the 2D-pencil solve (:func:`make_cheb2_pencil`)."""
 
     op: CudaLaplaceOperator
-    tile: tuple  # (LX, TY, NW): cheb2_mma_tile on the "mma" engine, else
+    tile: tuple  # (LX, TY, NW): cheb2_mma_tile at the mxu core, else
     # cheb2_tile
     xext: tuple | None = None
     yext: tuple | None = None
 
-    @property
-    def engine(self) -> str:
-        """The instance that runs the pair on ``op``
-        (:func:`cheb2_engine`)."""
-        return cheb2_engine(self.op.core, self.op.dtype)
+    def kernel_fn(self):
+        """``pmg_cheb2mma`` at the mxu core, else ``pmg_cheb2_f32``/``_f64``
+        (``csrc/cheb2.cu``)."""
+        if self.op.core == "mxu":
+            return _build.build().fn("pmg_cheb2mma")
+        return _build.build().fn("pmg_cheb2", _suffix(self.op.dtype))
 
     def steps2(self, d, r, x, scal, mode: str = "cheb2", sdtype=None):
         """One pass of ``mode``; returns (r2, d2, x2), or (x2,) for "l"
@@ -351,9 +345,7 @@ class Cheb2Kernel:
         sc = [float(s) for s in scal] + [0.0] * (5 - len(scal))
         # cheb2f0*: the kernel's pre-pass writes d0 = b / (theta diag)
         scratch = torch.empty_like(d) if r is None else None
-        mma = self.engine == "mma"
-        fn = (_build.build().fn("pmg_cheb2mma") if mma
-              else _build.build().fn("pmg_cheb2", _suffix(op.dtype)))
+        fn = self.kernel_fn()
         with torch.cuda.device(d.device):
             err = fn(d.data_ptr(), None if r is None else r.data_ptr(),
                      None if x is None else x.data_ptr(), *optrs,
@@ -367,8 +359,6 @@ class Cheb2Kernel:
         where = ("/pencil" if self.yext is not None
                  else "/xext" if self.xext is not None else "")
         _counted(LAUNCHES, op, mode + where, sdtype, err)
-        if mma:
-            _counted(MMA_LAUNCHES, op, mode + where, sdtype, err)
         return tuple(outs)
 
 
@@ -558,9 +548,9 @@ def make_cheb2_pencil(op: CudaLaplaceOperator, x_off: int, nx: int,
 def make_cheb2(op: CudaLaplaceOperator,
                rout: bool = False) -> Cheb2Kernel | Cheb2RKernel:
     """The pair kernel on ``op``'s level, at ``op``'s grade (the production
-    bf16 grade on an ``"mxu"`` operator, on the tensor cores in float32:
-    :func:`cheb2_engine`); ``rout``: the ``cheb2lr`` kernel, which raises
-    ValueError where its tile fits no block (:func:`cheb2_tile`)."""
+    bf16 grade on an ``"mxu"`` operator, on the tensor cores); ``rout``:
+    the ``cheb2lr`` kernel, which raises ValueError where its tile fits no
+    block (:func:`cheb2_tile`)."""
     if op.dim != 3:
         # as in the JAX package (pallas_cheb2.py:59-69)
         raise ValueError("the pair kernel B.2 is 3D only")

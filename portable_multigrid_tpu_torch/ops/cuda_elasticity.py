@@ -34,13 +34,12 @@ TPU core assembles x and y per block and rounds the two halves of a block
 boundary entry apart; the global bands round the whole entry, so the two
 agree at bf16 grade, not bit for bit.
 
-At ``core="mxu"`` in float32 the cube's kernel is the tensor-core instance
-(``csrc/elasticitymma.cu``: the z and y stages as bf16 ``mma.sync`` tiles
-with float accumulation, K, G and H summed directly; the x stage and the
-epilogue on the CUDA cores) at every degree: :func:`elasticity_engine`
-picks it, :func:`elasticity_mma_tile` is its tile and :data:`MMA_LAUNCHES`
-counts its launches, which :data:`LAUNCHES` counts too.  The exact core,
-float64 and the slab keep the CUDA-core kernel.
+The core picks the kernel instance: at ``core="mxu"`` the tensor-core
+instance (``csrc/elasticitymma.cu``: the z and y stages as bf16
+``mma.sync`` tiles with float accumulation, K, G and H summed directly;
+the x stage and the epilogue on the CUDA cores) at every degree, with the
+tile :func:`elasticity_mma_tile`; at the exact core, in float32 and
+float64, and on the slab, the CUDA-core kernel (``csrc/elasticity.cu``).
 
 While :func:`~..utils.profiling.tracing` is on, every pass of B.5 (the
 kernel's launch on the card, its twin on the CPU) adds one to the counter
@@ -54,10 +53,11 @@ is counted there (:data:`LAUNCHES` counts the kernel's launches always).
 
 :class:`CudaElasticitySlab` is the operator on one shard's slab of the
 slab-sharded solve (the TPU kernel's ``make_pallas_elasticity_slab``,
-``xmask="vector"``), in its one mode on that path, ``apply``, at the exact
-core: x has factors of its own (:func:`elasticity_partial_bands`), the
-input is x-full and the output drops the slab's last plane, as B.1's slab
-(``ops/cuda_laplace.py`` ``CudaLaplaceSlab``) does.
+``xmask="vector"``), in its one mode on that path, ``apply``, at its one
+core, the exact one: x has factors of its own
+(:func:`elasticity_partial_bands`), the input is x-full and the output
+drops the slab's last plane, as B.1's slab (``ops/cuda_laplace.py``
+``CudaLaplaceSlab``) does.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ import torch
 from .. import _build
 from ..fem.space import FESpace
 from ..utils import profiling
+from ..utils.tensors import to_tensor
 from .cuda_laplace import (
     CORES,
     MODES,
@@ -81,8 +82,8 @@ from .cuda_laplace import (
     _check,
     _launch,
     chunk_planes,
-    launch_key,
     round_bf16,
+    round_factors_bf16,
     row_sums,
     to_bands,
     twin_epilogue,
@@ -102,9 +103,6 @@ from .structured import contract
 
 # kernel launches per mode, counted where the wrapper launches the kernel
 LAUNCHES = dict.fromkeys(MODES, 0)
-# the launches of the tensor-core instance, keyed as LAUNCHES (which counts
-# them too)
-MMA_LAUNCHES = dict.fromkeys(MODES, 0)
 
 SMEM_BUDGET = 113 * 1024  # two blocks per SM
 TZ = 32  # z extent of a block's column: one warp (kTZ in elasticity.cu)
@@ -156,17 +154,6 @@ def elasticity_tile(p: int, itemsize: int, N: int,
         return -(-columns * -(-nx // lx) // resident) * (lx + 2 * p)
 
     return min(_LX, key=lambda lx: (cost(lx), -lx)), ty, TZ
-
-
-def elasticity_engine(core: str, dtype, p: int, slab: bool = False) -> str:
-    """The instance that runs a B.5 launch: "mma" (``csrc/elasticitymma.cu``,
-    bf16 tensor-core tiles) for the mxu core in float32 on the cube, at
-    every degree whose tile fits (p = 1..7), "fma" (``csrc/elasticity.cu``
-    on the CUDA cores) for the exact core, float64 and the slab."""
-    if (core == "mxu" and dtype == torch.float32 and not slab
-            and _mma_ty(p) is not None):
-        return "mma"
-    return "fma"
 
 
 # the tensor-core instance's tile (MmaTile in csrc/elasticitymma.cu)
@@ -268,12 +255,6 @@ class CudaElasticityOperator(CudaLaplaceOperator):
     def inv_diag(self) -> torch.Tensor:
         return elasticity_inv_diag(self)
 
-    @property
-    def engine(self) -> str:
-        """The instance that runs this operator's launches
-        (:func:`elasticity_engine`); ``tile`` is that instance's."""
-        return elasticity_engine(self.core, self.dtype, self.degree)
-
     def diag_trimmed(self) -> torch.Tensor:
         """[3, ...] diagonal on the trimmed grid (raw values on constrained
         entries, as the kernel rebuilds it)."""
@@ -282,21 +263,17 @@ class CudaElasticityOperator(CudaLaplaceOperator):
 
     def run(self, mode: str, u: torch.Tensor, ins=(), scal=(),
             sdtype=None):
-        """:meth:`~.cuda_laplace.CudaLaplaceOperator.run`, a launch of the
-        tensor-core instance counted in :data:`MMA_LAUNCHES`, and every
-        pass while tracing is on (:func:`count_key`)."""
+        """:meth:`~.cuda_laplace.CudaLaplaceOperator.run`, and every pass
+        counted while tracing is on (:func:`count_key`)."""
         outs = super().run(mode, u, ins, scal, sdtype)
-        if u.is_cuda and self.engine == "mma":
-            key = launch_key(mode, self.core, sdtype)
-            MMA_LAUNCHES[key] = MMA_LAUNCHES.get(key, 0) + 1
         if profiling.active() is not None:
             profiling.count(count_key(mode, self.core, self.n))
         return outs
 
     def kernel_fn(self):
-        """``pmg_elasticitymma`` on the "mma" engine, else
+        """``pmg_elasticitymma`` at the mxu core, else
         ``pmg_elasticity_f32``/``_f64``."""
-        if self.engine == "mma":
+        if self.core == "mxu":
             return _build.build().fn("pmg_elasticitymma")
         return super().kernel_fn()
 
@@ -355,6 +332,11 @@ class CudaElasticitySlab(CudaElasticityOperator):
     Gx: torch.Tensor = None
     Hx: torch.Tensor = None
 
+    def __post_init__(self):
+        if self.core == "mxu":
+            raise ValueError("a B.5 slab runs at the exact core ('banded') "
+                             "only")
+
     @property
     def grid_shape(self) -> tuple[int, ...]:
         """The full slab, shared planes included (one component)."""
@@ -375,10 +357,6 @@ class CudaElasticitySlab(CudaElasticityOperator):
     @property
     def mask(self) -> torch.Tensor:
         return separable_mask((self.mask1x, self.mask1, self.mask1))
-
-    @property
-    def engine(self) -> str:
-        return elasticity_engine(self.core, self.dtype, self.degree, True)
 
     @property
     def inv_diag(self) -> torch.Tensor:
@@ -517,11 +495,7 @@ def cuda_elasticity_slab_from_factors(
     cube = cuda_elasticity_from_factors(degree, n, m1, K1, M1, G1, gK, gM,
                                         mu, lam, dtype, device)
     x = elasticity_partial_bands(mx, Kx, Mx, Gx, degree)
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     fields = {f.name: getattr(cube, f.name) for f in dataclasses.fields(cube)}
     itemsize = torch.empty((), dtype=dtype).element_size()
     fields["tile"] = elasticity_tile(degree, itemsize, n * degree,
@@ -549,22 +523,16 @@ def cuda_elasticity_from_factors(degree: int, n: int, m1, K1, M1, G1, gK, gM,
     def fold(W):
         return (m1[:, None] * W * m1[None, :])[:-1, :-1]
 
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     Kt, Mt, Gt = fold(K1), fold(M1), fold(G1)
     sums = row_sums(K1, m1), row_sums(G1, m1), row_sums(G1.T, m1)
     if core == "mxu":
-        # the entries rounded once, as the TPU core's bf16 matrices are;
         # a band holds the same entries as its matrix
-        Kt, Mt, Gt = (torch.as_tensor(W).to(torch.bfloat16).double().numpy()
-                      for W in (Kt, Mt, Gt))
+        Kt, Mt, Gt = map(round_factors_bf16, (Kt, Mt, Gt))
         sums = tuple(to_bands(W, degree).sum(axis=0) for W in (Kt, Gt, Gt.T))
     itemsize = torch.empty((), dtype=dtype).element_size()
     N = n * degree
-    tile = (elasticity_mma_tile(degree, N)
-            if elasticity_engine(core, dtype, degree) == "mma"
+    tile = (elasticity_mma_tile(degree, N) if core == "mxu"
             else elasticity_tile(degree, itemsize, N))
     return CudaElasticityOperator(
         degree=degree, n=n, mask1=t(m1), dK1=t(gK), dM1=t(gM),

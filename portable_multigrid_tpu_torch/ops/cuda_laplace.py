@@ -53,6 +53,7 @@ Two precision options of the TPU kernel are ported, for float32 only:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import ClassVar
 
 import numpy as np
@@ -60,6 +61,7 @@ import torch
 
 from .. import _build
 from ..fem.space import FESpace
+from ..utils.tensors import to_tensor
 from .laplace import (
     assembled_1d_matrices,
     diagonal_1d_factors,
@@ -127,6 +129,13 @@ def state_dtype(op, sdtype):
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """t rounded to bfloat16 (to nearest even) and back to its dtype."""
     return t.to(torch.bfloat16).to(t.dtype)
+
+
+def round_factors_bf16(a: np.ndarray) -> np.ndarray:
+    """Host factors (float64) rounded to bfloat16 at once, as the TPU
+    core's bf16 matrices are, and back to float64."""
+    return torch.as_tensor(a).to(torch.bfloat16).double().numpy()
+
 
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
 SMS = 132  # streaming multiprocessors of the H100 SXM
@@ -638,11 +647,7 @@ def cuda_laplace_pencil_from_factors(degree: int, n: int, n_loc: tuple, m1,
     slab = cuda_laplace_slab_from_factors(degree, n, n_loc[0], m1, K1, M1,
                                           gK, gM, *xs, dtype, device)
     ykband, yksum, ymband = partial_bands(*ys[:3], degree)
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     fields = {f.name: getattr(slab, f.name) for f in dataclasses.fields(slab)}
     itemsize = torch.empty((), dtype=dtype).element_size()
     fields["tile"] = laplace_tile(degree, itemsize, n * degree,
@@ -669,11 +674,7 @@ def cuda_laplace_slab_from_factors(degree: int, n: int, n_loc: int, m1, K1,
                                      device, core=core)
     L = n_loc * degree
     xkband, xksum, xmband = partial_bands(mx, Kx, Mx, degree, core)
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     fields = {f.name: getattr(cube, f.name) for f in dataclasses.fields(cube)}
     itemsize = torch.empty((), dtype=dtype).element_size()
     fields["tile"] = laplace_tile(degree, itemsize, n * degree, nx=L)
@@ -695,8 +696,7 @@ def partial_bands(m, K, M, degree: int, core: str = "banded") -> tuple:
     mband = to_bands(m[:, None] * M * m[None, :], degree)[:, :L]
     ksum = row_sums(K, m)
     if core == "mxu":
-        kband, mband = (torch.as_tensor(b).to(torch.bfloat16).double()
-                        .numpy() for b in (kband, mband))
+        kband, mband = map(round_factors_bf16, (kband, mband))
         ksum = kband.sum(axis=0)
     return kband, ksum, mband
 
@@ -812,17 +812,11 @@ def cuda_laplace_from_factors(degree: int, n: int, m1, K1, M1, gK, gM,
     m1, K1, M1 = (np.asarray(a, np.float64) for a in (m1, K1, M1))
     Kt = (m1[:, None] * K1 * m1[None, :])[:-1, :-1]
     Mt = (m1[:, None] * M1 * m1[None, :])[:-1, :-1]
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     kband, mband = to_bands(Kt, degree), to_bands(Mt, degree)
     ksum = row_sums(K1, m1)
     if core == "mxu":
-        # rounded from float64 at once, as the TPU core's bf16 matrices are
-        kband, mband = (torch.as_tensor(b).to(torch.bfloat16).double().numpy()
-                        for b in (kband, mband))
+        kband, mband = map(round_factors_bf16, (kband, mband))
         ksum = kband.sum(axis=0)
     itemsize = torch.empty((), dtype=dtype).element_size()
     return cls(

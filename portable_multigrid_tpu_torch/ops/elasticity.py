@@ -38,6 +38,7 @@ import torch
 from ..fem.assemble import gradient_matrices
 from ..fem.basis import gauss_points
 from ..fem.space import FESpace
+from ..utils.tensors import to_tensor
 from .laplace import (
     assembled_1d_matrices,
     bcast,
@@ -335,19 +336,16 @@ def elasticity_from_factors(*, dim: int, degree: int, n: int, mu: float,
     diagonal factors, and the variant's own (``K1``, ``M1``, ``G1`` for
     kron; ``B``, ``Dco``, ``qmetric`` for sumfac; ``elem_matrix`` for
     dense), the same on every axis."""
-    def t(a):
-        return None if a is None else torch.as_tensor(
-            np.array(a, np.float64), dtype=dtype, device=device)
-
     def axes(a):
-        return None if a is None else (t(a),) * dim
+        return None if a is None else (to_tensor(a, dtype, device),) * dim
 
+    whole = {k: None if a is None else to_tensor(a, dtype, device)
+             for k, a in dict(B=B, Dco=Dco, qmetric=qmetric,
+                              elem_matrix=elem_matrix).items()}
     return ElasticityOperator(dim=dim, degree=degree, n=(n,) * dim,
                               mu=float(mu), lam=float(lam), mask1=axes(m1),
                               dK1=axes(gK), dM1=axes(gM), variant=variant,
-                              Kg=axes(K1), Mg=axes(M1), Gg=axes(G1), B=t(B),
-                              Dco=t(Dco), qmetric=t(qmetric),
-                              elem_matrix=t(elem_matrix))
+                              Kg=axes(K1), Mg=axes(M1), Gg=axes(G1), **whole)
 
 
 def make_elasticity(space: FESpace, dtype=torch.float64, mu: float = 1.0,

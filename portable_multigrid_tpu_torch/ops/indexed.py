@@ -37,6 +37,7 @@ grids.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ import torch
 from ..fem.assemble import gradient_matrices
 from ..fem.general_mesh import GeneralMesh
 from ..fem.space import FESpace
+from ..utils.tensors import to_tensor
 from .laplace import grad_matrix
 from .structured import matmul
 
@@ -121,11 +123,7 @@ def indexed_operator(dim: int, degree: int, n_dofs: int, l2g, metric, B,
     """The operator from host arrays (int l2g; the metric [E, Q, dim, dim],
     the 1D ``B`` and ``Dco``, float64), with its element gradient matrix and
     scatter table."""
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     l2g = np.array(l2g, np.int64)
     return IndexedLaplaceOperator(
         dim=int(dim), degree=int(degree), n_dofs=int(n_dofs),
@@ -267,11 +265,7 @@ def indexed_transfer(n_c: int, n_f: int, l2g_c, l2g_f, Mch, w_f, mask_c,
                      dtype=torch.float64, device="cpu") -> IndexedTransfer:
     """The transfer from host arrays (``l2g_f`` [Ec, 2^dim, ndof]), with
     its scatter tables."""
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
-                               device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     l2g_c = np.array(l2g_c, np.int64)
     l2g_f = np.array(l2g_f, np.int64)
     return IndexedTransfer(

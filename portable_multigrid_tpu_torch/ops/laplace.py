@@ -32,6 +32,7 @@ no indexed scatter, deterministic by construction.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -39,6 +40,7 @@ import torch
 from ..fem.assemble import element_stiffness_cartesian, quad_grid_1d
 from ..fem.basis import make_basis
 from ..fem.space import FESpace
+from ..utils.tensors import to_tensor
 from .structured import (
     contract,
     matmul,
@@ -423,10 +425,7 @@ def diagonal_grid_coef(space: FESpace, coef: torch.Tensor) -> torch.Tensor:
     runs where ``coef`` lies, in its dtype."""
     b = make_basis(space.degree)
     p, nq, n, dim = space.degree, b.n_q, space.mesh.cells_per_axis, space.dim
-
-    def t(a):
-        return torch.as_tensor(a, dtype=coef.dtype, device=coef.device)
-
+    t = functools.partial(to_tensor, dtype=coef.dtype, device=coef.device)
     # [i, q] with the axis's quadrature weight folded in
     B2 = t((b.B ** 2 * b.q_weights[:, None]).T)
     D2 = t((b.D ** 2 * b.q_weights[:, None]).T)
@@ -453,10 +452,7 @@ def make_laplace(space: FESpace, dtype=torch.float64, variant: str = "kron",
     ``"qdense"``, and ``"sumfac"`` and ``"qbanded"`` are kept; its diagonal
     is stored whole."""
     dim, b = space.dim, space.basis
-
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     fields = {}
     if coefficient is not None:
         if variant in ("auto", "qdense"):
@@ -467,12 +463,13 @@ def make_laplace(space: FESpace, dtype=torch.float64, variant: str = "kron",
         # the setup runs in float64 on the operator's device
         coef = torch.as_tensor(coef_at_quad(space, coefficient),
                                dtype=torch.float64, device=device)
-        fields["inv_diag_full"] = t(1.0 / diagonal_grid_coef(space, coef))
+        fields["inv_diag_full"] = (
+            1.0 / diagonal_grid_coef(space, coef)).to(dtype)
         if variant == "qdense":
             fields.update(Gmat=t(grad_matrix(b.B, b.Dco, dim)),
-                          wcoef_e=t(element_weights(space, coef)))
+                          wcoef_e=element_weights(space, coef).to(dtype))
         else:
-            fields["coef"] = t(coef)
+            fields["coef"] = coef.to(dtype)
     elif variant in ("qdense", "qbanded"):
         raise ValueError(f"operator variant {variant!r} needs a coefficient")
     else:

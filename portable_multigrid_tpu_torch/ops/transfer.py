@@ -22,12 +22,14 @@ JAX ``Transfer`` does with ``jax.vmap``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..fem.basis import h_prolongation_matrix_1d, p_prolongation_matrix_1d
 from ..fem.space import FESpace
+from ..utils.tensors import to_tensor
 from .laplace import bcast
 from .structured import contract, overlap_add, split_windows
 
@@ -142,10 +144,7 @@ def _transfer(coarse: FESpace, fine: FESpace, stride_f: int, M1: np.ndarray,
     n_c = coarse.mesh.cells_per_axis
     dim = coarse.dim
     w = _weights_1d(n_c, stride_f) * fine.free_mask_1d()
-
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-
+    t = functools.partial(to_tensor, dtype=dtype, device=device)
     return Transfer(
         dim=dim,
         n_coarse=(n_c,) * dim,

@@ -20,6 +20,7 @@ each level on the first device.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -42,6 +43,7 @@ from ..ops.laplace import (
 from ..solvers.cg import cg
 from ..solvers.chebyshev import Chebyshev, _pseudo_random_grid
 from ..solvers.vcycle import MGLevel, VCycle
+from ..utils.tensors import to_tensor
 from .poisson import (
     ShardedSolveStats,
     _bounds,
@@ -100,9 +102,7 @@ def _build_stacked_elasticity(space: FESpace, devices, dtype, mu: float,
                          f"the slabs run 'sumfac' or 'kron'")
     local = []
     for s, dev in enumerate(devices):
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
 
         def sep(x, v):
             return (t(x),) + (t(v),) * (dim - 1)
@@ -155,10 +155,7 @@ def sharded_cuda_elasticity(space: FESpace, devices, dtype, mu: float,
         last = {"k": Kp[-1, -(p + 1):], "m": Mp[-1, -(p + 1):],
                 "g": Gp[-1, -(p + 1):], "h": Gp[-(p + 1):, -1]}
 
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
-
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
         for k, row in last.items():
             rows[k + "x"].append(t(row * cols))
             if k != "m":

@@ -35,6 +35,7 @@ Chebyshev on the pencil operator), all in float32; other levels run
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 
@@ -62,6 +63,7 @@ from ..ops.transfer import Transfer, _weights_1d, make_h_transfer
 from ..solvers.cg import cg
 from ..solvers.chebyshev import Chebyshev, _pseudo_random_grid, np_dtype
 from ..solvers.vcycle import MGLevel, VCycle
+from ..utils.tensors import to_tensor
 from .poisson import VARIANTS, _bounds, _partial_assembled_1d, default_devices
 from .sharding import (
     Replicated,
@@ -156,10 +158,7 @@ def _build_pencil_operator(space: FESpace, mesh: tuple, devices, dtype,
                  _partial_assembled_1d(space, n // sy))
     local = []
     for s, dev in enumerate(devices[: sx * sy]):
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
-
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
         fields = {k: tuple(map(t, f[s]))
                   for k, f in zip(("mask1", "dK1", "dM1"), facs)}
         if variant == "kron":
@@ -187,10 +186,7 @@ def _build_pencil_transfer(coarse: FESpace, fine: FESpace, mesh: tuple,
     mcs = _pencil_factors(coarse.free_mask_1d(), n_c, p, sx, sy, dim)
     local = []
     for s, dev in enumerate(devices[: sx * sy]):
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
-
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
         local.append(Transfer(
             dim=dim, n_coarse=(n_c // sx, n_c // sy) + (n_c,) * (dim - 2),
             stride_c=p, stride_f=2 * p, M1=t(M1),
@@ -521,10 +517,7 @@ def _build_pencil_kernel(space: FESpace, mesh: tuple, devices, dtype,
     facs = [_pencil_factors(v, n, p, sx, sy, 3) for v in (m1, gK, gM)]
     local, thin, bands = [], ([], []), ([], [])
     for s, dev in enumerate(devices[: sx * sy]):
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
-
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
         (mx, dkx, dmx), (my, dky, dmy) = (
             [tuple(f[s][k] for f in facs) for k in (0, 1)] if sliced is None
             else sliced[s])

@@ -32,6 +32,7 @@ level operator on the first device (the kernel operator of
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 
@@ -64,6 +65,7 @@ from ..solvers.chebyshev import (
     np_dtype,
 )
 from ..solvers.vcycle import MGLevel, VCycle
+from ..utils.tensors import to_tensor
 from .sharding import (
     GatherTransfer,
     Replicated,
@@ -141,9 +143,7 @@ def _build_stacked_operator(space: FESpace, devices, dtype,
                          f"run 'sumfac' or 'kron'")
     local = []
     for s, dev in enumerate(devices):
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
 
         def sep(k, v):
             return (t(parts[k][s]),) + (t(v),) * (dim - 1)
@@ -176,10 +176,7 @@ def _stacked_transfer(n_c: int, stride_c: int, stride_f: int, M1, wf, mc,
     mc0 = partition_axis0(mcx, n_c0, stride_c, S)
     local = []
     for s, dev in enumerate(devices):
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
-
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
         local.append(Transfer(
             dim=dim, n_coarse=(n_c0 // S,) + (n_c,) * (dim - 1),
             stride_c=stride_c, stride_f=stride_f, M1=t(M1),
@@ -241,10 +238,7 @@ def _build_stacked_slab(space: FESpace, devices, dtype,
             dtype, dev, core))
         cols = mx[s][L - p:]
 
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=dev)
-
+        t = functools.partial(to_tensor, dtype=dtype, device=dev)
         kx.append(t(Kp[-1, -(p + 1):] * cols))
         mxr.append(t(Mp[-1, -(p + 1):] * cols))
         # the row sum from the cut columns: a row of Kp sums to zero

@@ -1,6 +1,6 @@
 """B.2's tensor-core instance (``csrc/cheb2mma.cu``) on the CPU: its tile
-and shared-memory formula, the engine each grade and dtype takes, and the
-direct K sum that its bf16 ``mma`` tiles compute against the twin's
+and shared-memory formula, the instance each grade and dtype builds, and
+the direct K sum that its bf16 ``mma`` tiles compute against the twin's
 difference form.
 
 No CUDA kernel runs here: ``tests/test_torch_cuda.py`` holds the instance
@@ -11,16 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from portable_multigrid_tpu_torch import _build
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
 from portable_multigrid_tpu_torch.ops import cuda_cheb2
 from portable_multigrid_tpu_torch.ops.cuda_cheb2 import (
-    MMA_LAUNCHES,
     MMA_SMEM_TWO,
     MODES,
     Cheb2Kernel,
     Cheb2RKernel,
-    cheb2_engine,
     cheb2_mma_smem_bytes,
     cheb2_mma_tile,
     cheb2_tile,
@@ -65,42 +64,72 @@ def test_mma_tile_of_the_main_path():
     assert cheb2_mma_smem_bytes(4, 16) <= MMA_SMEM_TWO
 
 
-@pytest.mark.parametrize("core,dtype,rout,engine", [
-    ("mxu", torch.float32, False, "mma"),
-    ("banded", torch.float32, False, "fma"),
-    ("banded", torch.float64, False, "fma"),
-    ("mxu", torch.float64, False, "fma"),
-    ("mxu", torch.float32, True, "fma"),
-    ("banded", torch.float32, True, "fma"),
+class _Entries:
+    """Stands in for the kernel library: an entry point is its name."""
+
+    @staticmethod
+    def fn(base, dtype_suffix=None):
+        return base if dtype_suffix is None else f"{base}_{dtype_suffix}"
+
+
+@pytest.mark.parametrize("core,dtype,rout,entry", [
+    ("mxu", torch.float32, False, "pmg_cheb2mma"),
+    ("banded", torch.float32, False, "pmg_cheb2_f32"),
+    ("banded", torch.float64, False, "pmg_cheb2_f64"),
+    ("mxu", torch.float64, False, None),
+    ("mxu", torch.float32, True, None),
+    ("banded", torch.float32, True, None),
 ])
-def test_engine_is_a_function_of_grade_and_dtype(core, dtype, rout, engine):
-    """The production grade in float32 takes the tensor cores; the exact
-    grade, float64 and cheb2lr keep the CUDA cores."""
-    assert cheb2_engine(core, dtype, rout) == engine
+def test_engine_is_a_function_of_grade_and_dtype(monkeypatch, core, dtype,
+                                                 rout, entry):
+    """The operator's core picks the pair's instance: the production grade
+    (mxu, float32 only: make_cuda_laplace refuses it in float64) launches
+    the tensor cores with their tile, the exact grade the CUDA cores with
+    theirs; cheb2lr is a kernel of its own on the CUDA cores at either
+    grade."""
+    monkeypatch.setattr(_build, "build", lambda: _Entries)
+    p = 2
+    sp = FESpace(HyperCubeMesh(3, 3), p)
+    if core == "mxu" and dtype == torch.float64:
+        with pytest.raises(ValueError, match="float32"):
+            make_cuda_laplace(sp, dtype, core=core)
+        return
+    op = make_cuda_laplace(sp, dtype, core=core)
+    N = op.n * p
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    kern = make_cheb2(op, rout)
+    if rout:
+        assert isinstance(kern, Cheb2RKernel)
+        assert kern.tile == cheb2_tile(p, itemsize, N, rout=True)
+        return
+    assert isinstance(kern, Cheb2Kernel)
+    assert kern.tile == (cheb2_mma_tile(p, N) if core == "mxu"
+                         else cheb2_tile(p, itemsize, N))
+    assert kern.kernel_fn() == entry
 
 
 @pytest.mark.parametrize("core,dtype", [("mxu", torch.float32),
                                         ("banded", torch.float32),
                                         ("banded", torch.float64)])
-def test_kernels_take_the_engine_and_its_tile(core, dtype):
+def test_kernels_take_the_engine_and_its_tile(monkeypatch, core, dtype):
     """make_cheb2, make_cheb2_xext and make_cheb2_pencil build the pair on
-    the engine of the operator's grade and dtype, with that engine's tile;
-    the cheb2lr kernel keeps the CUDA-core tile."""
+    the instance of the operator's core, with that instance's tile; the
+    cheb2lr kernel keeps the CUDA-core tile."""
+    monkeypatch.setattr(_build, "build", lambda: _Entries)
     p, r = 2, 3
     op = make_cuda_laplace(FESpace(HyperCubeMesh(3, r), p), dtype,
                            core=core)
     N = op.n * p
     itemsize = torch.empty((), dtype=dtype).element_size()
-    engine = cheb2_engine(core, dtype)
     kern = make_cheb2(op)
-    assert isinstance(kern, Cheb2Kernel) and kern.engine == engine
-    want = (cheb2_mma_tile(p, N) if engine == "mma"
+    assert isinstance(kern, Cheb2Kernel)
+    want = (cheb2_mma_tile(p, N) if core == "mxu"
             else cheb2_tile(p, itemsize, N))
     assert kern.tile == want
     shard = make_cheb2_xext(op, N // 4, N // 4)
     pencil = make_cheb2_pencil(op, 0, N // 2, N // 2, N // 2)
-    assert shard.engine == pencil.engine == engine
-    if engine == "mma":
+    assert shard.kernel_fn() == pencil.kernel_fn() == kern.kernel_fn()
+    if core == "mxu":
         assert shard.tile == cheb2_mma_tile(p, N, nx=N // 4)
         assert pencil.tile == cheb2_mma_tile(p, N, nx=N // 2, ny=N // 2)
     rk = make_cheb2(op, rout=True)
@@ -109,21 +138,21 @@ def test_kernels_take_the_engine_and_its_tile(core, dtype):
 
 
 def test_mma_counter_counts_no_cpu_pass():
-    """MMA_LAUNCHES is keyed as LAUNCHES; a CPU tensor runs the twin, and
-    neither counter moves."""
-    assert set(MMA_LAUNCHES) >= set(MODES)
+    """On a CPU tensor the production-grade pair runs the twin, and no
+    LAUNCHES key moves."""
+    assert set(cuda_cheb2.LAUNCHES) >= set(MODES)
     op = make_cuda_laplace(FESpace(HyperCubeMesh(3, 2), 2), torch.float32,
                            core="mxu")
     N = op.n * 2
     rng = np.random.default_rng(0)
     d, r, x = (torch.as_tensor(rng.standard_normal((N,) * 3),
                                dtype=torch.float32) for _ in range(3))
-    before = dict(MMA_LAUNCHES), dict(cuda_cheb2.LAUNCHES)
+    before = dict(cuda_cheb2.LAUNCHES)
     scal = (0.59, 1.26, 0.71, 1.52)
     got = make_cheb2(op).steps2(d, r, x, scal, "cheb2")
     want = cheb2_twin(op, d, r, x, scal, "cheb2")
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (dict(MMA_LAUNCHES), dict(cuda_cheb2.LAUNCHES)) == before
+    assert dict(cuda_cheb2.LAUNCHES) == before
 
 
 @pytest.mark.parametrize("p", [1, 4, 7])

@@ -340,18 +340,17 @@ def _pair_args(mode, d, r, x, b):
 def test_cheb2_mma_matches_twin(cuda, p):
     """B.2's tensor-core instance (the production grade in float32) in all
     six modes at float and bf16 state against the twin at r = 3 (N = 8p:
-    partial y-z columns), each launch counted in MMA_LAUNCHES and
-    LAUNCHES; on a shard of four (xext) and a pencil of (2, 2) (yext) at
+    partial y-z columns), each launch counted in LAUNCHES under its mxu
+    key; on a shard of four (xext) and a pencil of (2, 2) (yext) at
     bf16 state against their twins and bit for bit the cube's pair."""
     rng = np.random.default_rng(p)
     op = cuda_laplace.make_cuda_laplace(FESpace(HyperCubeMesh(3, 3), p),
                                         torch.float32, cuda, core="mxu")
     N = op.n * p
     kern = cuda_cheb2.make_cheb2(op)
-    assert kern.engine == "mma"
+    assert kern.op.core == "mxu"
     d, r, x, b = (_field(N, rng, torch.float32, cuda) for _ in range(4))
-    mma, all_ = (sum(c.values()) for c in (cuda_cheb2.MMA_LAUNCHES,
-                                          cuda_cheb2.LAUNCHES))
+    all_ = dict(cuda_cheb2.LAUNCHES)
     for sd in (None, BF16):
         ds, rs = (d, r) if sd is None else (d.to(sd), r.to(sd))
         for mode in cuda_cheb2.MODES:
@@ -359,13 +358,15 @@ def test_cheb2_mma_matches_twin(cuda, p):
             _close_bf16(kern.steps2(*args, mode, sdtype=sd),
                         cuda_cheb2.cheb2_twin(op, *args, mode, sd))
     torch.cuda.synchronize()
-    assert sum(cuda_cheb2.MMA_LAUNCHES.values()) == mma + 12
-    assert sum(cuda_cheb2.LAUNCHES.values()) == all_ + 12
+    moved = {k: v - all_.get(k, 0) for k, v in cuda_cheb2.LAUNCHES.items()
+             if v != all_.get(k, 0)}
+    assert sum(moved.values()) == 12
+    assert all("/mxu" in k for k in moved)
     d16, r16 = d.to(BF16), r.to(BF16)
     L = N // 4
     shard = cuda_cheb2.make_cheb2_xext(op, L, L)
     pencil = cuda_cheb2.make_cheb2_pencil(op, N // 2, N // 2, 0, N // 2)
-    assert shard.engine == pencil.engine == "mma"
+    assert shard.op.core == pencil.op.core == "mxu"
     for mode in cuda_cheb2.MODES:
         whole = kern.steps2(*_pair_args(mode, d16, r16, x, b), mode,
                             sdtype=BF16)
@@ -398,70 +399,81 @@ def test_cheb2_mma_matches_twin(cuda, p):
 def test_elasticity_mma_matches_twin(cuda, p, r):
     """B.5's tensor-core instance (the mxu core in float32) in all seven
     modes against the twin, N = p 2^r a multiple of the tile's TY and 32
-    z lanes (r = 5) and not (r = 2), each launch counted in MMA_LAUNCHES
-    and LAUNCHES; the exact core and float64 keep the CUDA-core kernel."""
+    z lanes (r = 5) and not (r = 2), each launch counted in LAUNCHES under
+    its mxu key; the exact core and float64 keep the CUDA-core kernel,
+    whose entry refuses the mxu grade (kRoundBF16)."""
     rng = np.random.default_rng(p + r)
     sp = FESpace(HyperCubeMesh(3, r), p)
     op = cuda_elasticity.make_cuda_elasticity(sp, torch.float32,
                                               *chip_smoke.MU_LAM, cuda,
                                               core="mxu")
     N = op.n * p
-    assert op.engine == "mma" and (N % 32 == 0) == (r == 5)
+    assert op.core == "mxu" and (N % 32 == 0) == (r == 5)
     assert (N % op.tile[1] == 0) == (r == 5)
     u, r_, x = (_field(N, rng, torch.float32, cuda, lead=(3,))
                 for _ in range(3))
-    mma, all_ = (sum(c.values()) for c in (cuda_elasticity.MMA_LAUNCHES,
-                                          cuda_elasticity.LAUNCHES))
+
+    def counts():
+        """(launches at the mxu core, all launches) so far."""
+        c = cuda_elasticity.LAUNCHES
+        return (sum(v for k, v in c.items() if k.endswith("/mxu")),
+                sum(c.values()))
+
+    mxu, all_ = counts()
     for mode in cuda_laplace.MODES:
         ins = tuple({"r": r_, "x": x}[k] for k in _INS.get(mode, ("r", "x")))
         scal = _SCAL.get(mode, (0.59, 1.26))
         _close_bf16(op.run(mode, u, ins, scal), op.twin(mode, u, ins, scal))
     torch.cuda.synchronize()
-    assert sum(cuda_elasticity.MMA_LAUNCHES.values()) == mma + 7
-    assert sum(cuda_elasticity.LAUNCHES.values()) == all_ + 7
+    assert counts() == (mxu + 7, all_ + 7)
     for dtype in (torch.float32, torch.float64):
         exact = cuda_elasticity.make_cuda_elasticity(sp, dtype,
                                                      *chip_smoke.MU_LAM, cuda)
-        assert exact.engine == "fma"
+        assert exact.core == "banded"
         ud = u.to(dtype)
         _close(exact.run("apply", ud), exact.twin("apply", ud), dtype)
     torch.cuda.synchronize()
-    assert sum(cuda_elasticity.MMA_LAUNCHES.values()) == mma + 7
-    assert sum(cuda_elasticity.LAUNCHES.values()) == all_ + 9
+    assert counts() == (mxu + 7, all_ + 9)
+
+    class CudaCoreAtMxu(cuda_elasticity.CudaElasticityOperator):
+        def kernel_fn(self):
+            return cuda_laplace.CudaLaplaceOperator.kernel_fn(self)
+
+    fields = {f.name: getattr(op, f.name) for f in dataclasses.fields(op)}
+    fields["tile"] = cuda_elasticity.elasticity_tile(p, 4, N)
+    with pytest.raises(RuntimeError, match=r"CUDA error 1\b"):
+        CudaCoreAtMxu(**fields).run("apply", u)
 
 
 def test_mma_launches_by_grade(cuda):
-    """One eager V-cycle of the main path runs all its pairs on the tensor
-    cores (MMA_LAUNCHES as LAUNCHES); the exact grade's and float64's pairs
-    count in LAUNCHES alone."""
+    """One eager V-cycle of the main path runs all its pairs at the
+    production grade (LAUNCHES' /mxu/bf16 keys: the tensor cores); the
+    exact grade's and float64's pairs count under their exact keys."""
     prob = GeometricMultigridPoisson(3, 4, 3, torch.float32, "auto", cuda)
     b = prob.rhs()
-    mma, all_ = (dict(c) for c in (cuda_cheb2.MMA_LAUNCHES,
-                                   cuda_cheb2.LAUNCHES))
+    all_ = dict(cuda_cheb2.LAUNCHES)
     prob.preconditioner(graph=False).apply(b)
     torch.cuda.synchronize()
     moved = {k: v - all_.get(k, 0) for k, v in cuda_cheb2.LAUNCHES.items()
              if v != all_.get(k, 0)}
-    moved_mma = {k: v - mma.get(k, 0)
-                 for k, v in cuda_cheb2.MMA_LAUNCHES.items()
-                 if v != mma.get(k, 0)}
-    assert moved and moved_mma == moved
+    assert moved
     assert all(k.endswith("/mxu/bf16") for k in moved)
     rng = np.random.default_rng(0)
     sp = FESpace(HyperCubeMesh(3, 2), 4)
     for dtype in (torch.float32, torch.float64):
         op = cuda_laplace.make_cuda_laplace(sp, dtype, cuda)
         kern = cuda_cheb2.make_cheb2(op)
-        assert kern.engine == "fma"
+        assert kern.op.core == "banded"
         d, r, x = (_field(op.n * 4, rng, dtype, cuda) for _ in range(3))
-        mma, all_ = (sum(c.values()) for c in (cuda_cheb2.MMA_LAUNCHES,
-                                              cuda_cheb2.LAUNCHES))
+        all_ = dict(cuda_cheb2.LAUNCHES)
         _close(kern.steps2(d, r, x, (0.59, 1.26, 0.71, 1.52), "cheb2"),
                cuda_cheb2.cheb2_twin(op, d, r, x, (0.59, 1.26, 0.71, 1.52),
                                      "cheb2"), dtype)
         torch.cuda.synchronize()
-        assert sum(cuda_cheb2.MMA_LAUNCHES.values()) == mma
-        assert sum(cuda_cheb2.LAUNCHES.values()) == all_ + 1
+        moved = {k: v - all_.get(k, 0)
+                 for k, v in cuda_cheb2.LAUNCHES.items()
+                 if v != all_.get(k, 0)}
+        assert moved == {"cheb2": 1}
 
 
 def test_graphed_q4_solve_keeps_its_cg_count(cuda):

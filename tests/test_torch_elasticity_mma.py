@@ -1,8 +1,8 @@
 """B.5's tensor-core instance (``csrc/elasticitymma.cu``) on the CPU: its
-tile and shared-memory formula, the engine each core, dtype, degree and
-shape takes, the direct K, G and H sums that its bf16 ``mma`` tiles compute
-against the difference form, and its march (the x stage pushed into a ring
-of 2p planes) against the twin.
+tile and shared-memory formula, the instance each core, dtype, degree and
+shape builds, the direct K, G and H sums that its bf16 ``mma`` tiles
+compute against the difference form, and its march (the x stage pushed
+into a ring of 2p planes) against the twin.
 
 No CUDA kernel runs here: ``tests/test_torch_cuda.py`` holds the instance
 against ``elasticity_twin`` on the card.
@@ -14,14 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from portable_multigrid_tpu_torch import _build
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
 from portable_multigrid_tpu_torch.fem.space import FESpace
 from portable_multigrid_tpu_torch.ops import cuda_elasticity
 from portable_multigrid_tpu_torch.ops.cuda_elasticity import (
-    MMA_LAUNCHES,
     MMA_THREADS_SM,
     CudaElasticitySlab,
-    elasticity_engine,
     elasticity_grouped,
     elasticity_mma_smem_bytes,
     elasticity_mma_tile,
@@ -74,30 +73,65 @@ def test_mma_tile_of_the_elasticity_cell():
             for r in range(5, 0, -1)] == [5, 2, 2, 2, 2]
 
 
-@pytest.mark.parametrize("core,dtype,p,slab,engine", [
-    ("mxu", torch.float32, 3, False, "mma"),
-    ("mxu", torch.float32, 1, False, "mma"),
-    ("mxu", torch.float32, 7, False, "mma"),
-    ("banded", torch.float32, 3, False, "fma"),
-    ("banded", torch.float64, 3, False, "fma"),
-    ("mxu", torch.float64, 3, False, "fma"),
-    ("mxu", torch.float32, 3, True, "fma"),
-    ("banded", torch.float32, 3, True, "fma"),
+class _Entries:
+    """Stands in for the kernel library: an entry point is its name."""
+
+    @staticmethod
+    def fn(base, dtype_suffix=None):
+        return base if dtype_suffix is None else f"{base}_{dtype_suffix}"
+
+
+@pytest.mark.parametrize("core,dtype,p,slab,entry", [
+    ("mxu", torch.float32, 3, False, "pmg_elasticitymma"),
+    ("mxu", torch.float32, 1, False, "pmg_elasticitymma"),
+    ("mxu", torch.float32, 7, False, "pmg_elasticitymma"),
+    ("banded", torch.float32, 3, False, "pmg_elasticity_f32"),
+    ("banded", torch.float64, 3, False, "pmg_elasticity_f64"),
+    ("mxu", torch.float64, 3, False, None),
+    ("mxu", torch.float32, 3, True, None),
+    ("banded", torch.float32, 3, True, "pmg_elasticity_f32"),
 ])
-def test_engine_is_a_function_of_core_dtype_degree_and_shape(core, dtype, p,
-                                                             slab, engine):
-    """The mxu core in float32 on the cube takes the tensor cores at every
-    degree; the exact core, float64 and the slab keep the CUDA cores."""
-    assert elasticity_engine(core, dtype, p, slab) == engine
+def test_engine_is_a_function_of_core_dtype_degree_and_shape(
+        monkeypatch, core, dtype, p, slab, entry):
+    """The core picks the instance: the mxu core on the cube launches the
+    tensor cores at every degree with their tile; the exact core, in
+    float32 and float64, and the slab launch the CUDA cores with theirs.
+    The mxu core in float64 and a slab at the mxu core raise ValueError."""
+    from portable_multigrid_tpu_torch.parallel.elasticity import (
+        sharded_cuda_elasticity,
+    )
+
+    monkeypatch.setattr(_build, "build", lambda: _Entries)
+    sp = FESpace(HyperCubeMesh(3, 2), p)
+    N = 4 * p
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if slab:
+        op = sharded_cuda_elasticity(sp, [torch.device("cpu")] * 2, dtype,
+                                     MU, LAM).local[0]
+        assert isinstance(op, CudaElasticitySlab)
+        if entry is None:
+            with pytest.raises(ValueError, match="exact core"):
+                dataclasses.replace(op, core=core)
+            return
+        assert op.tile == elasticity_tile(p, itemsize, N, nx=N // 2)
+    elif entry is None:
+        with pytest.raises(ValueError, match="float32"):
+            make_cuda_elasticity(sp, dtype, MU, LAM, core=core)
+        return
+    else:
+        op = make_cuda_elasticity(sp, dtype, MU, LAM, core=core)
+        assert op.tile == (elasticity_mma_tile(p, N) if core == "mxu"
+                           else elasticity_tile(p, itemsize, N))
+    assert op.kernel_fn() == entry
 
 
 @pytest.mark.parametrize("core,dtype", [("mxu", torch.float32),
                                         ("banded", torch.float32),
                                         ("banded", torch.float64)])
 def test_operators_take_the_engine_and_its_tile(core, dtype):
-    """make_cuda_elasticity builds the operator on the engine of its core
-    and dtype, with that engine's tile; the slab of the sharded solve keeps
-    the CUDA-core instance and its tile."""
+    """make_cuda_elasticity builds the operator with the tile of its core's
+    instance; the slab of the sharded solve has the CUDA-core instance's
+    tile, and refuses the mxu core."""
     from portable_multigrid_tpu_torch.parallel.elasticity import (
         sharded_cuda_elasticity,
     )
@@ -107,33 +141,31 @@ def test_operators_take_the_engine_and_its_tile(core, dtype):
     op = make_cuda_elasticity(sp, dtype, MU, LAM, core=core)
     N = op.n * p
     itemsize = torch.empty((), dtype=dtype).element_size()
-    engine = elasticity_engine(core, dtype, p)
-    assert op.engine == engine
-    assert op.tile == (elasticity_mma_tile(p, N) if engine == "mma"
+    assert op.tile == (elasticity_mma_tile(p, N) if core == "mxu"
                        else elasticity_tile(p, itemsize, N))
     if dtype == torch.float32 and core == "banded":
         slab = sharded_cuda_elasticity(sp, [torch.device("cpu")] * 2, dtype,
                                        MU, LAM).local[0]
-        assert isinstance(slab, CudaElasticitySlab) and slab.engine == "fma"
-        mxu_slab = dataclasses.replace(slab, core="mxu")
-        assert mxu_slab.engine == "fma"
+        assert isinstance(slab, CudaElasticitySlab)
+        assert slab.tile == elasticity_tile(p, itemsize, N, nx=N // 2)
+        with pytest.raises(ValueError, match="exact core"):
+            dataclasses.replace(slab, core="mxu")
 
 
 def test_mma_counter_counts_no_cpu_pass():
-    """MMA_LAUNCHES is keyed as LAUNCHES; a CPU tensor runs the twin, and
-    neither counter moves."""
-    assert set(MMA_LAUNCHES) >= set(MODES)
+    """On a CPU tensor the mxu operator runs the twin, and no LAUNCHES key
+    moves."""
+    assert set(cuda_elasticity.LAUNCHES) >= set(MODES)
     op = make_cuda_elasticity(FESpace(HyperCubeMesh(3, 2), 2), torch.float32,
                               MU, LAM, core="mxu")
-    assert op.engine == "mma"
     rng = np.random.default_rng(0)
     u, r, x = (torch.as_tensor(rng.standard_normal(op.trimmed_shape),
                                dtype=torch.float32) for _ in range(3))
-    before = dict(MMA_LAUNCHES), dict(cuda_elasticity.LAUNCHES)
+    before = dict(cuda_elasticity.LAUNCHES)
     got = op.run("cheb", u, (r, x), (0.59, 1.26))
     want = elasticity_twin(op, "cheb", u, (r, x), (0.59, 1.26))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (dict(MMA_LAUNCHES), dict(cuda_elasticity.LAUNCHES)) == before
+    assert dict(cuda_elasticity.LAUNCHES) == before
 
 
 @pytest.mark.parametrize("p", range(1, 8))
@@ -234,7 +266,8 @@ def mma_march(op, u, lx):
 
 
 @pytest.mark.parametrize("p,r,lx", [(1, 2, 3), (2, 2, 5), (3, 1, 4),
-                                    (3, 2, 39), (5, 1, 2)])
+                                    (3, 2, 39), (4, 1, 3), (5, 1, 2),
+                                    (6, 1, 5), (7, 1, 2)])
 def test_march_matches_twin(p, r, lx):
     """The march with its pushed x stage and direct sums gives the twin's
     bf16-grade operator (elasticity_grouped) at float64 sums, in chunks

@@ -11,10 +11,6 @@ solve, against the JAX package, on the CPU.
   float64, with the row sums of the rounded bands;
 * the grouped twin (``elasticity_grouped``) at the exact grade equals
   ``elasticity_kron`` to 1e-12 in float64;
-* the kernel's schedule (``csrc/elasticity.cu``: the window, the z
-  products and the 12 group sums rounded, a ring of planes along x, every
-  K, G and H in difference form) emulated in float64 equals the grouped
-  twin at the mxu grade to 1e-12;
 * the float32 ``ElasticityMultigrid(3, 2, 2, variant="auto")`` solve
   takes the CG count of the JAX construction of
   tests/test_pallas_elasticity.py:197-236 at float32 (its fine level on
@@ -46,7 +42,6 @@ from portable_multigrid_tpu_torch.ops.cuda_elasticity import (
     elasticity_grouped,
     make_cuda_elasticity,
 )
-from portable_multigrid_tpu_torch.ops.cuda_laplace import banded, round_bf16
 from portable_multigrid_tpu_torch.ops.elasticity import elasticity_kron
 from portable_multigrid_tpu_torch.solvers.chebyshev import (
     Chebyshev,
@@ -176,84 +171,6 @@ def test_grouped_twin_at_exact_grade_is_kron(p, r):
         op.trimmed_shape))
     want = elasticity_kron(u, op.Kt, op.Mt, op.Gt, op.Gt.T, MU, LAM)
     got = elasticity_grouped(u, op.Kt, op.Mt, op.Gt, MU, LAM)
-    assert float((want - got).abs().max()) <= 1e-12 * float(want.abs().max())
-
-
-def kernel_emulation(op, u, lx):
-    """B.5's schedule at the mxu grade in plain torch, float64: x chunks of
-    ``lx`` output planes marched from p lead-in planes before to p after;
-    per input plane the window rounded to bf16, the z stage (K, M, G, H)
-    of each component rounded, the y-z products summed into the 12 groups
-    (output c, x matrix) and rounded, into a ring of 2p+1 slots; output x
-    from the ring along x once plane x + p is in.  K, G and H in
-    difference form with the row sums of the rounded bands."""
-    p = op.degree
-    R, N = 2 * p + 1, op.n * p
-    bands = {X: getattr(op, X + "band").double() for X in "kmgh"}
-    sums = {X: bands[X].sum(0) for X in "kgh"}
-
-    def W(X, t, ax):
-        return banded(t, bands[X], ax, sums.get(X))
-
-    mu, lam = op.mu, op.lam
-    al = 2 * mu + lam
-    k_, m_, g_, h_ = 0, 1, 2, 3  # x matrices: group 4 c + X
-    out = torch.zeros_like(u)
-    for x0 in range(0, N, lx):
-        xs, xe = x0 - p, min(x0 + lx, N) + p
-        ring = [None] * R
-        for xin in range(xs, xe):
-            plane = round_bf16(u[:, xin] if 0 <= xin < N
-                               else torch.zeros_like(u[:, 0]))
-            g = [torch.zeros_like(plane[0]) for _ in range(12)]
-            for a in range(3):
-                zk, zm, zg, zh = (round_bf16(W(X, plane[a], 1))
-                                  for X in "kmgh")
-                mm, km, mk = W("m", zm, 0), W("k", zm, 0), W("m", zk, 0)
-                gm, hm, gh, hg = (W("g", zm, 0), W("h", zm, 0),
-                                  W("g", zh, 0), W("h", zg, 0))
-                mg, mh = W("m", zg, 0), W("m", zh, 0)
-                terms = {
-                    0: [(0 + k_, al * mm), (0 + m_, mu * (km + mk)),
-                        (4 + g_, mu * hm), (4 + h_, lam * gm),
-                        (8 + g_, mu * mh), (8 + h_, lam * mg)],
-                    1: [(4 + k_, mu * mm), (4 + m_, al * km + mu * mk),
-                        (0 + h_, mu * gm), (0 + g_, lam * hm),
-                        (8 + m_, mu * gh + lam * hg)],
-                    2: [(8 + k_, mu * mm), (8 + m_, mu * km + al * mk),
-                        (0 + h_, mu * mg), (0 + g_, lam * mh),
-                        (4 + m_, mu * hg + lam * gh)],
-                }[a]
-                for k, t in terms:
-                    g[k] = g[k] + t
-            ring[(xin - xs) % R] = [round_bf16(t) for t in g]
-            x = xin - p
-            if x < x0:
-                continue
-            base = (x - x0) % R
-            cen = ring[(base + p) % R]
-            for c in range(3):
-                acc = sum(sums[X][x] * cen[4 * c + i]
-                          for X, i in (("k", k_), ("g", g_), ("h", h_)))
-                for o in range(R):
-                    s = ring[(base + o) % R]
-                    acc = acc + bands["m"][o, x] * s[4 * c + m_]
-                    for X, i in (("k", k_), ("g", g_), ("h", h_)):
-                        acc = acc + bands[X][o, x] * (s[4 * c + i]
-                                                      - cen[4 * c + i])
-                out[c, x] = acc
-    return out
-
-
-@pytest.mark.parametrize("p,r,lx", [(1, 2, 3), (3, 1, 4), (4, 1, 3)])
-def test_kernel_schedule_at_mxu_grade_matches_twin(p, r, lx):
-    op = make_cuda_elasticity(FESpace(HyperCubeMesh(3, r), p), torch.float32,
-                              MU, LAM, core="mxu")
-    u = torch.as_tensor(np.random.default_rng(10 + p).standard_normal(
-        op.trimmed_shape))
-    K, M, G = (t.double() for t in (op.Kt, op.Mt, op.Gt))
-    want = elasticity_grouped(u, K, M, G, MU, LAM, bf16_grade=True)
-    got = kernel_emulation(op, u, lx)
     assert float((want - got).abs().max()) <= 1e-12 * float(want.abs().max())
 
 
