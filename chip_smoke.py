@@ -108,8 +108,8 @@ or from the CUDA graph to the eager V-cycle):
      grade beside the default bf16 state, the CG solve, each B.4 mode
      against its twin at 3584^2, and at every level of the ladder its B.4
      launches per V-cycle (from the profile) and the device time of its
-     busiest mode against the bound: ``cheb`` on a smoothing level,
-     ``apply`` on the p = 1 level, the 512^2 coarse solve;
+     busiest mode, ``cheb``, against the bound (on the p = 1 level too,
+     the 512^2 coarse solve);
   8. elasticity kernel vs twin — every mode of B.5, and of B.3 on [3, ...]
      fields (one launch, the component a grid axis of the kernel),
      against its twin in float32 and float64, with mu = 0.7, lam = 1.3 (at
@@ -1663,13 +1663,13 @@ def phase_second_timing(card: str, prob, st, device) -> dict:
         f"V-cycle): {t_solve:.3f} ms = {n_dofs / (t_solve * 1e-3):.4e} DoF/s")
     times = time_modes("2d", *KERNELS["laplace2d"]["shape"], device)
     # every level of the ladder: its B.4 launches per V-cycle from the
-    # profile and its busiest mode (apply in the p = 1 coarse solve at
-    # 512^2, cheb on a smoothing level) against the bound, so that
-    # launches x (ms - bound) reads for the whole ladder
+    # profile and its busiest mode, cheb (the p = 1 coarse solve's too, at
+    # 512^2), against the bound, so that launches x (ms - bound) reads for
+    # the whole ladder
     r = KERNELS["laplace2d"]["shape"][1]
     gaps = 0.0
     for k, sp in enumerate(prob.spaces):
-        p, mode = sp.degree, "apply" if k == 0 else "cheb"
+        p, mode = sp.degree, "cheb"
         run = next(c.run for _, c in level_cases("2d", p, r, torch.float32,
                                                  device) if c.mode == mode)
         t_k = device_ms(run)

@@ -14,14 +14,16 @@ boundary, Chebyshev(5) smoothing, V(2,2), CG to rtol * ||b||, over
 
 Variants:
 
-  * ``"auto"`` — the kernel path: every level above the coarsest runs the
-    kernel operator (B.1 in 3D, B.4 in 2D) with a fused Chebyshev smoother
-    on trimmed state, plus the B.2 pair kernel in 3D (the JAX package has
-    none in 2D); the coarsest level runs plain Chebyshev-as-solver on the
-    kernel operator's full-grid apply; 3D h-pairs run the B.3 transfer
-    kernel, every other pair the plain ``Transfer``.  On a float32 kernel
-    level the smoother runs the JAX package's production grade
-    (``portable_multigrid_tpu/models/poisson.py:46-131``): the exact
+  * ``"auto"`` — the kernel path: every level runs the kernel operator
+    (B.1 in 3D, B.4 in 2D) with a fused Chebyshev smoother on trimmed
+    state, each recurrence step one pass of the kernel; the levels above
+    the coarsest add the B.2 pair kernel in 3D (the JAX package has none
+    in 2D).  The coarsest level's Chebyshev-as-solver runs at the exact
+    grade in the operator's dtype, without pairs or bf16 state (the JAX
+    package runs it plain, on the full grid).  3D h-pairs run the B.3
+    transfer kernel, every other pair the plain ``Transfer``.  On a
+    float32 smoothing level the smoother runs the JAX package's production
+    grade (``portable_multigrid_tpu/models/poisson.py:46-131``): the exact
     operator for CG, the eigenvalue estimate and the level residuals, the
     recurrence on a bf16-grade operator (B.1's ``"mxu"`` core and B.2 at
     its production grade in 3D; the exact B.4 in 2D), with r and d stored
@@ -96,13 +98,16 @@ def _build_level(space: FESpace, dtype, coarse: bool, variant: str,
         op = make_op(space, dtype, device)
     else:
         op = make_laplace(space, dtype, variant, device)
+    # the kernel operators smooth fused, on trimmed state
+    fused = isinstance(op, CudaLaplaceOperator)
     if coarse:
+        # Chebyshev as solver: on a kernel operator every recurrence step
+        # is one pass of its kernel, at the exact grade in its dtype
         smoother = make_chebyshev(op, smoothing_range=1e-3, degree=None,
-                                  eig_cg_n_iterations=space.n_dofs)
+                                  eig_cg_n_iterations=space.n_dofs,
+                                  fused=fused)
     else:
-        # the kernel operators smooth fused, on trimmed state; in float32
-        # the recurrence runs at the JAX package's bf16 grade
-        fused = isinstance(op, CudaLaplaceOperator)
+        # in float32 the recurrence runs at the JAX package's bf16 grade
         grade = fused and dtype == torch.float32
         smooth_op = None
         if grade:
@@ -130,7 +135,8 @@ def build_untrimmed_vcycle(spaces, dtype=torch.float32,
     """The V-cycle that the JAX package's ``bench.py`` builds with
     ``PMG_BENCH_TRIMMED=0`` (``bench.py:240-330``), over 3D ``spaces``
     (coarse first, one refinement apart, equal degree): the coarsest level
-    as :class:`GeometricMultigridPoisson` builds it; every other level B.1
+    as :class:`GeometricMultigridPoisson` builds it, its solver taking and
+    returning full grids; every other level B.1
     with a full-grid fused smoother (``FusedChebyshev(trimmed_io=False)``:
     each smoothing step starts from one pass of B.1's untrimmed
     ``residual``), whose recurrence runs in float32 at the JAX package's
@@ -144,7 +150,8 @@ def build_untrimmed_vcycle(spaces, dtype=torch.float32,
             raise ValueError("the untrimmed V-cycle runs B.1, in 3D")
         if i == 0:
             op, smoother = _build_level(sp, dtype, True, "auto", device)
-            levels.append(MGLevel(op=op, smoother=smoother))
+            levels.append(MGLevel(op=op, smoother=dataclasses.replace(
+                smoother, trimmed_io=False)))
             continue
         op = make_cuda_laplace(sp, dtype, device)
         grade = dtype == torch.float32

@@ -261,14 +261,9 @@ class CudaElasticityOperator(CudaLaplaceOperator):
         return separable_elasticity_diagonal(self.dKt, self.dMt, self.mu,
                                              self.lam, self.dim)
 
-    def run(self, mode: str, u: torch.Tensor, ins=(), scal=(),
-            sdtype=None):
-        """:meth:`~.cuda_laplace.CudaLaplaceOperator.run`, and every pass
-        counted while tracing is on (:func:`count_key`)."""
-        outs = super().run(mode, u, ins, scal, sdtype)
-        if profiling.active() is not None:
-            profiling.count(count_key(mode, self.core, self.n))
-        return outs
+    def pass_key(self, mode: str) -> str:
+        """B.5's pass counter's key (:func:`count_key`)."""
+        return count_key(mode, self.core, self.n)
 
     def kernel_fn(self):
         """``pmg_elasticitymma`` at the mxu core, else

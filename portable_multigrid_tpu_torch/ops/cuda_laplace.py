@@ -21,6 +21,16 @@ launches the hand-written kernel; on a CPU tensor it runs
 :func:`laplace_twin`, the plain torch banded form of the same modes and
 outputs.
 
+While :func:`~..utils.profiling.tracing` is on, every pass of
+:meth:`CudaLaplaceOperator.run` (the kernel's launch on the card, its twin
+on the CPU) adds one to the counter that
+:meth:`~CudaLaplaceOperator.pass_key` names,
+``pmg.laplace<dim>d.<mode>.p<degree>.n<cells>`` (B.4's are
+``pmg.laplace2d.*``, B.5's own ``pmg.elasticity.*``), in the recorder's
+``counts`` and in those of the V-cycle's active
+:class:`~..utils.profiling.SpanPlan`; while tracing is off nothing is
+counted there (:data:`LAUNCHES` counts the kernel's launches always).
+
 One mode reads the full grid, as the TPU kernel's ``"residual"`` does
 (``pallas_laplace.py:217``): the first half of a smoothing step of the
 full-grid smoother (``FusedChebyshev(trimmed_io=False)``), r0 = rhs - M A M u
@@ -61,6 +71,7 @@ import torch
 
 from .. import _build
 from ..fem.space import FESpace
+from ..utils import profiling
 from ..utils.tensors import to_tensor
 from .laplace import (
     assembled_1d_matrices,
@@ -80,6 +91,7 @@ CORES = ("banded", "mxu")
 # kernel launches per mode, counted where the wrapper launches the kernel
 # (launch_key: a mode at the mxu grade or at bf16 state has its own key)
 LAUNCHES = dict.fromkeys(KERNEL_MODES, 0)
+COUNTER = "pmg.laplace"  # the prefix of the pass counter's keys
 # StateFlags of csrc/common.cuh: the stencil input and the first epilogue
 # input are bf16; the recurrence outputs are bf16; the bf16 operator grade
 IN_BF16, OUT_BF16, ROUND_BF16 = 1, 2, 4
@@ -370,7 +382,8 @@ class CudaLaplaceOperator:
         cheb/chebl, (r,) for chebd/chebdl.  ``scal``: (theta,) for
         residual3t and residual, (c0, c1) for the cheb family.
         ``sdtype``: the storage dtype of the recurrence streams
-        (:func:`io_dtypes`; None: the operator's)."""
+        (:func:`io_dtypes`; None: the operator's).  Counted while tracing
+        is on (:meth:`pass_key`)."""
         full = mode in self.full_modes
         if mode not in MODES and not full:
             raise ValueError(f"unknown laplace mode {mode!r}: the kernels "
@@ -383,17 +396,27 @@ class CudaLaplaceOperator:
             _check(self, t, "u" if k == 0 else f"input {k - 1}", dt,
                    self.grid_shape if full else None)
         if u.device.type == "cpu":
-            return self.twin(mode, u, ins, scal, sdtype)
-        if not u.is_cuda:
+            outs = self.twin(mode, u, ins, scal, sdtype)
+        elif not u.is_cuda:
             raise ValueError(f"unsupported device {u.device}")
-        flags = ((IN_BF16 if in_dt[0] == torch.bfloat16 else 0)
-                 | (OUT_BF16 if len(out_dt) == 3
-                    and out_dt[0] == torch.bfloat16 else 0)
-                 | (ROUND_BF16 if self.core == "mxu" else 0))
-        return _launch(self, KERNEL_MODES.index(mode), u, ins, scal, out_dt,
-                       flags, launch_key(mode, self.core, sdtype),
-                       *((self.trimmed_shape, self.kernel_sizes(True))
-                         if full else ()))
+        else:
+            flags = ((IN_BF16 if in_dt[0] == torch.bfloat16 else 0)
+                     | (OUT_BF16 if len(out_dt) == 3
+                        and out_dt[0] == torch.bfloat16 else 0)
+                     | (ROUND_BF16 if self.core == "mxu" else 0))
+            outs = _launch(self, KERNEL_MODES.index(mode), u, ins, scal,
+                           out_dt, flags, launch_key(mode, self.core, sdtype),
+                           *((self.trimmed_shape, self.kernel_sizes(True))
+                             if full else ()))
+        if profiling.active() is not None:
+            profiling.count(self.pass_key(mode))
+        return outs
+
+    def pass_key(self, mode: str) -> str:
+        """The pass counter's key of ``mode`` on this operator,
+        ``pmg.laplace<dim>d.<mode>.p<degree>.n<cells>``, as
+        ``pmg.laplace2d.cheb.p1.n512``."""
+        return f"{COUNTER}{self.dim}d.{mode}.p{self.degree}.n{self.n}"
 
     def twin(self, mode: str, u: torch.Tensor, ins=(), scal=(),
              sdtype=None):

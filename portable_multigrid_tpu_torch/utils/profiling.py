@@ -29,9 +29,11 @@ The port places its spans in ``solvers/cg.py`` (``pmg.cg.solve`` around a
 solve, ``pmg.cg.host_read`` around each read to the host) and
 ``solvers/vcycle.py`` (``vcycle``, ``vcycle.io``, ``vcycle.L<l>.pre``,
 ``.restrict``, ``.prolongate``, ``.post`` and ``vcycle.coarse``, all
-device spans), and one counter of its own, :func:`count`, in
-``ops/cuda_elasticity.py`` (``pmg.elasticity.<mode>/<core>.n<cells>``, one
-for each pass of B.5).
+device spans), and one counter, :func:`count`, of the operator kernels'
+passes: ``ops/cuda_laplace.py`` counts one for each pass of B.1 and B.4
+(``pmg.laplace<dim>d.<mode>.p<degree>.n<cells>``) and
+``ops/cuda_elasticity.py`` one for each pass of B.5
+(``pmg.elasticity.<mode>/<core>.n<cells>``).
 """
 
 from __future__ import annotations

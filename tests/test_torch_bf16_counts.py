@@ -53,7 +53,9 @@ def jax_baseline():
 
 
 def fused_levels(prob):
-    return [lvl for lvl in prob.levels
+    """The fused smoothing levels: every level above the coarsest, whose
+    Chebyshev-as-solver is fused too, at the exact grade."""
+    return [lvl for lvl in prob.levels[1:]
             if isinstance(lvl.smoother, FusedChebyshev)]
 
 
@@ -77,6 +79,21 @@ def test_float32_auto_builds_the_jax_grade(model):
         assert sm.op_smooth.degree == lvl.op.degree
         assert sm.op_cheb2.op is sm.op_smooth
         assert sm.state_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coarse_solve_is_fused_at_the_exact_grade(dim, dtype):
+    """The coarsest level runs its Chebyshev-as-solver fused on its own
+    operator, in its dtype: no bf16-grade operator, no bf16 state, no
+    pair, in float32 as in float64."""
+    prob = GeometricMultigridPoisson(dim, 2, 2, dtype, "auto", "cpu")
+    coarse = prob.levels[0]
+    sm = coarse.smoother
+    assert isinstance(sm, FusedChebyshev) and sm.op is coarse.op
+    assert sm.op.core == "banded"
+    assert sm.op_smooth is None and sm.state_dtype is None
+    assert sm.op_cheb2 is None
 
 
 def test_float32_2d_auto_smooths_exact_at_bf16_state():

@@ -10,7 +10,9 @@ values pinned in ``chip_smoke.py``, and the CUDA graph of the V-cycle
 variable-coefficient solve, and the operator variants' products in full
 float32 with a caller's TF32 switched on; and the bf16 smoother grade
 (B.1's mxu core and bf16 state, B.2's production grade, B.4 at bf16
-state, B.5's mxu core) and B.2's ``cheb2lr`` against the twins.  These
+state, B.5's mxu core) and B.2's ``cheb2lr`` against the twins; the
+fused coarse solve against the plain one, and its passes in a traced
+graph's plan.  These
 skip on a machine without a card; ``python3 chip_smoke.py`` runs the full
 set of on-card checks.
 """
@@ -43,7 +45,9 @@ from portable_multigrid_tpu_torch.ops import (
 from portable_multigrid_tpu_torch.ops.laplace import make_laplace
 from portable_multigrid_tpu_torch.ops.structured import split_all
 from portable_multigrid_tpu_torch.solvers.cg import cg
+from portable_multigrid_tpu_torch.solvers.chebyshev import make_chebyshev
 from portable_multigrid_tpu_torch.solvers.vcycle import GraphedVCycle, VCycle
+from portable_multigrid_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -474,6 +478,57 @@ def test_mma_launches_by_grade(cuda):
                  for k, v in cuda_cheb2.LAUNCHES.items()
                  if v != all_.get(k, 0)}
         assert moved == {"cheb2": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim,p,r", [(2, 1, 9), (2, 1, 2)]
+                         + [(3, p, 0) for p in range(1, 8)] + [(3, 1, 2)])
+def test_fused_coarse_solve_matches_plain(cuda, dim, p, r, dtype):
+    """The coarsest level's Chebyshev-as-solver as the models build it,
+    fused (one kernel pass a recurrence step), against the plain
+    ``Chebyshev`` on the kernel's full-grid apply: equal on the free DoFs
+    to the dtype's rounding, zero on the constrained ones.  2D p = 1 at
+    r = 9 is the 512^2 coarse level of the 2D benchmark cell."""
+    sp = FESpace(HyperCubeMesh(dim, r), p)
+    make_op = {2: cuda_laplace2d.make_cuda_laplace2d,
+               3: cuda_laplace.make_cuda_laplace}[dim]
+    op = make_op(sp, dtype, cuda)
+    kw = dict(smoothing_range=1e-3, degree=None, eig_cg_n_iterations=sp.n_dofs)
+    plain = make_chebyshev(op, **kw)
+    fused = make_chebyshev(op, fused=True, **kw)
+    assert (fused.degree, fused.theta, fused.delta) == (
+        plain.degree, plain.theta, plain.delta)
+    rng = np.random.default_rng(dim * 10 + p)
+    b = torch.as_tensor(rng.standard_normal(op.shape), dtype=dtype,
+                        device=cuda) * op.mask
+    trim = (slice(0, -1),) * dim
+    want = plain.apply(b)[trim]
+    before = dict(op.launches)
+    got = fused.apply(b[trim].contiguous())
+    torch.cuda.synchronize()
+    moved = {k: v - before.get(k, 0) for k, v in op.launches.items()
+             if v != before.get(k, 0)}
+    assert sum(moved.values()) == fused.degree - 1 and "apply" not in moved
+    free = op.mask[trim] != 0
+    assert not got[~free].any()
+    if free.any():
+        _close([got], [want], dtype)
+
+
+def test_traced_graph_counts_the_coarse_passes(cuda):
+    """A V-cycle graph captured under tracing keeps the coarse level's
+    passes in its plan: degree - 1 of the cheb family, no apply."""
+    prob = PolynomialMultigridPoisson(2, 3, 4, dtype=torch.float32,
+                                      device=cuda)
+    mg = prob.preconditioner()
+    with profiling.tracing():
+        mg.apply(prob.rhs())
+    op, sm = prob.levels[0].op, prob.levels[0].smoother
+    tail = f".p{op.degree}.n{op.n}"
+    coarse = {k: v for k, v in mg.span_plan.counts.items()
+              if k.startswith("pmg.laplace2d.") and k.endswith(tail)}
+    assert sum(coarse.values()) == sm.degree - 1
+    assert f"pmg.laplace2d.apply{tail}" not in coarse
 
 
 def test_graphed_q4_solve_keeps_its_cg_count(cuda):

@@ -213,5 +213,6 @@ def test_levels_share_one_operator():
     for lvl in prob.levels[1:]:
         assert isinstance(lvl.smoother, FusedChebyshev)
         assert lvl.smoother.op is lvl.op and lvl.smoother.op_cheb2 is None
-    assert isinstance(prob.levels[0].smoother, Chebyshev)
-    assert prob.levels[0].smoother.op is prob.levels[0].op
+    coarse = prob.levels[0].smoother
+    assert isinstance(coarse, FusedChebyshev) and coarse.op_cheb2 is None
+    assert coarse.op is prob.levels[0].op

@@ -57,9 +57,10 @@ def test_matches_jax(dim, r, variant):
 
 
 def test_levels_mix_h_and_p_transfers():
-    """Under auto in 3D: B.3 on the h-pairs (the full-grid coarsest level
-    on its coarse side), the plain p-transfer adapted to trimmed state on
-    the p-pairs; degrees 1 on the coarsening sequence, then 2 and 4."""
+    """Under auto in 3D: B.3 on the h-pairs (trimmed on both sides, the
+    coarsest level's fused solve included), the plain p-transfer adapted
+    to trimmed state on the p-pairs; degrees 1 on the coarsening sequence,
+    then 2 and 4."""
     prob = MixedMultigridPoisson(3, 2, LADDER, torch.float64, "auto",
                                  device="cpu")
     assert [sp.degree for sp in prob.spaces] == [1, 1, 1, 2, 4]
@@ -67,7 +68,7 @@ def test_levels_mix_h_and_p_transfers():
     tr = [lvl.transfer for lvl in prob.levels]
     assert tr[0] is None
     assert all(isinstance(t, CudaTransfer) for t in tr[1:3])
-    assert [t.coarse_trimmed for t in tr[1:3]] == [False, True]
+    assert [t.coarse_trimmed for t in tr[1:3]] == [True, True]
     for t in tr[3:]:
         assert isinstance(t, TrimmedTransfer) and isinstance(t.base, Transfer)
         assert t.fine_trimmed and t.coarse_trimmed
@@ -77,12 +78,12 @@ def test_levels_mix_h_and_p_transfers():
 def test_every_constrained_coarsest_level():
     """The 1-cell p = 1 level has no free DoF: its eigenvalue estimate
     falls back to (1, 1) as the JAX package's does, and its coarse solve
-    returns zero on a zero residual."""
+    (fused, on trimmed state) returns zero on a zero residual."""
     prob = MixedMultigridPoisson(3, 1, LADDER, torch.float64, "auto",
                                  device="cpu")
     coarse = prob.levels[0]
     assert float(coarse.op.mask.sum()) == 0.0
-    out = coarse.smoother.apply(torch.zeros(coarse.op.shape,
+    out = coarse.smoother.apply(torch.zeros(coarse.op.trimmed_shape,
                                             dtype=torch.float64))
     assert float(out.abs().max()) == 0.0
     _, st = prob.solve()
