@@ -12,7 +12,10 @@ computed in the precision below the one that the traffic's CG runs in
 (bfloat16 below float32, float32 with TF32 off below float64), put in the
 place of the program's operator that CG drives, with the program's
 V-cycle kept as the preconditioner (the smallest control reading is a
-limit's upper reading).  The benchmark's own runs never run this.  One
+limit's upper reading).  For a cell on S > 1 cards the control gathers the
+field's slabs on the first card for each apply, applies the blocked
+reference there and hands back the result's slabs, each on its card: slow,
+and for calibration only.  The benchmark's own runs never run this.  One
 JSON line per window; the last line sums them up.
 """
 
@@ -34,11 +37,23 @@ LOWER = {"float32": "bfloat16", "float64": "float32"}
 
 
 def control_operator(cell, device):
-    """The reference operator in the precision below CG's."""
+    """The reference operator in the precision below CG's, on ``device``
+    (for a cell on S > 1 cards the first)."""
+    from pmgbench import slabs
     from pmgbench.session import DTYPES
 
     dtype = DTYPES[LOWER[cell.traffic["cg_dtype"]]]
-    return cell.reference().make(cell.config, device, dtype).apply
+    if cell.chips == 1:
+        return cell.reference().make(cell.config, device, dtype).apply
+    ref = cell.reference().make_blocked(cell.config, device, dtype)
+    bounds = slabs.bounds(cell.config, cell.chips)
+
+    def apply(u):
+        y = ref.apply(slabs.gather(u.parts, device))
+        return type(u)(y[lo:hi].to(t.device)
+                       for (lo, hi), t in zip(bounds, u.parts))
+
+    return apply
 
 
 def main(argv=None) -> int:

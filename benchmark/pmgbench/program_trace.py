@@ -31,8 +31,9 @@ graph, then the run's first ``traced_solves`` right-hand sides solved under
     program was doing while the card waited), else ``(no pmg span)``;
   * the device time of each kernel by the device span it ran in.
 
-A program without these spans (an older one) gives nothing, and a run on
-the CPU, where no marker runs, neither.
+A program without these spans (an older one) gives nothing, nor does a
+run on the CPU, where no marker runs, or a preconditioner that is no CUDA
+graph (a multi-card cell's eager sharded V-cycle).
 """
 
 from __future__ import annotations
@@ -77,12 +78,13 @@ def supported() -> bool:
 def of(run) -> ProgramTrace | None:
     """The program trace of a traced run (``session.RunRecord``), made at
     the first call and kept on the record; None on the CPU, without the
-    traced solves, or where the program places no spans."""
+    traced solves, where the program places no spans, or where the
+    preconditioner is no CUDA graph."""
     if "program_trace" not in vars(run):
         stream = run.window.stream
         made = None
-        if (run.trace is not None and stream.device.type == "cuda"
-                and supported()):
+        if (run.trace is not None and run.graph_capture_s is not None
+                and stream.device.type == "cuda" and supported()):
             made = traced_program(run.cell, stream,
                                   int(run.cell.traffic["traced_solves"]))
         run.program_trace = made
@@ -105,7 +107,7 @@ def traced_program(cell, stream, solves: int) -> ProgramTrace:
             # tracing; its solve captures the traced graph
             with profile(activities=activities):
                 session.solve(stream.constant_rhs())
-                synchronize(session.device)
+                synchronize(session.devices)
             rhs = [stream.rhs(k % len(stream.coefficients))
                    for k in range(solves)]
             session.precond.span_ms()  # the warm-up's replays are dropped
@@ -116,7 +118,7 @@ def traced_program(cell, stream, solves: int) -> ProgramTrace:
                 with record_function(WINDOW):
                     for b in rhs:
                         session.solve(b)
-                    synchronize(session.device)
+                    synchronize(session.devices)
             plan = session.precond.span_plan
     finally:
         session.release()

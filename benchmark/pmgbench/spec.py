@@ -21,8 +21,25 @@ work); ``components``, optional, 1 by default: the unknowns a mesh point,
 so that a right-hand side has the shape (components,) + grid where it is
 more than 1 (linear elasticity's displacements); ``reference``, the name of
 the plain reference beside it; ``models``, for each CG dtype the program's
-model ``class`` and its ``kwargs``.  The plain reference may read further
-keys of its own (an elasticity reference its Lame parameters).
+model ``class`` (a name of the package, or a dotted name under it, as
+``parallel.ShardedGeometricPoisson``) and its ``kwargs``.  The plain
+reference may read further keys of its own (an elasticity reference its
+Lame parameters).
+
+A cell's ``chips`` S: with S = 1 the model is built with ``device=`` on
+the one card and holds whole fields.  With S > 1 the model holds its state
+on cards 0..S-1 (on the CPU S times the CPU; tests may pass a list of S
+devices), in S slabs along grid axis 0 of a scalar field (no
+``components``).  The harness then builds the class with ``devices=``,
+drives ``cg(model.fine_operator.apply, b, model.preconditioner().apply,
+rtol, max_iter, dot=model.dot)`` with b the program's sharded field of the
+stream's slabs, counts the fine DoFs from the configuration's grid, takes
+CG's dtype from ``model.dtype``, and keeps each sampled solution as its
+slabs.  The slab layout is the harness's own (``slabs.py``: slab s holds
+grid planes [s L, (s + 1) L], L = (N - 1) / S, so neighbours share one
+plane); a model whose fine-level slabs differ from it fails in set-up.
+The plain reference then gives ``make_blocked`` beside ``make``, the same
+operator and solve a block of planes at a time (``check.py``).
 """
 
 from __future__ import annotations

@@ -4,17 +4,22 @@ The traced solves run inside a host span ``bench.window``; the benchmark
 wraps the callables it hands to CG in the spans ``cg.operator`` and
 ``cg.preconditioner``.  From the profiler's raw events this module takes:
 
-  * the device's busy time: the union of the card's kernel, copy and set
-    intervals that fall inside the window (overlap counted once), and the
-    window's length;
+  * each card's busy time: the union of that card's kernel, copy and set
+    intervals that fall inside the window (overlap counted once); the
+    device's busy time, the mean over the cell's cards (one card's union
+    on a one-card cell); and the window's length;
   * the device time of each span: the kernels and copies whose launching
     host call lies inside one of the span's intervals (the profiler gives
     a device event the correlation id of the runtime or driver call that
     launched it), summed, and the number of the span's intervals;
-  * the device operations that took the most time, by name, and the idle
-    gaps between device intervals, each named after the innermost host
-    event of the main thread at the gap's start (what the host was doing
-    while the card waited), summed by name.
+  * the device operations that took the most time, by name, summed over
+    the cards, and the idle gaps between the device intervals of the least
+    busy card, each named after the innermost host event of the main thread
+    at the gap's start (what the host was doing while the card waited),
+    summed by name.
+
+A device event's card is its ``device_index()``; events of cards outside
+the cell's are left out.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ def _end(ev) -> int:
 @dataclasses.dataclass
 class TraceSummary:
     window_s: float
-    busy_s: float
+    busy_s: float  # the mean of busy_s_per_card
+    busy_s_per_card: list  # each card's busy seconds, in the cell's order
     span_device_s: dict  # span name -> summed device seconds
     span_count: dict  # span name -> intervals of the span
     device_ops: list  # [[name, seconds], ...], most first
@@ -79,15 +85,16 @@ def _label_gaps(gaps, host) -> dict:
     return out
 
 
-def summarize(kineto_results, spans=("cg.operator",
-                                     "cg.preconditioner")) -> TraceSummary:
-    """Reduce ``prof.profiler.kineto_results`` of one traced window."""
+def summarize(kineto_results, spans=("cg.operator", "cg.preconditioner"),
+              *, cards: list) -> TraceSummary:
+    """Reduce ``prof.profiler.kineto_results`` of one traced window;
+    ``cards``: the indices of the cell's cards."""
     events = kineto_results.events()
     host = [ev for ev in events
             if "cuda" not in str(ev.device_type()).lower()]
     device = [ev for ev in events
               if "cuda" in str(ev.device_type()).lower()
-              and _is_device_work(ev)]
+              and _is_device_work(ev) and ev.device_index() in cards]
     windows = [ev for ev in host if ev.name() == WINDOW]
     if len(windows) != 1:
         raise RuntimeError(f"the trace holds {len(windows)} {WINDOW} spans")
@@ -95,9 +102,10 @@ def summarize(kineto_results, spans=("cg.operator",
     main = windows[0].start_thread_id()
     inside = [ev for ev in device
               if _end(ev) > w0 and ev.start_ns() < w1]
-    busy = _union((max(ev.start_ns(), w0), min(_end(ev), w1))
-                  for ev in inside)
-    busy_ns = sum(e - s for s, e in busy)
+    busy = {c: _union((max(ev.start_ns(), w0), min(_end(ev), w1))
+                      for ev in inside if ev.device_index() == c)
+            for c in cards}
+    busy_ns = [sum(e - s for s, e in busy[c]) for c in cards]
 
     by_name = collections.Counter()
     for ev in inside:
@@ -124,14 +132,22 @@ def summarize(kineto_results, spans=("cg.operator",
             if k >= 0 and t <= ivals[k][1]:
                 span_s[s] += ev.duration_ns() / 1e9
 
-    gaps = [(a[1], b[0]) for a, b in zip(busy, busy[1:])]
-    if busy:
-        gaps = [(w0, busy[0][0])] + gaps + [(busy[-1][1], w1)]
+    # the idle gaps of the least busy card (a card with no work in the
+    # window idles through all of it)
+    gaps = []
+    if cards:
+        least = busy[cards[busy_ns.index(min(busy_ns))]] or [[w0, w0]]
+        gaps = ([(w0, least[0][0])]
+                + [(a[1], b[0]) for a, b in zip(least, least[1:])]
+                + [(least[-1][1], w1)])
     main_host = [(ev.start_ns(), _end(ev), ev.name()) for ev in host
                  if ev.start_thread_id() == main and ev.name() != WINDOW]
     idle = _label_gaps([g for g in gaps if g[1] > g[0]], main_host)
+    per_card = [ns / 1e9 for ns in busy_ns]
     return TraceSummary(
-        window_s=(w1 - w0) / 1e9, busy_s=busy_ns / 1e9, span_device_s=span_s,
+        window_s=(w1 - w0) / 1e9,
+        busy_s=sum(per_card) / len(per_card) if per_card else 0.0,
+        busy_s_per_card=per_card, span_device_s=span_s,
         span_count={s: len(v) for s, v in span_ivals.items()},
         device_ops=[[n, s] for n, s in by_name.most_common(TOP)],
         idle_gaps=[[n, s] for n, s in idle.most_common(TOP)])

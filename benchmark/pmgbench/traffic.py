@@ -28,6 +28,15 @@ shape (C,) + grid: component c the scalar b of its own coefficients, on the
 same 1D basis and mask.  :meth:`SourceStream.constant_rhs` is then
 f = (1, ..., 1).  Without ``components``, or with 1, the stream is the
 scalar one above, draw for draw.
+
+A multi-card cell's stream (``devices``, S > 1 cards) builds each b_k as
+its S slabs along grid axis 0 (``slabs.py``), slab s on card s, from the
+same draws: card s holds the source basis with axis 0 cut to its slab's
+planes, and its slab of b_k is the same contraction on those planes.  No
+card holds the whole b_k.  Each slab is the whole stream's b_k on those
+planes, bit for bit where the contraction's library computes a row as it
+does within the whole (the CPU tests check both dtypes), else to the
+rounding of float64.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import fe1d
+from . import fe1d, slabs
 
 
 def seed_int(seed: int) -> int:
@@ -53,8 +62,11 @@ def rhs_shape(config: dict) -> tuple[int, ...]:
 
 
 class SourceStream:
+    """The right-hand sides of one run: whole grids on ``device``, or, with
+    ``devices`` (S > 1 cards, ``device`` the first), lists of S slabs."""
+
     def __init__(self, traffic: dict, config: dict, dtype, device,
-                 seed: int):
+                 seed: int, devices=None):
         src = traffic["source"]
         p, r, dim = config["degree"], config["refinements"], config["dim"]
         modes = [m[:dim] for m in src["modes"]]
@@ -70,6 +82,15 @@ class SourceStream:
         mask = fe1d.free_mask(p, r)
         self.basis = [torch.as_tensor(b * mask, dtype=torch.float64,
                                       device=device) for b in basis]
+        # per slab the basis on its card, axis 0 cut to the slab's planes
+        self.slab_basis = None
+        if devices is not None:
+            self.slab_basis = [
+                [torch.as_tensor((b * mask)[:, lo:hi] if ax == 0
+                                 else b * mask, dtype=torch.float64,
+                                 device=dev) for ax, b in enumerate(basis)]
+                for (lo, hi), dev in zip(
+                    slabs.bounds(config, len(devices)), devices)]
         self.n_modes = len(modes)
         self._rng = np.random.default_rng(seed_int(seed))
         # [c, a_k1, ...] of every solve drawn; a row of them a component
@@ -89,28 +110,36 @@ class SourceStream:
                 [np.full((self.components, 1), self.constant), a], axis=1))
         return self.rhs(len(self.coefficients) - 1)
 
-    def rhs(self, k: int) -> torch.Tensor:
-        """b of solve k (drawn already), the same tensor every call."""
-        c = torch.as_tensor(self.coefficients[k], dtype=torch.float64,
-                            device=self.device)
-        return self._combine(c)
+    def rhs(self, k: int):
+        """b of solve k (drawn already), the same tensor (or slabs) every
+        call."""
+        return self._build(self.coefficients[k])
 
-    def constant_rhs(self) -> torch.Tensor:
+    def constant_rhs(self):
         """b of f = 1 (on every component), the reference program's
         source."""
-        c = torch.zeros(self.n_modes + 1, dtype=torch.float64,
-                        device=self.device)
+        c = torch.zeros(self.n_modes + 1, dtype=torch.float64)
         c[0] = 1.0
         if self.components > 1:
             c = c.expand(self.components, -1)
-        return self._combine(c)
+        return self._build(c)
 
-    def _combine(self, c: torch.Tensor) -> torch.Tensor:
+    def _build(self, coefficients):
+        if self.slab_basis is None:
+            c = torch.as_tensor(coefficients, dtype=torch.float64,
+                                device=self.device)
+            return self._combine(c, self.basis)
+        return [self._combine(torch.as_tensor(coefficients,
+                                              dtype=torch.float64,
+                                              device=basis[0].device), basis)
+                for basis in self.slab_basis]
+
+    def _combine(self, c: torch.Tensor, basis: list) -> torch.Tensor:
         if c.dim() == 2:
-            return torch.stack([self._combine(row) for row in c])
+            return torch.stack([self._combine(row, basis) for row in c])
         if self.dim == 2:
-            b = torch.einsum("t,tx,ty->xy", c, *self.basis)
+            b = torch.einsum("t,tx,ty->xy", c, *basis)
         else:
-            yz = torch.einsum("ty,tz->tyz", *self.basis[1:])
-            b = torch.einsum("tx,tyz->xyz", self.basis[0] * c[:, None], yz)
+            yz = torch.einsum("ty,tz->tyz", *basis[1:])
+            b = torch.einsum("tx,tyz->xyz", basis[0] * c[:, None], yz)
         return b.to(self.dtype)

@@ -18,9 +18,12 @@ The last line of standard output is one JSON object: ``correct``,
 ``attempted`` (solves in the window), ``failed`` (those that missed the
 tolerance), ``metrics``, ``device``, with ``--trace 1`` ``breakdown``, and
 last ``checks``, each compared number beside its limit, which the last
-lines of standard error repeat.  An earlier line gives the card, its power
-limit and clocks, and the seconds the kernel library took to build or
-load.  The run refuses to start when a ``PMG_*`` variable is set (every
+lines of standard error repeat.  A cell on S cards runs on cards 0..S-1;
+``device`` then gives the fullest card's peak memory as
+``memory_peak_bytes``, each card's beside it, and with ``--trace 1`` the
+mean of the cards' busy seconds as ``busy_s``, each card's beside it.
+Earlier lines give each card, its power limit and clocks, and the seconds
+the kernel library took to build or load.  The run refuses to start when a ``PMG_*`` variable is set (every
 cell measures the program's default path), and exits non-zero with no
 result without a CUDA card, or when the process holds JAX or the JAX
 package once the window has closed.
@@ -73,56 +76,62 @@ def card_line(index: int) -> str:
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def execute(args, device: str, root: Path = ROOT) -> dict:
-    """Run the cell of ``root/BENCHMARK.json`` on ``device``; returns the
-    result line's object.  The command line runs it on the card; the tests
-    call it on the CPU."""
+def execute(args, device, root: Path = ROOT) -> dict:
+    """Run the cell of ``root/BENCHMARK.json`` on ``device`` (a cell on S
+    > 1 cards on cards 0..S-1 of its type, or on a list of S devices:
+    ``session.cell_devices``); returns the result line's object.  The
+    command line runs it on the card; the tests call it on the CPU."""
     import torch
 
     from pmgbench import check, spec
-    from pmgbench.session import RunRecord, Session
+    from pmgbench.session import (RunRecord, Session, card_index, cards,
+                                  cell_devices)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cell = spec.load_cell(root, args.workload)
-    dev = torch.device(device)
-    if dev.type == "cuda":
+    devices = cell_devices(cell, device)
+    on = cards(devices)
+    if on:
         from portable_multigrid_tpu_torch import _build
 
         lib = _build.build()
         how = "built" if lib.build_log else "loaded"
-        print(f"card: {card_line(dev.index or 0)}; kernel library {how} in "
-              f"{lib.build_seconds:.3f} s", flush=True)
-    run = Session(cell, dev)
+        for d in on:
+            print(f"card: {card_line(card_index(d))}; kernel library {how} "
+                  f"in {lib.build_seconds:.3f} s", flush=True)
+    run = Session(cell, devices)
     run.warm_up()
     setup_s = time.perf_counter() - T0
     win = run.window(args.seed, args.seconds, time_precond=bool(args.trace))
     trace = None
     if args.trace:
         trace = run.traced(args.seed, int(cell.traffic["traced_solves"]))
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
+    peaks = [torch.cuda.max_memory_allocated(d) for d in on]
     record = RunRecord(cell=cell, window=win, trace=trace, setup_s=setup_s,
                        hierarchy_build_s=run.hierarchy_build_s,
                        graph_capture_s=run.graph_capture_s(),
                        n_dofs=run.n_dofs)
     run.release()
-    correct, shown = check.judge(check.readings(cell, win, dev),
+    correct, shown = check.judge(check.readings(cell, win, run.device),
                                  cell.checks["limits"])
     metrics = {}
     for m in (cell.per_layer if args.trace else cell.end_to_end):
         value = cell.reader(m["name"])(record)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    dev_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
-                "kind": (torch.cuda.get_device_name(dev)
-                         if dev.type == "cuda" else dev.type),
-                "count": cell.chips, "memory_peak_bytes": peak}
+    dev_info = {"platform": "gpu" if on else run.device.type,
+                "kind": (torch.cuda.get_device_name(on[0]) if on
+                         else run.device.type),
+                "count": len(on) or cell.chips,
+                "memory_peak_bytes": max(peaks, default=0),
+                "memory_peak_bytes_per_card": peaks}
     out = {"correct": correct, "attempted": len(win.solve_s),
            "failed": sum(not c for c in win.converged), "metrics": metrics,
            "device": dev_info}
     if trace is not None:
         dev_info["busy_s"] = trace.busy_s
+        dev_info["busy_s_per_card"] = trace.busy_s_per_card
         dev_info["window_s"] = trace.window_s
         out["breakdown"] = {"device_ops": trace.device_ops,
                             "idle_gaps": trace.idle_gaps}

@@ -63,3 +63,43 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     return torch.device("cuda", 0)
+
+
+def add_sharded_cell(root: Path, bench: dict) -> tuple[str, set]:
+    """A multi-card configuration (``parallel.ShardedGeometricPoisson``,
+    3D Q2 r=3 in float64 on ``sumfac``, four cards: four times the CPU
+    here) under the existing ``f64_tight`` mix, with a checks file that
+    limits ``error`` and ``shared_planes``, added to ``root``'s benchmark
+    and to ``bench`` (every per-layer metric lists the new cell); returns
+    (workload, files added)."""
+    here = root / "benchmark"
+    kwargs = {"dim": 3, "degree": 2, "refinements": 3, "dtype": "float64",
+              "variant": "sumfac"}
+    cfg = {"name": "tiny_sharded3d", "dim": 3, "degree": 2,
+           "refinements": 3, "n_dofs": 17 ** 3, "reference": "laplace",
+           "models": {"float64": {"class": "parallel.ShardedGeometricPoisson",
+                                  "kwargs": kwargs}}}
+    (here / "configs" / "tiny_sharded3d.json").write_text(json.dumps(cfg))
+    cell = "tiny_sharded3d.f64_tight"
+    (here / "checks" / f"{cell}.json").write_text(json.dumps(
+        {"limits": {"error": 1e-8, "shared_planes": 0.0, "failed": 0}}))
+    bench["configs"].append({"name": "tiny_sharded3d", "source": "test",
+                             "file": "benchmark/configs/tiny_sharded3d.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": cell, "config": "tiny_sharded3d",
+                               "traffic": "f64_tight", "chips": 4,
+                               "why": "test"})
+    for m in bench["per_layer"]:
+        m["workloads"].append(cell)
+    return cell, {"configs/tiny_sharded3d.json", f"checks/{cell}.json"}
+
+
+@pytest.fixture(scope="session")
+def sharded_checkout(tmp_path_factory) -> Path:
+    """A checkout with :func:`add_sharded_cell`'s cell beside the tiny
+    ones."""
+    root = make_checkout(tmp_path_factory.mktemp("sharded"))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    add_sharded_cell(root, bench)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+    return root

@@ -92,3 +92,68 @@ def test_sound_runs_are_correct_on_many_seeds(checkout):
     for seed in (1, 2**31 - 1, 2**31 + 99):
         for workload in sorted(CELLS):
             assert execute(checkout, workload, seed)["correct"] is True
+
+
+SHARDED = "tiny_sharded3d.f64_tight"
+
+
+def _right_copy_off(parts):
+    """The right owner's copy of the first shared plane off by 1% of max
+    |x|."""
+    top = max(float(t.abs().max()) for t in parts)
+    out = [t.clone() for t in parts]
+    out[1][0] += 1e-2 * top
+    return out
+
+
+def _slab_zeroed(parts):
+    return [torch.zeros_like(t) if s == 2 else t
+            for s, t in enumerate(parts)]
+
+
+def _all_zero(parts):
+    return [torch.zeros_like(t) for t in parts]
+
+
+def test_sharded_sound_runs_are_correct(sharded_checkout):
+    for seed in (5, 2**31 + 7):
+        out = execute(sharded_checkout, SHARDED, seed)
+        assert out["correct"] is True, out["checks"]
+        assert out["checks"]["shared_planes"]["value"] == 0.0
+
+
+def test_sharded_control_is_not_correct(sharded_checkout, monkeypatch):
+    """The float32 reference operator, gathered and re-slabbed, in the
+    place of the sharded float64 operator."""
+    cell = spec.load_cell(sharded_checkout, SHARDED)
+    A = calibrate.control_operator(cell, torch.device("cpu"))
+    program = session.Session.callables
+    monkeypatch.setattr(session.Session, "callables",
+                        lambda self: (A, program(self)[1]))
+    out = execute(sharded_checkout, SHARDED)
+    assert out["correct"] is False
+    c = out["checks"]["error"]
+    assert c["value"] > c["limit"]
+
+
+@pytest.mark.parametrize("fault", ["right_copy_off", "slab_zeroed",
+                                   "all_zero"])
+def test_sharded_fault_is_not_correct(sharded_checkout, fault, monkeypatch):
+    """A fault planted in the solution that the timed path hands back, as
+    the slabs the harness keeps."""
+    change = {"right_copy_off": _right_copy_off, "slab_zeroed": _slab_zeroed,
+              "all_zero": _all_zero}[fault]
+    held = session.Session.held
+    monkeypatch.setattr(session.Session, "held",
+                        lambda self, x: change(held(self, x)))
+    out = execute(sharded_checkout, SHARDED)
+    assert out["correct"] is False
+    failing = {k for k, c in out["checks"].items() if c["value"] > c["limit"]}
+    if fault == "right_copy_off":
+        # the gathered x takes the left owner's copy: only the copies'
+        # difference shows the fault
+        assert failing == {"shared_planes"}
+        assert out["checks"]["shared_planes"]["value"] == pytest.approx(
+            1e-2, rel=1e-6)
+    else:
+        assert "error" in failing

@@ -11,7 +11,7 @@ import sys
 
 import pytest
 
-from conftest import BENCH, ROOT, make_checkout
+from conftest import BENCH, ROOT, add_sharded_cell, make_checkout
 
 
 def digests(folder):
@@ -83,8 +83,9 @@ def vector_cell(root, bench):
                   "configs/elasticity_dense.py", f"checks/{cell}.json"}
 
 
-@pytest.mark.parametrize("make_cell", [scalar_cell, vector_cell],
-                         ids=["scalar", "vector"])
+@pytest.mark.parametrize("make_cell", [scalar_cell, vector_cell,
+                                       add_sharded_cell],
+                         ids=["scalar", "vector", "sharded"])
 def test_new_cell_from_new_files(tmp_path, make_cell):
     root = make_checkout(tmp_path)
     here = root / "benchmark"
@@ -116,3 +117,9 @@ def test_new_cell_from_new_files(tmp_path, make_cell):
         assert out["checks"]["error"]["value"] <= 1e-8
         # on the CPU the readers of device numbers find nothing to read
         assert set(out["metrics"]) == {"hierarchy_build_s", "cg_iterations"}
+    if make_cell is add_sharded_cell:
+        # four slabs whose shared planes agree; no card on the CPU
+        assert out["checks"]["shared_planes"] == {"value": 0.0, "limit": 0.0}
+        assert out["device"]["count"] == 4
+        assert out["device"]["memory_peak_bytes_per_card"] == []
+        assert out["device"]["busy_s_per_card"] == []

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from conftest import BENCH
-from pmgbench import traffic
+from pmgbench import slabs, traffic
 from portable_multigrid_tpu_torch import ElasticityMultigrid
 from portable_multigrid_tpu_torch.fem.assemble import assemble_rhs
 from portable_multigrid_tpu_torch.fem.mesh import HyperCubeMesh
@@ -139,3 +139,30 @@ def test_rhs_in_the_solve_dtype(components):
     s = stream(3, 1, dtype=torch.float32, components=components)
     assert s.next_rhs().dtype == torch.float32
     assert s.constant_rhs().dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_slabs", [2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_slabs_are_the_whole_streams(dim, n_slabs, dtype):
+    """A multi-card stream's slabs against the whole stream of the same
+    seed: the same draws, and on every slab's planes the same b, bit for
+    bit; the slabs share their boundary planes."""
+    cfg = {"dim": dim, "degree": 3, "refinements": 3}
+    seed = 2**33 + 5
+    whole = traffic.SourceStream(MIX, cfg, dtype, "cpu", seed)
+    sliced = traffic.SourceStream(MIX, cfg, dtype, "cpu", seed,
+                                  devices=["cpu"] * n_slabs)
+    bounds = slabs.bounds(cfg, n_slabs)
+    for k in range(3):
+        b, parts = whole.next_rhs(), sliced.next_rhs()
+        assert len(parts) == n_slabs
+        for (lo, hi), part in zip(bounds, parts):
+            assert part.dtype == dtype
+            assert torch.equal(part, b[lo:hi])
+        assert torch.equal(slabs.gather(parts, "cpu"), b)
+        assert np.array_equal(whole.coefficients[k], sliced.coefficients[k])
+    for (lo, hi), part in zip(bounds, sliced.constant_rhs()):
+        assert torch.equal(part, whole.constant_rhs()[lo:hi])
+    assert all(torch.equal(p, q[lo:hi]) for (lo, hi), p, q in zip(
+        bounds, sliced.rhs(1), [whole.rhs(1)] * n_slabs))
